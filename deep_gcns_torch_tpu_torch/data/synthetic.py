@@ -1,0 +1,59 @@
+"""Synthetic graph generators (counterpart of
+`deep_gcns_torch_tpu/data/synthetic.py:15-60`).
+
+Pure numpy on the caller's `np.random.Generator`, drawing in the same order
+as the JAX package, so the same seed gives the same graph in both.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ..graph import Graph, add_self_loops, build_graph, to_undirected
+
+
+def random_node_graph(rng: np.random.Generator, n: int, avg_degree: int, c: int,
+                      num_classes: int = 0, edge_dim: int = 0,
+                      node_pad: Optional[int] = None, edge_pad: Optional[int] = None,
+                      self_loops: bool = False, undirected: bool = False,
+                      with_row_ptr: bool = True):
+    """Uniform random graph with features (and labels); returns (Graph, labels)."""
+    e = n * avg_degree
+    s = rng.integers(0, n, e)
+    r = rng.integers(0, n, e)
+    if undirected:
+        s, r = to_undirected(s, r)
+    if self_loops:
+        s, r = add_self_loops(s, r, n)
+    x = rng.standard_normal((n, c)).astype(np.float32)
+    ea = rng.standard_normal((len(s), edge_dim)).astype(np.float32) if edge_dim else None
+    g = build_graph(x, s, r, edge_attr=ea, num_nodes=n, node_pad=node_pad,
+                    edge_pad=edge_pad, with_row_ptr=with_row_ptr)
+    labels = rng.integers(0, num_classes, n) if num_classes else None
+    return g, labels
+
+
+def sbm_arxiv_like(rng: np.random.Generator, n: int = 4096, num_classes: int = 16,
+                   c: int = 32, avg_degree: int = 12, homophily: float = 0.9,
+                   node_pad: Optional[int] = None, edge_pad: Optional[int] = None
+                   ) -> Tuple[Graph, np.ndarray]:
+    """Stochastic-block-model node classification task with a learnable
+    signal (the stand-in for ogbn-arxiv when no dataset is at hand)."""
+    labels = rng.integers(0, num_classes, n)
+    centers = rng.standard_normal((num_classes, c)).astype(np.float32)
+    x = centers[labels] + 1.5 * rng.standard_normal((n, c)).astype(np.float32)
+    e = n * avg_degree
+    src = rng.integers(0, n, e)
+    same = rng.random(e) < homophily
+    by_class = {k: np.flatnonzero(labels == k) for k in range(num_classes)}
+    dst = rng.integers(0, n, e)
+    for k, idx in by_class.items():
+        m = same & (labels[src] == k)
+        if idx.size and m.any():
+            dst[m] = idx[rng.integers(0, idx.size, int(m.sum()))]
+    s, r = to_undirected(src, dst)
+    s, r = add_self_loops(s, r, n)
+    g = build_graph(x, s, r, num_nodes=n, node_pad=node_pad, edge_pad=edge_pad)
+    return g, labels

@@ -1,0 +1,182 @@
+"""Segment reductions with the reference's torch_scatter semantics, in plain
+PyTorch (counterpart of `deep_gcns_torch_tpu/ops/segment.py:112-370`).
+
+* Out-of-range segment ids (the ``N_pad`` sentinel of padded edges) and
+  masked entries contribute nothing.
+* Empty segments give 0 for sum/mean and for max/min.
+* The max/min backward splits the gradient evenly over exact ties.
+* `generalized_aggregate` is DeeperGCN's SoftMax/PowerMean family with the
+  reference's stop-gradient softmax weights unless ``learn_t`` (for softmax
+  and softmax_sum), the power clamps to [1e-7, 10] and the degree scaling
+  of the ``*_sum`` variants.
+
+These are the CPU path and the oracle of the GENConv routes that have no
+kernel of their own.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+Scalar = Union[torch.Tensor, float]
+
+
+def _valid(segment_ids: torch.Tensor, num_segments: int,
+           mask: Optional[torch.Tensor]) -> torch.Tensor:
+    ok = segment_ids < num_segments
+    return ok if mask is None else ok & mask
+
+
+def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return v.reshape((-1,) + (1,) * (like.ndim - 1))
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    ok = _valid(segment_ids, num_segments, mask)
+    data = torch.where(_bcast(ok, data), data, torch.zeros((), dtype=data.dtype,
+                                                            device=data.device))
+    ids = torch.clamp(segment_ids.long(), max=num_segments - 1)
+    out = torch.zeros((num_segments,) + data.shape[1:], dtype=data.dtype,
+                      device=data.device)
+    return out.index_add(0, ids, data)
+
+
+def segment_degree(segment_ids: torch.Tensor, num_segments: int,
+                   mask: Optional[torch.Tensor] = None,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Number of valid entries per segment (PyG `degree`)."""
+    ones = torch.ones(segment_ids.shape, dtype=dtype, device=segment_ids.device)
+    return segment_sum(ones, segment_ids, num_segments, mask)
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    s = segment_sum(data, segment_ids, num_segments, mask)
+    cnt = segment_degree(segment_ids, num_segments, mask, s.dtype)
+    return s / _bcast(torch.clamp_min(cnt, 1), s)
+
+
+class _SegmentExtreme(torch.autograd.Function):
+    """Segment max/min whose backward routes the cotangent to the entries
+    equal to their segment's extreme, split evenly among exact ties."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, mask, num_segments, kind):
+        fill = float("-inf") if kind == "max" else float("inf")
+        ok = _bcast(_valid(segment_ids, num_segments, mask), data)
+        filled = torch.where(ok, data, torch.full((), fill, dtype=data.dtype,
+                                                   device=data.device))
+        ids = torch.clamp(segment_ids.long(), max=num_segments - 1)
+        idx = _bcast(ids, data).expand_as(data)
+        out = torch.full((num_segments,) + data.shape[1:], fill, dtype=data.dtype,
+                         device=data.device)
+        out = out.scatter_reduce(0, idx, filled, "amax" if kind == "max" else "amin",
+                                 include_self=True)
+        out = torch.where(torch.isfinite(out), out, torch.zeros((), dtype=out.dtype,
+                                                                 device=out.device))
+        ctx.save_for_backward(filled, ids, ok, out)
+        ctx.num_segments = num_segments
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        filled, ids, ok, out = ctx.saved_tensors
+        out_e = out.index_select(0, ids)
+        elig = (filled == out_e) & torch.isfinite(filled) & ok
+        cnt = segment_sum(elig.float(), ids, ctx.num_segments)
+        cnt_e = torch.clamp_min(cnt, 1.0).index_select(0, ids)
+        g_e = g.float().index_select(0, ids)
+        dd = torch.where(elig, g_e / cnt_e, torch.zeros((), device=g.device))
+        return dd.to(filled.dtype), None, None, None, None
+
+
+def segment_max(data, segment_ids, num_segments, mask=None):
+    return _SegmentExtreme.apply(data, segment_ids, mask, num_segments, "max")
+
+
+def segment_min(data, segment_ids, num_segments, mask=None):
+    return _SegmentExtreme.apply(data, segment_ids, mask, num_segments, "min")
+
+
+def scatter(name: str, data: torch.Tensor, segment_ids: torch.Tensor,
+            num_segments: int, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Named dispatch (reference `scatter_`)."""
+    fns = {"add": segment_sum, "sum": segment_sum, "mean": segment_mean,
+           "max": segment_max, "min": segment_min}
+    return fns[name](data, segment_ids, num_segments, mask)
+
+
+def segment_softmax(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-(segment, channel) softmax weights over entries, stabilised by the
+    per-segment max (torch_scatter.scatter_softmax); masked entries get 0."""
+    ok = _bcast(_valid(segment_ids, num_segments, mask), data)
+    ids = torch.clamp(segment_ids.long(), max=num_segments - 1)
+    with torch.no_grad():
+        logits = torch.where(ok, data, torch.full((), float("-inf"), dtype=data.dtype,
+                                                   device=data.device))
+        seg_max = torch.full((num_segments,) + data.shape[1:], float("-inf"),
+                             dtype=data.dtype, device=data.device)
+        seg_max = seg_max.scatter_reduce(0, _bcast(ids, data).expand_as(data), logits,
+                                         "amax", include_self=True)
+        seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+                              torch.zeros((), dtype=data.dtype, device=data.device))
+    e = torch.exp(data - seg_max.index_select(0, ids))
+    e = torch.where(ok, e, torch.zeros((), dtype=e.dtype, device=e.device))
+    denom = segment_sum(e, segment_ids, num_segments)
+    denom = torch.clamp_min(denom, torch.finfo(e.dtype).tiny)
+    return e / denom.index_select(0, ids)
+
+
+def _deg_scale(out, segment_ids, num_segments, mask, y):
+    deg = segment_degree(segment_ids, num_segments, mask, out.dtype)
+    return torch.pow(deg, torch.sigmoid(torch.as_tensor(y)))[:, None] * out
+
+
+def generalized_aggregate(
+    msgs: torch.Tensor,
+    receivers: torch.Tensor,
+    num_segments: int,
+    *,
+    aggr: str = "softmax",
+    t: Scalar = 1.0,
+    p: Scalar = 1.0,
+    y: Scalar = 0.0,
+    learn_t: bool = False,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """DeeperGCN generalized aggregation over receiver-keyed messages.
+
+    aggr ∈ {softmax, softmax_sg, softmax_sum, power, power_sum, add/sum,
+    mean, max, min}."""
+    if aggr in ("add", "sum"):
+        return segment_sum(msgs, receivers, num_segments, mask)
+    if aggr == "mean":
+        return segment_mean(msgs, receivers, num_segments, mask)
+    if aggr == "max":
+        return segment_max(msgs, receivers, num_segments, mask)
+    if aggr == "min":
+        return segment_min(msgs, receivers, num_segments, mask)
+
+    if aggr in ("softmax", "softmax_sg", "softmax_sum"):
+        w = segment_softmax(msgs * t, receivers, num_segments, mask)
+        if not (learn_t and aggr in ("softmax", "softmax_sum")):
+            w = w.detach()
+        out = segment_sum(msgs * w, receivers, num_segments, mask)
+        if aggr == "softmax_sum":
+            out = _deg_scale(out, receivers, num_segments, mask, y)
+        return out
+
+    if aggr in ("power", "power_sum"):
+        lo, hi = 1e-7, 1e1
+        m = torch.clamp(msgs, lo, hi)
+        out = segment_mean(torch.pow(m, p), receivers, num_segments, mask)
+        out = torch.pow(torch.clamp(out, lo, hi), 1.0 / p)
+        if aggr == "power_sum":
+            out = _deg_scale(out, receivers, num_segments, mask, y)
+        return out
+
+    raise NotImplementedError(f"aggregation '{aggr}' is not implemented")

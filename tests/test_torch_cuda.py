@@ -1,0 +1,151 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one. The file imports
+no JAX, so it also runs on a machine that has only PyTorch:
+
+    pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(`--noconftest` skips tests/conftest.py, which sets up JAX for the other
+test files.)
+
+Tolerances (those of chip_smoke.py): each per-edge term of K1 and K2 is bit
+for bit the plain version's; only the order of the float32 sums differs, so
+float32 agrees to 1e-5 relative and bfloat16 to one ulp (2^-7 relative) of
+the final rounding, each above a floor of 1e-5 of the largest value, where
+sums of mixed signs cancel.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deep_gcns_torch_tpu_torch.graph import build_graph
+from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig
+from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
+
+TOL = {torch.float32: dict(rtol=1e-5, atol_rel=1e-5),
+       torch.bfloat16: dict(rtol=2.0 ** -7, atol_rel=1e-5)}
+# the backward rounds den, q and K1's output to x's dtype once each
+TOL_BWD = {torch.float32: dict(rtol=1e-5, atol_rel=1e-5),
+           torch.bfloat16: dict(rtol=2.0 ** -5, atol_rel=1e-4)}
+# dt: a float32 sum over N*C terms with cancellation
+TOL_DT = {torch.float32: dict(rtol=1e-4, atol_rel=0.0),
+          torch.bfloat16: dict(rtol=1e-2, atol_rel=0.0)}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run `pytest --noconftest -m cuda "
+                    "tests/test_torch_cuda.py` on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _graph(dev, c, seed=0, n=5000, e=60000):
+    """A random graph with one hub row (8000 in-edges) and isolated nodes."""
+    rng = np.random.default_rng(seed)
+    s, r = rng.integers(0, n, e), rng.integers(0, n - 100, e)
+    r[:8000] = 7
+    x = rng.standard_normal((n, c)).astype(np.float32)
+    return build_graph(x, s, r, num_nodes=n).to(dev)
+
+
+def _assert_close(got, want, rtol, atol_rel, ref_max=None):
+    """|got − want| ≤ rtol·|want| + atol_rel·ref_max, ref_max defaulting to
+    max|want|."""
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if ref_max is None:
+        ref_max = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol_rel * ref_max + 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [128, 30])
+def test_forward_kernels_match_plain(cuda_device, dtype, c):
+    """C=128 takes the 4-wide loads, C=30 the scalar ones."""
+    g = _graph(cuda_device, c)
+    tol = TOL[dtype]
+    x = g.x.to(dtype).contiguous()
+    t = torch.tensor([0.1], device=cuda_device)
+    cmax = tsp.fused_cmax(x, t, 1e-7)
+    k1, k2 = tsp.csr_seg_sum.launches, tsp.softmax_agg.launches
+
+    out, den = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7)
+    out_p, den_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7)
+    _assert_close(out, out_p, **tol)
+    _assert_close(den, den_p, **tol)
+    msgs = torch.randn(g.num_edges_padded, c, device=cuda_device).to(dtype)
+    _assert_close(tsp.csr_seg_sum(msgs, g.row_ptr), tsp.csr_seg_sum_plain(msgs, g.row_ptr),
+                  **tol)
+    _assert_close(tsp.csr_seg_sum(x, g.csc_col_ptr, g.csc_receivers),
+                  tsp.csr_seg_sum_plain(x, g.csc_col_ptr, g.csc_receivers), **tol)
+    torch.cuda.synchronize()
+    assert (tsp.csr_seg_sum.launches - k1, tsp.softmax_agg.launches - k2) == (2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad_weights", [False, True])
+def test_fused_backward_matches_plain(cuda_device, dtype, grad_weights):
+    g = _graph(cuda_device, 128, seed=1)
+    x = g.x.to(dtype).contiguous()
+    res = []
+    for fn in (tsp.fused_softmax_gather_agg, tsp.fused_softmax_gather_agg_plain):
+        xx = x.detach().clone().requires_grad_(True)
+        tt = torch.tensor([0.1], device=cuda_device, requires_grad=grad_weights)
+        o = fn(xx, g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr, tt, 1e-7,
+               grad_weights)
+        (o.float() ** 2).sum().backward()
+        res.append((o.detach(), xx.grad, tt.grad))
+    _assert_close(res[0][0], res[1][0], **TOL[dtype])
+    _assert_close(res[0][1], res[1][1], **TOL_BWD[dtype])
+    if grad_weights:
+        _assert_close(res[0][2], res[1][2], **TOL_DT[dtype])
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    g = _graph(cuda_device, 32)
+    x = g.x
+    with pytest.raises(ValueError):
+        tsp.csr_seg_sum(x, g.csc_col_ptr.long(), g.csc_receivers)
+    with pytest.raises(ValueError):
+        tsp.csr_seg_sum(x.half(), g.csc_col_ptr, g.csc_receivers)
+    with pytest.raises(ValueError):
+        tsp.csr_seg_sum(x.t(), g.csc_col_ptr, g.csc_receivers)
+    with pytest.raises(ValueError):
+        tsp.softmax_agg(x, g.senders, g.row_ptr.cpu(), torch.tensor([1.0], device=x.device),
+                        tsp.fused_cmax(x, torch.tensor([1.0], device=x.device), 1e-7), 1e-7)
+
+
+@pytest.mark.cuda
+def test_small_deeper_gcn_card_matches_cpu(cuda_device):
+    """The same weights through the kernels on the card and the plain
+    versions on the CPU (float32, 4 layers, learned t)."""
+    rng = np.random.default_rng(2)
+    n = 3000
+    g = build_graph(rng.standard_normal((n, 32)).astype(np.float32),
+                    rng.integers(0, n, 30000), rng.integers(0, n, 30000), num_nodes=n)
+    cfg = DeeperGCNConfig(in_channels=32, hidden_channels=64, num_tasks=7, num_layers=4,
+                          block="res+", aggr="softmax", learn_t=True, t=0.5, norm="batch",
+                          mlp_layers=1, dropout=0.0)
+    co = torch.from_numpy(rng.standard_normal((g.num_nodes_padded, 7)).astype(np.float32))
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = DeeperGCN(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+        model.train()
+        gd = g.to(dev)
+        logits = model(gd.x, gd)
+        (logits * co.to(dev)).sum().backward()
+        outs.append((logits.detach().cpu(),
+                     {k: p.grad.detach().cpu() for k, p in model.named_parameters()}))
+    # float32 through 4 layers: summation order in K1/K2, BatchNorm and matmuls
+    _assert_close(outs[0][0], outs[1][0], 1e-4, 1e-4)
+    # a bias that feeds a BatchNorm has a true gradient of 0 and returns
+    # rounding noise: the floor is set by the largest gradient of all
+    g_max = max(float(v.abs().max()) for v in outs[1][1].values())
+    for k, want in outs[1][1].items():
+        _assert_close(outs[0][1][k], want, 1e-3, 1e-4, ref_max=g_max)

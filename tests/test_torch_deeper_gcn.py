@@ -1,0 +1,118 @@
+"""The port's DeeperGCN against the JAX package's on carried-across weights
+(logits, new BatchNorm state, every parameter gradient, one Adam step), and
+against the reference golden `ref_deepergcn2.npz`."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from deep_gcns_torch_tpu.data.synthetic import random_node_graph as jax_random_graph
+from deep_gcns_torch_tpu.models import DeeperGCN as JaxDeeperGCN
+from deep_gcns_torch_tpu.models import DeeperGCNConfig as JaxConfig
+from deep_gcns_torch_tpu_torch.data.synthetic import random_node_graph
+from deep_gcns_torch_tpu_torch.graph import build_graph
+from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig
+from deep_gcns_torch_tpu_torch.utils.import_jax import deeper_gcn_state_dict_from_jax
+from deep_gcns_torch_tpu_torch.utils.optim import make_optimizer
+
+# f32 on both sides; the difference is summation order through 4 layers
+TOL = dict(rtol=1e-4, atol=1e-4)
+GOLD = os.path.join(os.path.dirname(__file__), "goldens")
+CASES = [("res+", "softmax_sg", False), ("res+", "softmax", True),
+         ("res", "softmax_sg", False), ("res", "softmax", True)]
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("block,aggr,learn_t", CASES)
+def test_deeper_gcn_matches_jax(block, aggr, learn_t):
+    kw = dict(in_channels=16, hidden_channels=32, num_tasks=7, num_layers=4, block=block,
+              aggr=aggr, t=0.5, learn_t=learn_t, norm="batch", mlp_layers=1, dropout=0.0)
+    jcfg, tcfg = JaxConfig(**kw), DeeperGCNConfig(**kw)
+    gj, _ = jax_random_graph(np.random.default_rng(0), 300, 6, 16, self_loops=True)
+    gt, _ = random_node_graph(np.random.default_rng(0), 300, 6, 16, self_loops=True)
+    co = np.random.default_rng(1).standard_normal((gj.num_nodes_padded, 7)).astype(np.float32)
+    co[300:] = 0.0
+
+    jmodel = JaxDeeperGCN(jcfg)
+    params, state = jmodel.init(jax.random.PRNGKey(0))
+
+    def loss_j(p):
+        logits, ns = jmodel.apply(p, state, jnp.asarray(gj.x), gj, train=True)
+        return jnp.sum(logits * co), (logits, ns)
+
+    (_, (logits_j, ns_j)), gp_j = jax.value_and_grad(loss_j, has_aux=True)(params)
+
+    model = DeeperGCN(tcfg)
+    model.load_state_dict(deeper_gcn_state_dict_from_jax(_np_tree(params), _np_tree(state),
+                                                         jcfg))
+    model.train()
+    opt = make_optimizer("adam", model.parameters(), 1e-2)
+    logits_t = model(gt.x, gt)
+    (logits_t * torch.from_numpy(co)).sum().backward()
+    np.testing.assert_allclose(logits_t.detach().numpy(), np.asarray(logits_j), **TOL)
+
+    want_state = deeper_gcn_state_dict_from_jax(_np_tree(params), _np_tree(ns_j), jcfg)
+    want_grad = deeper_gcn_state_dict_from_jax(_np_tree(gp_j), _np_tree(ns_j), jcfg)
+    for k, buf in model.named_buffers():
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(buf.numpy(), want_state[k].numpy(), err_msg=k, **TOL)
+    named = dict(model.named_parameters())
+    assert set(named) <= set(want_grad)
+    for k, p in named.items():
+        np.testing.assert_allclose(p.grad.numpy(), want_grad[k].numpy(), err_msg=k, **TOL)
+
+    # one Adam step from the SAME gradients: a bias that feeds a BatchNorm has
+    # a true gradient of 0, and Adam's first step turns the noise-level
+    # difference between the two gradients into ±lr
+    tx = optax.adam(1e-2)
+    upd, _ = tx.update(gp_j, tx.init(params), params)
+    want_new = deeper_gcn_state_dict_from_jax(
+        _np_tree(optax.apply_updates(params, upd)), _np_tree(ns_j), jcfg)
+    for k, p in named.items():
+        p.grad = want_grad[k].clone()
+    opt.step()
+    for k, p in named.items():
+        np.testing.assert_allclose(p.detach().numpy(), want_new[k].numpy(), err_msg=k,
+                                   **TOL)
+
+
+def test_deepergcn2_reference_golden():
+    z = np.load(os.path.join(GOLD, "ref_deepergcn2.npz"))
+    sd = {k[3:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd.")}
+    gd = {k[3:]: z[k] for k in z.files if k.startswith("gd.")}
+    ei = z["edge_index"]
+    g = build_graph(z["x"], ei[0], ei[1], num_nodes=z["x"].shape[0])
+    model = DeeperGCN(DeeperGCNConfig(
+        in_channels=16, hidden_channels=24, num_tasks=5, num_layers=2, block="res+",
+        aggr="softmax", learn_t=True, norm="batch", mlp_layers=1, dropout=0.0))
+    model.load_state_dict(sd)
+    model.train()
+    x = g.x.clone().requires_grad_(True)
+    n = z["co"].shape[0]
+    # the reference arxiv model ends in log_softmax; the port emits logits
+    out = torch.log_softmax(model(x, g)[:n], dim=-1)
+    (out * torch.from_numpy(z["co"])).sum().backward()
+    tol = dict(rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(out.detach().numpy(), z["out"], err_msg="out", **tol)
+    np.testing.assert_allclose(x.grad[:n].numpy(), z["gx"], err_msg="gx", **tol)
+    named = dict(model.named_parameters())
+    assert set(named) == set(gd)
+    for k, want in gd.items():
+        np.testing.assert_allclose(named[k].grad.numpy(), want, err_msg=k, **tol)
+
+
+def test_unported_options_raise():
+    base = dict(in_channels=4, hidden_channels=8, num_tasks=2, num_layers=2)
+    for opt in (dict(edge_mode="per_layer"), dict(remat=True),
+                dict(checkpoint_prologue=True), dict(add_virtual_node=True),
+                dict(graph_pooling="mean"), dict(node_encoder="atom")):
+        with pytest.raises(NotImplementedError):
+            DeeperGCN(DeeperGCNConfig(**base, **opt))

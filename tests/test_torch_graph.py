@@ -1,0 +1,85 @@
+"""The port's graph builders against the JAX package's: bit-identical arrays.
+
+The JAX builder sorts with its C++ counting sort (`native/`) where that
+library builds, so these tests also hold that sort to the port's numpy
+stable argsort."""
+
+import numpy as np
+import pytest
+
+import deep_gcns_torch_tpu.graph as jg
+import deep_gcns_torch_tpu.data.synthetic as jsyn
+import deep_gcns_torch_tpu_torch.graph as tg
+import deep_gcns_torch_tpu_torch.data.synthetic as tsyn
+
+FIELDS = ("x", "senders", "receivers", "edge_attr", "node_mask", "edge_mask",
+          "node_graph", "row_ptr", "csc_perm", "csc_senders", "csc_col_ptr",
+          "csc_receivers", "edge_attr_csc")
+
+
+def assert_same_graph(jax_g, torch_g):
+    for f in FIELDS:
+        a, b = getattr(jax_g, f), getattr(torch_g, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            a, b = np.asarray(a), b.numpy()
+            assert a.dtype == b.dtype and a.shape == b.shape, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+    assert int(jax_g.n_node) == torch_g.n_node
+    assert int(jax_g.n_edge) == torch_g.n_edge
+    assert jax_g.num_graphs == torch_g.num_graphs
+
+
+@pytest.mark.parametrize("edge_dim", [0, 5])
+def test_build_graph_bit_identical(edge_dim):
+    rng = np.random.default_rng(3)
+    n, e = 300, 2000
+    s = rng.integers(0, n, e)
+    r = rng.integers(0, n, e)
+    x = rng.standard_normal((n, 7)).astype(np.float32)
+    ea = rng.standard_normal((e, edge_dim)).astype(np.float32) if edge_dim else None
+    assert_same_graph(jg.build_graph(x, s, r, edge_attr=ea, num_nodes=n),
+                      tg.build_graph(x, s, r, edge_attr=ea, num_nodes=n))
+
+
+def test_batch_graphs_bit_identical():
+    rng = np.random.default_rng(4)
+    graphs = []
+    for n in (13, 40, 7):
+        e = 3 * n
+        graphs.append({"x": rng.standard_normal((n, 4)).astype(np.float32),
+                       "senders": rng.integers(0, n, e),
+                       "receivers": rng.integers(0, n, e),
+                       "edge_attr": rng.standard_normal((e, 2)).astype(np.float32)})
+    assert_same_graph(jg.batch_graphs(graphs), tg.batch_graphs(graphs))
+
+
+def test_self_loops_and_undirected_identical():
+    rng = np.random.default_rng(5)
+    s, r = rng.integers(0, 50, 400), rng.integers(0, 50, 400)
+    for a, b in zip(jg.add_self_loops(s, r, 50), tg.add_self_loops(s, r, 50)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(jg.to_undirected(s, r), tg.to_undirected(s, r)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_random_node_graph_identical():
+    kw = dict(n=400, avg_degree=6, c=16, num_classes=5, self_loops=True)
+    gj, lj = jsyn.random_node_graph(np.random.default_rng(0), **kw)
+    gt, lt = tsyn.random_node_graph(np.random.default_rng(0), **kw)
+    assert_same_graph(gj, gt)
+    np.testing.assert_array_equal(lj, lt)
+
+
+def test_sbm_arxiv_like_identical():
+    gj, lj = jsyn.sbm_arxiv_like(np.random.default_rng(1), n=600, num_classes=6, c=8)
+    gt, lt = tsyn.sbm_arxiv_like(np.random.default_rng(1), n=600, num_classes=6, c=8)
+    assert_same_graph(gj, gt)
+    np.testing.assert_array_equal(lj, lt)
+
+
+def test_graph_to_cpu_keeps_arrays():
+    g = tg.build_graph(None, np.array([0, 1]), np.array([1, 0]), num_nodes=2)
+    h = g.to("cpu")
+    assert h.n_node == 2 and h.row_ptr.dtype == g.row_ptr.dtype
+    np.testing.assert_array_equal(h.csc_col_ptr.numpy(), g.csc_col_ptr.numpy())
