@@ -2,13 +2,16 @@
 (counterpart of `examples/ogbn_arxiv/main.py:18-215`).
 
     python -m deep_gcns_torch_tpu_torch.apps.ogbn_arxiv --synthetic \\
-        [--synthetic_nodes N] [--epochs E] [--device cuda|cpu]
+        [--synthetic_nodes N] [--epochs E] [--device cuda|cpu] \\
+        [--reorder none|rcm|cluster] [--band off|auto]
 
 Same defaults as the JAX app: ResGEN-28 (res+, softmax_sg, t=0.1, batch
 norm, one-layer MLP), C=128, dropout 0.5, Adam lr 0.01. One train step per
-epoch and an eval `predict` every 5 epochs and at the last. This slice has
-the synthetic SBM task only; OGB loading, reordering, the band route and the
-parallel flags come later.
+epoch and an eval `predict` every 5 epochs and at the last. ``--reorder``
+relabels the graph by a locality pass (`data/reorder.py`) and ``--band auto``
+attaches the band adjacency, which moves GENConv's aggregation to the band
+route (`examples/ogbn_arxiv/main.py:38-70, 102-118`). This slice has the
+synthetic SBM task only; OGB loading and the parallel flags come later.
 """
 
 from __future__ import annotations
@@ -20,9 +23,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..data.reorder import cluster_order, invert_permutation, permute_graph, rcm_order
 from ..data.synthetic import sbm_arxiv_like
 from ..device import resolve_device
-from ..graph import Graph
+from ..graph import Graph, attach_band, build_graph
 from ..models import DeeperGCN, DeeperGCNConfig
 from ..utils.loss import cross_entropy
 from ..utils.metrics import accuracy
@@ -51,7 +55,37 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--learn_t", action="store_true")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--reorder", type=str, default="none", choices=["none", "rcm", "cluster"],
+                   help="host locality reordering (data/reorder.py) before building "
+                        "the graph; enables the gather-free band aggregation")
+    p.add_argument("--band", type=str, default="off", choices=["off", "auto"],
+                   help="attach the band-dense adjacency (ops/band.py); combine with "
+                        "--reorder cluster on real graphs")
     return p.parse_args(argv)
+
+
+def _reorder(args, s, r, n, x_np, labels, splits):
+    """Apply the selected locality pass; node arrays and split index sets are
+    relabelled consistently (the metrics do not depend on node order)."""
+    if args.reorder == "none":
+        return s, r, x_np, labels, splits
+    if args.reorder == "rcm":
+        perm = rcm_order(s, r, n)
+    else:
+        perm = cluster_order(s, r, n, cluster_size=4096)
+    s, r, x_np, labels = permute_graph(perm, s, r, x_np, np.asarray(labels))
+    inv = invert_permutation(np.asarray(perm))
+    splits = {k: inv[np.asarray(v)] for k, v in splits.items()}
+    return s, r, x_np, labels, splits
+
+
+def _maybe_band(args, g: Graph) -> Graph:
+    if args.band == "off":
+        return g
+    g = attach_band(g)
+    print(f"band attached: window={g.band.fwd.window} coverage={g.band.fwd.coverage:.3f} "
+          f"(bwd {g.band.bwd.coverage:.3f})", flush=True)
+    return g
 
 
 def train_step(model: DeeperGCN, opt: torch.optim.Optimizer, g: Graph,
@@ -84,6 +118,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     perm = rng.permutation(n)
     splits = {"train": perm[: int(0.6 * n)], "valid": perm[int(0.6 * n): int(0.8 * n)],
               "test": perm[int(0.8 * n):]}
+    if args.reorder != "none" or args.band != "off":
+        # rebuild through the same reorder/band pipeline as real data
+        s = g.senders[:g.n_edge].numpy()
+        r = g.receivers[:g.n_edge].numpy()
+        x_np = g.x[:n].numpy()
+        s, r, x_np, labels, splits = _reorder(args, s, r, n, x_np, labels, splits)
+        g = _maybe_band(args, build_graph(x_np, s, r, num_nodes=n))
     g = g.to(dev)
     lab = torch.zeros(g.num_nodes_padded, dtype=torch.long)
     lab[:n] = torch.from_numpy(labels)

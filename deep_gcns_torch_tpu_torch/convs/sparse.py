@@ -1,15 +1,21 @@
 """GENConv and MsgNorm (counterpart of `deep_gcns_torch_tpu/convs/sparse.py:55-247`).
 
-Routing of the aggregation:
+Routing of the aggregation, in the JAX package's order
+(`convs/sparse.py:167-236`):
 
-* the softmax family (softmax, softmax_sg, softmax_sum) always goes to
-  `fused_softmax_gather_agg`, which launches K2 (and K1 in the backward) on a
-  CUDA tensor and runs their plain versions on a CPU tensor;
-* every other aggregator gathers the messages and runs the plain
-  `generalized_aggregate`.
+* with a band attached that passes `band_ok` (`ops/band.py`), the softmax
+  family goes to `band_softmax_agg_auto` (K3, K1 for the leftover, dense hub
+  products) and add, sum, mean, power and power_sum to `band_sum_auto` on a
+  node table;
+* otherwise the softmax family (softmax, softmax_sg, softmax_sum) goes to
+  `fused_softmax_gather_agg`, which launches K2 (and K1 in the backward);
+* every other aggregator (max and min always) gathers the messages and runs
+  the plain `generalized_aggregate`.
 
-Edge features (per-layer edge encoders, embeddings fed from the model) and the
-band route belong to later slices and raise `NotImplementedError`.
+On a CPU tensor every kernel runs its plain version. Edge features
+(per-layer edge encoders, embeddings fed from the model) and the band
+max/min route (`band_extreme`) belong to later slices; edge features raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from torch import nn
 
 from ..graph import Graph
 from ..nn.core import MLP
+from ..ops.band import BAND_SOFTMAX_AGGRS, band_ok, band_softmax_agg_auto, band_sum_auto
 from ..ops.segment import generalized_aggregate, segment_degree
 from ..ops.spmm_cuda import fused_softmax_gather_agg_auto
 
@@ -82,8 +89,33 @@ class GENConv(nn.Module):
         n = x.shape[0]
         cd = self.compute_dtype
         xc = x.to(cd)
-        if self.aggr in SOFTMAX_AGGRS:
-            t = self.t if self.grad_w else self.t.detach()
+        band = band_ok(g, self.aggr)
+        t = self.t if self.grad_w else self.t.detach()
+        if band and self.aggr in BAND_SOFTMAX_AGGRS:
+            # gather-free: num/den are one band product of the packed node
+            # table, the backward one product over the transpose band
+            m = band_softmax_agg_auto(xc, g.band, t, self.eps, self.grad_w)
+            if self.aggr == "softmax_sum":
+                deg = segment_degree(g.receivers, n, g.edge_mask)
+                m = torch.pow(deg, torch.sigmoid(self.y))[:, None].to(m.dtype) * m
+        elif band:
+            # the sum family, node-factored: the message relu(x) + ε is a
+            # node table (`torch_message.py:57-85` semantics)
+            msg = torch.relu(x.float()) + self.eps
+            deg = segment_degree(g.receivers, n, g.edge_mask)
+            mean_div = torch.clamp_min(deg, 1.0)[:, None]
+            if self.aggr in ("power", "power_sum"):
+                lo, hi = 1e-7, 1e1  # the reference's clamps
+                mp = torch.pow(torch.clamp(msg, lo, hi), self.p)
+                s = band_sum_auto(mp.to(cd), g.band).float()
+                m = torch.pow(torch.clamp(s / mean_div, lo, hi), 1.0 / self.p)
+                if self.aggr == "power_sum":
+                    m = torch.pow(deg, torch.sigmoid(self.y))[:, None] * m
+            else:  # add / sum / mean
+                s = band_sum_auto(msg.to(cd), g.band).float()
+                m = s / mean_div if self.aggr == "mean" else s
+            m = m.to(cd)
+        elif self.aggr in SOFTMAX_AGGRS:
             m = fused_softmax_gather_agg_auto(
                 xc.contiguous(), g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr,
                 t, self.eps, self.grad_w)

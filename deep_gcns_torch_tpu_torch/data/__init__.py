@@ -1,3 +1,3 @@
-from .synthetic import random_node_graph, sbm_arxiv_like
+from .synthetic import powerlaw_community_edges, random_node_graph, sbm_arxiv_like
 
-__all__ = ["random_node_graph", "sbm_arxiv_like"]
+__all__ = ["powerlaw_community_edges", "random_node_graph", "sbm_arxiv_like"]

@@ -12,14 +12,15 @@ conventions so that both packages build identical arrays from the same input:
   ``csc_senders``, ``csc_col_ptr``, ``csc_receivers``, ``edge_attr_csc``.
 
 Index arrays are int32 tensors: the CUDA kernels read them as ``int``.
-The band adjacency (`attach_band`) belongs to a later slice.
+`attach_band` adds the band-dense adjacency (`ops/band.BandPair`) of the
+band route (`graph.py:74-77, 277-291` of the JAX package).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,6 +51,9 @@ class Graph:
     csc_col_ptr: Optional[torch.Tensor] = None    # [N_pad + 1] int32
     csc_receivers: Optional[torch.Tensor] = None  # [E_pad] int32
     edge_attr_csc: Optional[torch.Tensor] = None  # [E_pad, Ce]
+    # band-dense adjacency (ops/band.BandPair) of a locality-ordered graph;
+    # GENConv routes its aggregation through it when present (band_ok)
+    band: Optional[Any] = None
     num_graphs: int = 1
 
     @property
@@ -67,8 +71,11 @@ class Graph:
         """Copy every tensor field to ``device`` (resolved as the entry points
         resolve it: a CUDA request without a card raises)."""
         dev = resolve_device(device)
-        return self.replace(**{f: getattr(self, f).to(dev) for f in _TENSOR_FIELDS
-                               if getattr(self, f) is not None})
+        moved = {f: getattr(self, f).to(dev) for f in _TENSOR_FIELDS
+                 if getattr(self, f) is not None}
+        if self.band is not None:
+            moved["band"] = self.band.to(dev)
+        return self.replace(**moved)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -229,6 +236,23 @@ def batch_graphs(
         pad_multiple=pad_multiple,
         with_row_ptr=with_row_ptr,
     )
+
+
+def attach_band(g: Graph, window="auto", hubs="auto") -> Graph:
+    """Build the band-dense adjacency of the graph's valid edges
+    (`ops/band.build_band_pair`) and attach it. It pays on locality-ordered
+    graphs (run `data.reorder.cluster_order` or `rcm_order` first);
+    ``g.band.fwd.coverage`` is the fraction of edges carried gather-free, and
+    ``hubs="auto"`` moves degree-≥256 nodes into dense hub products. Call on
+    the host graph, then move it with `.to`; ``g.replace(band=None)`` strips
+    it again."""
+    from .ops.band import build_band_pair
+
+    n_edge = int(g.n_edge)
+    senders = g.senders[:n_edge].cpu().numpy()
+    receivers = g.receivers[:n_edge].cpu().numpy()
+    pair = build_band_pair(senders, receivers, g.num_nodes_padded, window, hubs)
+    return g.replace(band=pair)
 
 
 def add_self_loops(senders: np.ndarray, receivers: np.ndarray, num_nodes: int,

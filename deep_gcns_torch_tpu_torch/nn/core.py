@@ -29,13 +29,47 @@ def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator
         t.uniform_(-bound, bound, generator=generator)
 
 
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of two 2-D tensors of one dtype, accumulated and returned in
+    float32 with no rounding to the inputs' dtype (JAX's
+    `preferred_element_type=float32`). bf16 on the card is one cuBLAS
+    bf16×bf16→f32 product; on the CPU the bf16 values are exact in float32.
+    float32 products run in full float32 (TF32 stays off)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """`mm_f32` with a backward (`aten::mm.dtype` has none), JAX's transpose
+    rule of a product with `preferred_element_type=float32`: the float32
+    cotangent meets the other (bf16-rounded) input widened to float32, with
+    no rounding of the cotangent, and each gradient is rounded once to its
+    input's dtype. On the card these are float32 products (TF32 off)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        da = (g @ b.float().t()).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = (a.float().t() @ g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
 class Linear(nn.Module):
     """y = x Wᵀ + b with torch's default init U(-1/√in, 1/√in).
 
-    With ``compute_dtype`` the product runs in that type (bf16 on the hot
-    path) and the result returns to float32 before the float32 bias. Unlike
-    the JAX package's `preferred_element_type=float32` product, torch rounds
-    the float32-accumulated product to bf16 once before that."""
+    With ``compute_dtype`` x and W are rounded to that type (bf16 on the hot
+    path), their product is accumulated and kept in float32 (`mm_f32`), and
+    the float32 bias is added to it, as the JAX package's
+    `preferred_element_type=float32` product does (`nn/core.py:174-179`)."""
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
                  generator: Optional[torch.Generator] = None):
@@ -50,7 +84,7 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
         if compute_dtype is not None:
-            y = F.linear(x.to(compute_dtype), self.weight.to(compute_dtype)).float()
+            y = _MatmulF32.apply(x.to(compute_dtype), self.weight.to(compute_dtype).t())
         else:
             y = F.linear(x, self.weight)
         return y if self.bias is None else y + self.bias

@@ -8,9 +8,9 @@ no JAX, so it also runs on a machine that has only PyTorch:
 (`--noconftest` skips tests/conftest.py, which sets up JAX for the other
 test files.)
 
-Tolerances (those of chip_smoke.py): each per-edge term of K1 and K2 is bit
-for bit the plain version's; only the order of the float32 sums differs, so
-float32 agrees to 1e-5 relative and bfloat16 to one ulp (2^-7 relative) of
+Tolerances (those of chip_smoke.py): each per-edge term of K1, K2 and K3 is
+bit for bit the plain version's; only the order of the float32 sums differs,
+so float32 agrees to 1e-5 relative and bfloat16 to one ulp (2^-7 relative) of
 the final rounding, each above a floor of 1e-5 of the largest value, where
 sums of mixed signs cancel.
 """
@@ -19,8 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from deep_gcns_torch_tpu_torch.graph import build_graph
+from deep_gcns_torch_tpu_torch.graph import attach_band, build_graph
 from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig
+from deep_gcns_torch_tpu_torch.nn.core import Linear
+from deep_gcns_torch_tpu_torch.ops import band as tband
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
 
 TOL = {torch.float32: dict(rtol=1e-5, atol_rel=1e-5),
@@ -28,6 +30,12 @@ TOL = {torch.float32: dict(rtol=1e-5, atol_rel=1e-5),
 # the backward rounds den, q and K1's output to x's dtype once each
 TOL_BWD = {torch.float32: dict(rtol=1e-5, atol_rel=1e-5),
            torch.bfloat16: dict(rtol=2.0 ** -5, atol_rel=1e-4)}
+# the band route's outputs in bf16: A @ x is K3's sum plus the hub products
+# plus K1's leftover sum, each rounded to bf16 before the next `+`, and the
+# softmax quotient divides two such sums, so one ulp of a partial sum can
+# move the result by a few ulps of its own
+TOL_BAND = {torch.float32: dict(rtol=1e-5, atol_rel=1e-5),
+            torch.bfloat16: dict(rtol=2.0 ** -5, atol_rel=1e-4)}
 # dt: a float32 sum over N*C terms with cancellation
 TOL_DT = {torch.float32: dict(rtol=1e-4, atol_rel=0.0),
           torch.bfloat16: dict(rtol=1e-2, atol_rel=0.0)}
@@ -149,3 +157,88 @@ def test_small_deeper_gcn_card_matches_cpu(cuda_device):
     g_max = max(float(v.abs().max()) for v in outs[1][1].values())
     for k, want in outs[1][1].items():
         _assert_close(outs[0][1][k], want, 1e-3, 1e-4, ref_max=g_max)
+
+
+def _band_graph(dev, seed=0, n=2048, deg=8):
+    """A power-law graph in a near-band layout: hub columns, hub rows and a
+    leftover in both directions."""
+    rng = np.random.default_rng(seed)
+    w = (1.0 / (1.0 + np.arange(n, dtype=np.float64))) ** 0.9
+    rng.shuffle(w)
+    s = rng.choice(n, n * deg, p=w / w.sum())
+    r = np.clip(s + rng.integers(-300, 301, n * deg), 0, n - 1)
+    cross = rng.random(n * deg) < 0.2
+    r[cross] = rng.integers(0, n, int(cross.sum()))
+    x = rng.standard_normal((n, 128)).astype(np.float32)
+    g = attach_band(build_graph(x, s, r, num_nodes=n), window=256, hubs=64)
+    b = g.band
+    assert b.fwd.hub_ids is not None and b.bwd.hub_row_ids is not None
+    assert b.fwd.n_lo > 0 and b.bwd.n_lo > 0
+    return g.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("drop,swap", [(False, False), (True, False), (True, True)])
+@pytest.mark.parametrize("c", [256, 128, 200, 30])
+def test_band_kernel_matches_plain(cuda_device, dtype, drop, swap, c):
+    """K3 against its plain version: 4-wide loads with two channel groups
+    (C=256, 200) and one (128), scalar loads (30); the hash-drop plane with
+    and without the id exchange."""
+    g = _band_graph(cuda_device)
+    band = g.band.bwd if swap else g.band.fwd
+    x = torch.randn(g.num_nodes_padded, c, device=cuda_device).to(dtype)
+    spec = tband.DropSpec(k0=-7, k1=123456789, thresh=tband.drop_thresh(0.3)) if drop else None
+    k3 = tband.band_call.launches
+    got = tband.band_call(x, band, spec, swap)
+    _assert_close(got, tband.band_call_plain(x, band, spec, swap), **TOL[dtype])
+    torch.cuda.synchronize()
+    assert tband.band_call.launches - k3 == 1
+    if drop:  # the plane really drops edges
+        assert not torch.equal(got, tband.band_call(x, band))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn", ["spmm", "softmax_sg", "learn_t"])
+def test_band_functions_match_plain(cuda_device, dtype, fn):
+    """band_spmm and band_softmax_agg forward and backward on the kernels
+    against the same Functions on the plain versions."""
+    g = _band_graph(cuda_device, seed=1)
+    x = g.x.to(dtype).contiguous()
+    res = []
+    for plain in (False, True):
+        xx = x.detach().clone().requires_grad_(True)
+        tt = torch.tensor([0.1], device=cuda_device, requires_grad=fn == "learn_t")
+        if fn == "spmm":
+            o = (tband.band_spmm_plain if plain else tband.band_spmm)(xx, g.band)
+        else:
+            f = tband.band_softmax_agg_plain if plain else tband.band_softmax_agg
+            o = f(xx, g.band, tt, 1e-7, fn == "learn_t")
+        (o.float() ** 2).sum().backward()
+        res.append((o.detach(), xx.grad, tt.grad))
+    _assert_close(res[0][0], res[1][0], **TOL_BAND[dtype])
+    _assert_close(res[0][1], res[1][1], **TOL_BWD[dtype])
+    if fn == "learn_t":
+        _assert_close(res[0][2], res[1][2], **TOL_DT[dtype])
+
+
+@pytest.mark.cuda
+def test_bf16_linear_on_card_matches_cpu(cuda_device):
+    """The float32-accumulated bf16 product (cuBLAS bf16 x bf16 -> f32 on
+    the card) and its backward against the CPU's float32 product of the
+    bf16-rounded inputs."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4096, 128)).astype(np.float32))
+    co = torch.from_numpy(rng.standard_normal((4096, 96)).astype(np.float32))
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        lin = Linear(128, 96, generator=torch.Generator().manual_seed(0)).to(dev)
+        xx = x.to(dev).requires_grad_(True)
+        y = lin(xx, torch.bfloat16)
+        (y * co.to(dev)).sum().backward()
+        outs.append([t.detach().cpu() for t in (y, xx.grad, lin.weight.grad, lin.bias.grad)])
+    # y stays float32 (summation order only); the input and weight gradients
+    # round to bf16 once, so they may sit one bf16 ulp apart
+    for i, (got, want) in enumerate(zip(*outs)):
+        _assert_close(got, want, **(TOL[torch.float32] if i in (0, 3) else TOL[torch.bfloat16]))

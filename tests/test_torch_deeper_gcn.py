@@ -116,3 +116,49 @@ def test_unported_options_raise():
                 dict(graph_pooling="mean"), dict(node_encoder="atom")):
         with pytest.raises(NotImplementedError):
             DeeperGCN(DeeperGCNConfig(**base, **opt))
+
+
+def test_bf16_deeper_gcn_forward_matches_jax(monkeypatch):
+    """ResGEN with bf16 compute, 4 layers at C=128, against the JAX model on a
+    band-attached graph (both sides take the band route; the JAX package's
+    CPU gather route in bf16 is an unfused algorithm with other roundings).
+    With the float32-accumulated Linear the logits agree to bf16 rounding
+    noise: XLA's division flips about 0.4 % of the aggregated values by one
+    bf16 ulp, and BatchNorm carries those flips on. The old bf16-rounded
+    product added an error of its own to every Linear output."""
+    import deep_gcns_torch_tpu.ops.band as jband
+    import torch.nn.functional as F
+    from deep_gcns_torch_tpu.graph import attach_band as jax_attach_band
+    from deep_gcns_torch_tpu.graph import build_graph as jax_build_graph
+    from deep_gcns_torch_tpu_torch.graph import attach_band
+    from deep_gcns_torch_tpu_torch.nn.core import Linear
+
+    monkeypatch.setattr(jband, "_TEST_MODE", True)
+    rng = np.random.default_rng(0)
+    n = 512
+    s = rng.integers(0, n, n * 6)
+    r = np.clip(s + rng.integers(-60, 61, n * 6), 0, n - 1)
+    x = rng.standard_normal((n, 16)).astype(np.float32)
+    gj = jax_attach_band(jax_build_graph(x, s, r, num_nodes=n), window=256)
+    gt = attach_band(build_graph(x, s, r, num_nodes=n), window=256)
+    kw = dict(in_channels=16, hidden_channels=128, num_tasks=7, num_layers=4, block="res+",
+              aggr="softmax_sg", t=0.1, norm="batch", mlp_layers=1, dropout=0.0,
+              compute_dtype="bfloat16")
+    jcfg = JaxConfig(**kw)
+    jmodel = JaxDeeperGCN(jcfg)
+    params, state = jmodel.init(jax.random.PRNGKey(0))
+    want = np.asarray(jmodel.apply(params, state, jnp.asarray(gj.x), gj, train=True)[0])[:n]
+    model = DeeperGCN(DeeperGCNConfig(**kw))
+    model.load_state_dict(deeper_gcn_state_dict_from_jax(_np_tree(params), _np_tree(state),
+                                                         jcfg))
+    model.train()
+    err = np.abs(model(gt.x, gt).detach().numpy()[:n] - want)
+    assert err.max() < 1e-2 and err.mean() < 1.2e-3, (err.max(), err.mean())
+
+    def old_forward(self, x_, compute_dtype=None):
+        y = F.linear(x_.to(compute_dtype), self.weight.to(compute_dtype)).float()
+        return y + self.bias
+
+    monkeypatch.setattr(Linear, "forward", old_forward)
+    old = np.abs(model(gt.x, gt).detach().numpy()[:n] - want)
+    assert old.mean() > 1.5e-3, old.mean()

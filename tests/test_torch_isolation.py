@@ -11,7 +11,9 @@ PKG = os.path.join(ROOT, "deep_gcns_torch_tpu_torch")
 MODULES = ["deep_gcns_torch_tpu_torch", "deep_gcns_torch_tpu_torch.device",
            "deep_gcns_torch_tpu_torch.graph", "deep_gcns_torch_tpu_torch.ops._build",
            "deep_gcns_torch_tpu_torch.data.synthetic", "deep_gcns_torch_tpu_torch.nn.core",
+           "deep_gcns_torch_tpu_torch.native", "deep_gcns_torch_tpu_torch.data.reorder",
            "deep_gcns_torch_tpu_torch.ops.segment", "deep_gcns_torch_tpu_torch.ops.spmm_cuda",
+           "deep_gcns_torch_tpu_torch.ops.band",
            "deep_gcns_torch_tpu_torch.convs.sparse",
            "deep_gcns_torch_tpu_torch.models.deeper_gcn",
            "deep_gcns_torch_tpu_torch.utils.loss", "deep_gcns_torch_tpu_torch.utils.optim",
@@ -35,7 +37,7 @@ def test_import_leaves_jax_out():
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
 
