@@ -42,7 +42,34 @@ every check; nothing is caught):
 11. the same graph on the gather route (`g.replace(band=None)`): one warm-up
    and 3 steps, and the card's band/gather step ratio;
 12. timing of K3 in bf16 on the packed forward table, its bound and a
-   `torch.sparse.mm` yardstick of the in-band adjacency.
+   `torch.sparse.mm` yardstick of the in-band adjacency;
+13. cluster graph: one ogbn-proteins cluster under the reference's 10-way
+   random partition, at `bench.py:221-231`'s shape (N=13,000, E=780,000
+   uniform random edges, seed 0), with 8-dim edge features in both edge
+   orders, a species one-hot, 8 node features and 112 binary tasks;
+14. edge kernels: K2 with edge embeddings and K4 (with and without dt) in
+   float32 and bfloat16 at C=40 (a RevGCN group) and C=64 (DyResGEN), and
+   the fused Function with edge embeddings forward and backward
+   (softmax_sg and learn_t), against the plain versions;
+15. edge agreement: a small RevGCN and a small DyResGEN on the card against
+   the same weights on the CPU: logits and every gradient;
+16. main path, RevGCN at L=101 then L=1001 (80 channels, group 2, bf16)
+   through `apps/ogbn_proteins_rev`'s `train_step` and `predict`: one
+   warm-up, 2 timed steps and a `predict` each; K2 with `ee` must launch
+   2·L·G times a step and L·G times a `predict`, K4 L·G times a step, K1,
+   K3 and K2 without `ee` never; a profile of one L=101 step; the O(1)
+   memory check: the peak may grow from L=101 to L=1001 by no more than the
+   parameters, gradients and Adam moments of the extra layers (16 bytes a
+   parameter) plus 256 MB;
+17. main path, DyResGEN-112 (C=64, learned t, per-layer edge encoders,
+   bf16) through `apps/ogbn_proteins`: one warm-up, 3 timed steps and a
+   `predict`; K2 with `ee` 112 launches a step and a `predict`, K4 112 a
+   step;
+18. app: `apps/ogbn_proteins_rev.main` for one epoch on synthetic
+   ogbn-proteins (132,534 nodes, degree 60, 10 clusters, 28 layers, 5
+   evaluation parts, bf16), with its host partition seconds;
+19. timing of K2 with `ee` and K4 in bf16 at C=40 on the cluster graph,
+   beside their plain versions and bounds.
 
 The line before the last is a JSON object listing the kernels; the last line
 is `{"ok": true, "device": {...}}`. `--rehearse-cpu` runs every phase on the
@@ -52,6 +79,7 @@ without a card; it prints no device result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -88,6 +116,13 @@ BF16_TENSOR_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak, for information
 # to bf16: its error reaches an ulp of the largest partial sum, which this
 # floor covers while a different function would still miss by O(max|ref|)
 TOL_LIBRARY = dict(rtol=2.0 ** -5, atol_rel=2.0 ** -5)
+# the fused Function with edge embeddings and learned weights in bf16: one
+# ulp of `out` moves the factor 1 + t·(m − out) of a single edge's term by
+# t·2^-8·|out|, which may cancel to near 0, so the floor is one bf16 ulp of
+# the largest value
+TOL_EE_LEARN_T_BF16 = dict(rtol=2.0 ** -5, atol_rel=2.0 ** -7)
+# the O(1)-memory check's allowance beside the optimizer state
+MEMORY_SLACK_BYTES = 256 * 2 ** 20
 
 
 def log(*a):
@@ -195,8 +230,8 @@ def phase_kernels(g):
             for fn in (tsp.fused_softmax_gather_agg, tsp.fused_softmax_gather_agg_plain):
                 xx = x.detach().clone().requires_grad_(True)
                 tt = t.clone().requires_grad_(gw)
-                o = fn(xx, g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr, tt, 1e-7,
-                       gw)
+                o = fn(xx, g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr, tt,
+                       eps=1e-7, grad_weights=gw)
                 (o.float() ** 2).sum().backward()
                 res.append((o.detach(), xx.grad, tt.grad))
             name = f"backward {'learn_t' if gw else 'softmax_sg'} {tag}"
@@ -254,12 +289,19 @@ def main_model(dev, layers):
 def reset_launches():
     tsp.csr_seg_sum.launches = 0
     tsp.softmax_agg.launches = 0
+    tsp.softmax_agg.launches_ee = 0
     tband.band_call.launches = 0
+    tsp.softmax_bwd_csc.launches = 0
 
 
 def read_launches():
     return {"K1": tsp.csr_seg_sum.launches, "K2": tsp.softmax_agg.launches,
-            "K3": tband.band_call.launches}
+            "K2 ee": tsp.softmax_agg.launches_ee, "K3": tband.band_call.launches,
+            "K4": tsp.softmax_bwd_csc.launches}
+
+
+def no_launches():
+    return {"K1": 0, "K2": 0, "K2 ee": 0, "K3": 0, "K4": 0}
 
 
 def expected_launches(g, layers, steps):
@@ -267,13 +309,16 @@ def expected_launches(g, layers, steps):
     forward runs one aggregation per layer, every backward one more. The
     gather route runs K2 forward and K1 backward; the band route K3 both ways,
     plus K1 wherever that direction's leftover is not empty."""
+    want = no_launches()
     if g.senders.device.type != "cuda":
-        return {"K1": 0, "K2": 0, "K3": 0}  # CPU tensors never launch a kernel
+        return want  # CPU tensors never launch a kernel
     fwd, bwd = layers * (steps + 2), layers * (steps + 1)
     if g.band is None:
-        return {"K1": bwd, "K2": fwd, "K3": 0}
+        want.update(K1=bwd, K2=fwd)
+        return want
     lo_f, lo_b = int(g.band.fwd.n_lo > 0), int(g.band.bwd.n_lo > 0)
-    return {"K1": fwd * lo_f + bwd * lo_b, "K2": 0, "K3": fwd + bwd}
+    want.update(K1=fwd * lo_f + bwd * lo_b, K3=fwd + bwd)
+    return want
 
 
 def phase_main_path(g, labels, layers, steps, tag="main"):
@@ -326,20 +371,24 @@ def phase_main_path(g, labels, layers, steps, tag="main"):
     return info, (model, opt, lab, gen)
 
 
-def phase_profile(g, state, steps=2, tag="profile"):
-    """Device time by kernel over ``steps`` train steps, and the device's busy
-    share of that window (host clock around the steps, ending in a sync)."""
+def arxiv_step(g, state):
+    model, opt, lab, gen = state
+    return lambda: ogbn_arxiv.train_step(model, opt, g, lab, g.node_mask, gen)
+
+
+def phase_profile(dev, step, steps=2, tag="profile"):
+    """Device time by kernel over ``steps`` calls of the train step ``step``,
+    and the device's busy share of that window (host clock around the
+    steps, ending in a sync)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model, opt, lab, gen = state
-    dev = g.senders.device
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     sync(dev)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            ogbn_arxiv.train_step(model, opt, g, lab, g.node_mask, gen)
+            step()
         sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []  # device-side events only: the kernels and memory copies
@@ -353,7 +402,7 @@ def phase_profile(g, state, steps=2, tag="profile"):
         f"{sum(r[1] for r in rows) // steps} device calls per step")
     for dev_us, count, key in rows[:25]:
         log(f"[{tag}] {dev_us / 1e3 / steps:10.3f} ms/step {count // steps:6d} calls/step "
-            f"{100 * dev_us / max(busy, 1e-9):5.1f}%  {key[:100]}")
+            f"{100 * dev_us / max(busy, 1e-9):5.1f}%  {key[:160]}")
 
 
 def time_fn(fn, dev, iters):
@@ -577,6 +626,332 @@ def phase_band_timing(g, errs, launches, iters):
             "library_ms": lib_ms}
 
 
+def cluster_graph(n, deg, dev):
+    """One ogbn-proteins cluster at `bench.py:221-231`'s shape: uniform random
+    edges without added self-loops, 8-dim edge features in both edge orders,
+    a species one-hot, 8 node features and 112 binary tasks, from seed 0.
+    Returns the graph on ``dev`` and (species, node_feats, labels)."""
+    t0 = time.time()
+    rng = np.random.default_rng(0)
+    g, _ = random_node_graph(rng, n, deg, 8, edge_dim=8, self_loops=False)
+    n_pad = g.num_nodes_padded
+    species = np.zeros((n_pad, 8), np.float32)
+    species[np.arange(n), rng.integers(0, 8, n)] = 1.0
+    node_feats = np.zeros((n_pad, 8), np.float32)
+    node_feats[:n] = rng.standard_normal((n, 8))
+    labels = np.zeros((n_pad, 112), np.float32)
+    labels[:n] = rng.integers(0, 2, (n, 112))
+    log(f"[cluster-graph] N={g.n_node} E={g.n_edge} N_pad={n_pad} "
+        f"E_pad={g.num_edges_padded} built in {time.time() - t0:.1f}s")
+    return g.to(dev), tuple(torch.from_numpy(a).to(dev) for a in (species, node_feats, labels))
+
+
+def edge_inputs(g, c, dtype, gen):
+    """x [N_pad, C] and edge embeddings in both edge orders as an edge encoder
+    makes them: Linear(8, C) of the raw features, so the padded rows carry
+    the bias (and enter `fused_cmax`'s edge maximum)."""
+    dev = g.senders.device
+    x = torch.randn(g.num_nodes_padded, c, device=dev, generator=gen).to(dtype)
+    w = torch.randn(8, c, device=dev, generator=gen) * 0.5
+    b = torch.randn(c, device=dev, generator=gen) * 0.1
+    return x, (g.edge_attr @ w + b).to(dtype), (g.edge_attr_csc @ w + b).to(dtype)
+
+
+def phase_edge_kernels(g):
+    """K2 with `ee` and K4 against their plain versions, and the fused
+    Function with edge embeddings forward and backward on the kernels
+    against the same Function on the plain versions."""
+    dev = g.senders.device
+    chk = Checks("edge kernels")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t = torch.tensor([1.0], device=dev)
+    n_pad, n_edge = g.num_nodes_padded, g.n_edge
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        e2 = e4 = 0.0
+        for c in (40, 64):
+            x, ee, ee_csc = edge_inputs(g, c, dtype, gen)
+            cmax = tsp.fused_cmax(x, t, 1e-7, ee)
+            out, den = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+            out_p, den_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+            e2 = max(e2, chk.close(f"K2 ee out C={c} {tag}", out, out_p, **tol),
+                     chk.close(f"K2 ee den C={c} {tag}", den, den_p, **tol))
+            q = torch.randn(n_pad, c, device=dev, generator=gen).to(dtype)
+            for gw in (False, True):
+                qo = torch.cat([q, out_p], 1).contiguous() if gw else q
+                args = (x, ee_csc, qo, g.csc_col_ptr, g.csc_receivers, t, cmax, 1e-7, gw)
+                dx, dee, dt = tsp.softmax_bwd_csc(*args)
+                dx_p, dee_p, dt_p = tsp.softmax_bwd_csc_plain(*args)
+                name = f"K4 {'dt' if gw else 'no-dt'} C={c} {tag}"
+                e4 = max(e4, chk.close(f"{name} dx", dx, dx_p, **tol),
+                         chk.close(f"{name} dee", dee, dee_p, **tol))
+                chk.close(f"{name} dee padding rows", dee[n_edge:], dee_p[n_edge:], 0.0, 0.0)
+                if gw:
+                    # the same float32 terms summed in another order
+                    chk.close(f"{name} dt", dt, dt_p, **TOL_DT["f32"])
+            co = torch.randn(n_pad, c, device=dev, generator=gen)
+            for gw in (False, True):
+                res = []
+                for fn in (tsp.fused_softmax_gather_agg, tsp.fused_softmax_gather_agg_plain):
+                    xx = x.detach().clone().requires_grad_(True)
+                    ec = ee_csc.detach().clone().requires_grad_(True)
+                    tt = t.clone().requires_grad_(gw)
+                    o = fn(xx, g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr, tt,
+                           ee=ee, ee_csc=ec, eps=1e-7, grad_weights=gw)
+                    (o.float() * co).sum().backward()
+                    res.append((o.detach(), xx.grad, ec.grad, tt.grad))
+                tol_b = (TOL_F32 if dtype == torch.float32 else
+                         TOL_EE_LEARN_T_BF16 if gw else TOL_BWD_BF16)
+                name = f"fused ee {'learn_t' if gw else 'softmax_sg'} C={c} {tag}"
+                chk.close(f"{name} out", res[0][0], res[1][0], **tol)
+                chk.close(f"{name} dx", res[0][1], res[1][1], **tol_b)
+                chk.close(f"{name} d(ee_csc)", res[0][2], res[1][2], **tol_b)
+                if gw:
+                    chk.close(f"{name} dt", res[0][3], res[1][3], **TOL_DT[tag])
+                del res
+        errs[tag] = {"K2 ee": e2, "K4": e4}
+    sync(dev)
+    chk.raise_if_failed()
+    return errs
+
+
+def small_proteins_models():
+    """(name, constructor) of a small RevGCN (the main path's config: group 2,
+    softmax at a fixed t, layer norm, conv edge encoders) and a small
+    DyResGEN (learned t, per-layer edge encoders), both at dropout 0."""
+    return (
+        ("RevGCN", lambda gen: RevGCN(RevGCNConfig(
+            hidden_channels=32, num_tasks=12, num_layers=3, group=2, aggr="softmax",
+            dropout=0.0), generator=gen)),
+        ("DyResGEN", lambda gen: DeeperGCN(DeeperGCNConfig(
+            in_channels=8, hidden_channels=32, num_tasks=12, num_layers=4, block="res+",
+            aggr="softmax", learn_t=True, norm="layer", mlp_layers=1, dropout=0.0,
+            edge_mode="per_layer", edge_feat_dim=8, use_one_hot_encoding=True,
+            node_feat_dim=8, final_dropout=False), generator=gen)))
+
+
+def phase_edge_agreement(dev):
+    """The small proteins models on ``dev`` (K2 with `ee`, K4) against the
+    same weights on the CPU (plain versions), in float32."""
+    chk = Checks("edge agreement")
+    rng = np.random.default_rng(4)
+    n, e = 3000, 30000
+    g = build_graph(None, rng.integers(0, n, e), rng.integers(0, n, e),
+                    edge_attr=rng.random((e, 8)).astype(np.float32), num_nodes=n)
+    n_pad = g.num_nodes_padded
+    species = torch.from_numpy(np.eye(8, dtype=np.float32)[rng.integers(0, 8, n_pad)])
+    nf = torch.from_numpy(rng.standard_normal((n_pad, 8)).astype(np.float32))
+    co = torch.from_numpy(rng.standard_normal((n_pad, 12)).astype(np.float32))
+    for name, make in small_proteins_models():
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            model = make(torch.Generator().manual_seed(0)).to(d)
+            model.train()
+            logits = model(species.to(d), g.to(d), node_feats=nf.to(d))
+            (logits * co.to(d)).sum().backward()
+            outs.append((logits.detach().cpu(),
+                         {k: p.grad.detach().cpu() for k, p in model.named_parameters()}))
+        # float32 through a few layers: summation order in K2/K4, the norms
+        # and the matmuls, as in the DeeperGCN agreement phase
+        chk.close(f"small {name} logits, card vs cpu", outs[0][0], outs[1][0], 1e-4, 1e-4)
+        g_max = max(float(v.abs().max()) for v in outs[1][1].values())
+        for k in outs[1][1]:
+            chk.close(f"small {name} grad {k}", outs[0][1][k], outs[1][1][k], 1e-3, 1e-4,
+                      ref_max=g_max)
+    chk.raise_if_failed()
+
+
+def free_memory(dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return torch.cuda.memory_allocated(dev)
+    return 0
+
+
+def phase_proteins_path(app, argv, g, feats, steps, expected, tag):
+    """A proteins model built by ``app.build_model`` from the app's own flags,
+    trained through ``app.train_step`` (one warm-up, ``steps`` timed) and
+    run through ``app.predict`` once, with the launch counts set to 0 just
+    before and read just after. ``expected(layers, steps)`` gives the counts
+    a card run must show. Returns (info, a closure of one more train step)."""
+    dev = g.senders.device
+    species, node_feats, labels = feats
+    args = app.get_args(argv + ["--device", dev.type])
+    base = free_memory(dev)
+    t0 = time.time()
+    model = app.build_model(args, torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer("adam", model.parameters(), args.lr)
+    build_s = time.time() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mask = g.node_mask
+
+    def step():
+        return app.train_step(model, opt, g, species, node_feats, labels, mask, gen)
+
+    reset_launches()
+    loss = step()  # warm-up
+    sync(dev)
+    losses, times = [float(loss)], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step()
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    t0 = time.perf_counter()
+    logits = app.predict(model, g, species, node_feats)
+    sync(dev)
+    predict_s = time.perf_counter() - t0
+    launches = read_launches()
+
+    log(f"[{tag}] losses {losses}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: loss is not finite")
+    if logits.shape != (g.num_nodes_padded, 112) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag}: predict gave shape {tuple(logits.shape)} or "
+                             "non-finite logits")
+    want = expected(args.num_layers, steps) if dev.type == "cuda" else no_launches()
+    log(f"[{tag}] launches {launches} expected {want}")
+    if launches != want:
+        raise AssertionError(f"{tag}: kernel launches {launches} != expected {want}")
+    info = {"layers": args.num_layers, "params": n_params, "model_build_s": build_s,
+            "step_ms_median": sorted(times)[len(times) // 2] * 1e3,
+            "step_ms_all": [v * 1e3 for v in times], "predict_ms": predict_s * 1e3,
+            "losses": losses, "launches": launches}
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(dev)
+        info.update(peak_bytes=peak, peak_above_start_bytes=peak - base,
+                    smi_after_steps=smi("clocks.sm,power.draw,temperature.gpu"))
+    log(f"[{tag}] {json.dumps(info)}")
+    return info, step
+
+
+def rev_expected(group):
+    """RevGCN: each train step runs every group's aggregation once in the
+    forward and once in the backward's fused inverse+VJP (K2 with `ee`),
+    plus its K4; `predict` runs the forward once. An inverse that re-ran
+    the forward would show 3·L·G K2 launches a step."""
+    def want(layers, steps):
+        lg, n = layers * group, steps + 1
+        out = no_launches()
+        out.update({"K2 ee": 2 * lg * n + lg, "K4": lg * n})
+        return out
+    return want
+
+
+def dyresgen_expected(layers, steps):
+    out = no_launches()
+    out.update({"K2 ee": layers * (steps + 2), "K4": layers * (steps + 1)})
+    return out
+
+
+def phase_rev_paths(g, feats, depths, steps):
+    """RevGCN at the two depths (80 channels, group 2, bf16), a profile of a
+    step at the smaller one, and the O(1)-memory check between them."""
+    dev = g.senders.device
+    infos = {}
+    for layers in depths:
+        argv = ["--num_layers", str(layers), "--compute_dtype", "bfloat16"]
+        info, step = phase_proteins_path(ogbn_proteins_rev, argv, g, feats, steps,
+                                         rev_expected(2), f"revgcn-{layers}")
+        infos[layers] = info
+        if layers == depths[0]:
+            phase_profile(dev, step, steps=1, tag=f"revgcn-{layers}-profile")
+        del step
+    lo, hi = (infos[d] for d in depths)
+    if dev.type != "cuda":
+        log("[revgcn-memory] no device memory to measure on the CPU")
+        return infos
+    allowed = 16 * (hi["params"] - lo["params"]) + MEMORY_SLACK_BYTES
+    growth = hi["peak_above_start_bytes"] - lo["peak_above_start_bytes"]
+    log(f"[revgcn-memory] peak L={depths[0]} {lo['peak_bytes'] / 1e9:.4f} GB, "
+        f"L={depths[1]} {hi['peak_bytes'] / 1e9:.4f} GB (ratio "
+        f"{hi['peak_bytes'] / lo['peak_bytes']:.4f}); growth above the start "
+        f"{growth / 1e6:.1f} MB, allowed {allowed / 1e6:.1f} MB (16 B x "
+        f"{hi['params'] - lo['params']} more parameters + 256 MB)")
+    if growth > allowed:
+        raise AssertionError(f"revgcn-memory: the peak grew by {growth} bytes from "
+                             f"L={depths[0]} to L={depths[1]}, more than {allowed}")
+    return infos
+
+
+def phase_proteins_app(dev, argv):
+    """`apps/ogbn_proteins_rev.main` for one epoch: the synthetic data, the
+    per-epoch partition on the host, ten cluster steps, the 5-part
+    evaluation with `scatter_predictions` and ROC-AUC."""
+    reset_launches()
+    t0 = time.time()
+    res = ogbn_proteins_rev.main(argv + ["--device", dev.type])
+    wall = time.time() - t0
+    launches = read_launches()
+    info = {"loss": res["loss"], "results": res["results"],
+            "partition_s": res["partition_s"], "wall_s": wall, "launches": launches}
+    log(f"[app] {json.dumps(info)}")
+    if not math.isfinite(res["loss"]) or not all(
+            0.0 <= v <= 1.0 for v in res["results"].values()):
+        raise AssertionError(f"app: loss {res['loss']} or ROC-AUC {res['results']} "
+                             "out of range")
+    if dev.type == "cuda" and (launches["K2 ee"] == 0 or launches["K4"] == 0):
+        raise AssertionError(f"app: the edge kernels did not run: {launches}")
+
+
+def phase_edge_timing(g, errs, launches, iters):
+    """K2 with `ee` and K4 in bf16 at C=40 (a RevGCN group) on the cluster
+    graph; K4 with dt at C=64 (DyResGEN) for information."""
+    dev = g.senders.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n_pad, e, e_pad = g.num_nodes_padded, g.n_edge, g.num_edges_padded
+    t = torch.tensor([1.0], device=dev)
+    rows, times = [], {}
+    for c in (40, 64):
+        x, ee, ee_csc = edge_inputs(g, c, torch.bfloat16, gen)
+        cmax = tsp.fused_cmax(x, t, 1e-7, ee)
+        qo = torch.randn(n_pad, c, device=dev, generator=gen).to(torch.bfloat16)
+        out, _ = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+        qo2 = torch.cat([qo, out], 1).contiguous()
+        k2 = (lambda: tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee),
+              lambda: tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee))
+        k4 = [(lambda q=q, gw=gw: tsp.softmax_bwd_csc(
+                   x, ee_csc, q, g.csc_col_ptr, g.csc_receivers, t, cmax, 1e-7, gw),
+               lambda q=q, gw=gw: tsp.softmax_bwd_csc_plain(
+                   x, ee_csc, q, g.csc_col_ptr, g.csc_receivers, t, cmax, 1e-7, gw))
+              for q, gw in ((qo, False), (qo2, True))]
+        for name, (fn, plain) in (("K2 ee", k2), ("K4", k4[0]), ("K4 dt", k4[1])):
+            times[(name, c)] = (time_fn(fn, dev, iters), time_fn(plain, dev, 3))
+        del x, ee, ee_csc, qo, qo2, out
+    for (name, c), (ms, plain_ms) in times.items():
+        log(f"[edge-timing] {name} C={c} bf16: {ms:.4f} ms, plain {plain_ms:.3f} ms")
+    c = 40
+    idx_b = 4 * e + 4 * (n_pad + 1) + 4 * c + 4
+    # K2 with ee: x and ee read once, out and den written once (bf16), the
+    # senders, row_ptr, cmax and t; per (edge, channel): add, max, add, mul,
+    # sub, exp, mul, 2 roundings, 2 adds
+    k2_bound = bound(n_pad * c * 2 + e * c * 2 + idx_b + 2 * n_pad * c * 2, 11 * e * c)
+    # K4: x, ee_csc and qo read once, dx and dee (all E_pad rows) written
+    # once; per (edge, channel): add, max, add, mul, sub, exp, mul, select,
+    # rounding, add
+    k4_bound = bound(n_pad * c * 2 + e * c * 2 + n_pad * c * 2 + idx_b
+                     + n_pad * c * 2 + e_pad * c * 2, 10 * e * c)
+    for name, src, line, b, key in (
+            ("K2 softmax_agg ee", "softmax_agg.cu", "deep_gcns_torch_tpu/ops/spmm_pallas.py:322",
+             k2_bound, "K2 ee"),
+            ("K4 softmax_bwd_csc", "softmax_bwd_csc.cu",
+             "deep_gcns_torch_tpu/ops/spmm_pallas.py:466", k4_bound, "K4")):
+        ms, plain_ms = times[(key, c)]
+        rows.append({"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",
+                     "replaces": line, "launches": launches[key],
+                     "max_abs_err": errs["bf16"][key], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+        log(f"[edge-timing] {name} C={c}: {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    log("[edge-timing] no single PyTorch call computes K2 with ee or K4: library_ms is null")
+    return rows
+
+
 def main(argv):
     rehearse = "--rehearse-cpu" in argv
     if not rehearse and not torch.cuda.is_available():
@@ -590,7 +965,7 @@ def main(argv):
     errs = phase_kernels(g)
     phase_agreement(dev)
     main_info, state = phase_main_path(g, labels, layers, steps)
-    phase_profile(g, state)
+    phase_profile(dev, arxiv_step(g, state))
     del state
     rows = phase_timing(g, errs, main_info["launches"], iters)
     del g
@@ -599,14 +974,34 @@ def main(argv):
     gb, labels_b, _ = band_graph(n, dev)
     errs_b = phase_band_kernels(gb)
     band_info, state = phase_main_path(gb, labels_b, layers, steps, tag="band-main")
-    phase_profile(gb, state, tag="band-profile")
+    phase_profile(dev, arxiv_step(gb, state), tag="band-profile")
     del state
     gather_info, _ = phase_main_path(gb.replace(band=None), labels_b, layers, 3,
                                      tag="band-graph-gather")
     log(f"[band-main] band/gather step ratio on the same graph: "
         f"{band_info['step_ms_median'] / gather_info['step_ms_median']:.4f} "
         f"({band_info['step_ms_median']:.3f} / {gather_info['step_ms_median']:.3f} ms)")
-    rows.append(phase_band_timing(gb, errs_b, band_info["launches"], iters))
+    k3_row = phase_band_timing(gb, errs_b, band_info["launches"], iters)
+    del gb
+    log(f"[done] band-route phases in {time.time() - t_all:.1f}s")
+
+    gpr, feats = cluster_graph(*((800, 10) if rehearse else (13_000, 60)), dev)
+    errs_e = phase_edge_kernels(gpr)
+    phase_edge_agreement(dev)
+    rev = phase_rev_paths(gpr, feats, (3, 5) if rehearse else (101, 1001), 2)
+    dy_layers = 3 if rehearse else 112
+    phase_proteins_path(ogbn_proteins, ["--learn_t", "--num_layers", str(dy_layers),
+                                        "--compute_dtype", "bfloat16"],
+                        gpr, feats, 3, dyresgen_expected, f"dyresgen-{dy_layers}")
+    app_argv = ["--synthetic", "--synthetic_nodes", "3000" if rehearse else "132534",
+                "--synthetic_degree", "8" if rehearse else "60", "--cluster_number", "10",
+                "--num_layers", "3" if rehearse else "28", "--eval_parts", "5",
+                "--compute_dtype", "bfloat16", "--epochs", "1"]
+    phase_proteins_app(dev, app_argv)
+    edge_rows = phase_edge_timing(gpr, errs_e, max(rev.values(),
+                                                   key=lambda i: i["layers"])["launches"],
+                                  iters)
+    rows = rows[:2] + edge_rows[:1] + [k3_row] + edge_rows[1:]
     log(f"[done] all phases in {time.time() - t_all:.1f}s")
     if rehearse:
         print(json.dumps({"kernels": rows}))
@@ -630,12 +1025,13 @@ if __name__ == "__main__":
     import torch
 
     from deep_gcns_torch_tpu_torch import native
-    from deep_gcns_torch_tpu_torch.apps import ogbn_arxiv
+    from deep_gcns_torch_tpu_torch.apps import ogbn_arxiv, ogbn_proteins, ogbn_proteins_rev
     from deep_gcns_torch_tpu_torch.data.reorder import cluster_order, permute_graph
     from deep_gcns_torch_tpu_torch.data.synthetic import (powerlaw_community_edges,
                                                           random_node_graph)
     from deep_gcns_torch_tpu_torch.graph import attach_band, build_graph
-    from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig
+    from deep_gcns_torch_tpu_torch.models import (DeeperGCN, DeeperGCNConfig, RevGCN,
+                                                  RevGCNConfig)
     from deep_gcns_torch_tpu_torch.ops import _build
     from deep_gcns_torch_tpu_torch.ops import band as tband
     from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp

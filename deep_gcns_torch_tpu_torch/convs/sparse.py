@@ -3,19 +3,21 @@
 Routing of the aggregation, in the JAX package's order
 (`convs/sparse.py:167-236`):
 
-* with a band attached that passes `band_ok` (`ops/band.py`), the softmax
-  family goes to `band_softmax_agg_auto` (K3, K1 for the leftover, dense hub
-  products) and add, sum, mean, power and power_sum to `band_sum_auto` on a
-  node table;
+* without edge embeddings and with a band attached that passes `band_ok`
+  (`ops/band.py`), the softmax family goes to `band_softmax_agg_auto` (K3,
+  K1 for the leftover, dense hub products) and add, sum, mean, power and
+  power_sum to `band_sum_auto` on a node table;
 * otherwise the softmax family (softmax, softmax_sg, softmax_sum) goes to
-  `fused_softmax_gather_agg`, which launches K2 (and K1 in the backward);
-* every other aggregator (max and min always) gathers the messages and runs
-  the plain `generalized_aggregate`.
+  `fused_softmax_gather_agg`, which launches K2 in the forward and K1 in the
+  backward, or, with edge embeddings in both edge orders, K2 with `ee` and
+  K4;
+* every other aggregator (max and min always), and the softmax family with
+  edge embeddings that lack their sender-ordered copy, gathers the messages
+  relu(x_j [+ e]) + ε and runs the plain `generalized_aggregate`.
 
-On a CPU tensor every kernel runs its plain version. Edge features
-(per-layer edge encoders, embeddings fed from the model) and the band
-max/min route (`band_extreme`) belong to later slices; edge features raise
-`NotImplementedError`.
+On a CPU tensor every kernel runs its plain version. The bond encoder
+(ogbg-mol) and the band max/min route (`band_extreme`) belong to later
+slices; the bond encoder raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from torch import nn
 
 from ..graph import Graph
-from ..nn.core import MLP
+from ..nn.core import MLP, Linear
 from ..ops.band import BAND_SOFTMAX_AGGRS, band_ok, band_softmax_agg_auto, band_sum_auto
 from ..ops.segment import generalized_aggregate, segment_degree
 from ..ops.spmm_cuda import fused_softmax_gather_agg_auto
@@ -58,20 +60,23 @@ def _scalar(module: nn.Module, name: str, value: float, learned: bool):
 
 
 class GENConv(nn.Module):
-    """DeeperGCN generalized conv: msg = relu(x_j) + ε, generalized softmax /
-    power-mean aggregation, update h = MLP(x + m)."""
+    """DeeperGCN generalized conv: msg = relu(x_j [+ e]) + ε, generalized
+    softmax / power-mean aggregation, update h = MLP(x + m). With
+    ``encode_edge`` it owns the edge encoder Linear(edge_feat_dim, in_dim)
+    under the reference's name `edge_encoder`."""
 
     def __init__(self, in_dim: int, emb_dim: int, aggr: str = "softmax",
                  t: float = 1.0, learn_t: bool = False, p: float = 1.0,
                  learn_p: bool = False, y: float = 0.0, learn_y: bool = False,
                  msg_norm: bool = False, learn_msg_scale: bool = True,
-                 encode_edge: bool = False, norm: str = "batch", mlp_layers: int = 2,
-                 eps: float = 1e-7, compute_dtype: str = "float32",
+                 encode_edge: bool = False, bond_encoder: bool = False,
+                 edge_feat_dim: Optional[int] = None, norm: str = "batch",
+                 mlp_layers: int = 2, eps: float = 1e-7, compute_dtype: str = "float32",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if encode_edge:
-            raise NotImplementedError("GENConv edge encoders come with the "
-                                      "edge-feature slice of the port")
+        if encode_edge and bond_encoder:
+            raise NotImplementedError("the bond encoder (ogbg-mol) comes with a later "
+                                      "slice of the port")
         self.aggr, self.eps = aggr, eps
         self.compute_dtype = _DTYPES[compute_dtype]
         self.grad_w = learn_t and aggr in ("softmax", "softmax_sum")
@@ -81,15 +86,47 @@ class GENConv(nn.Module):
         _scalar(self, "p", p, learn_p and aggr in ("power", "power_sum"))
         _scalar(self, "y", y, learn_y and aggr in ("softmax_sum", "power_sum"))
         self.msg_norm = MsgNorm(learn_msg_scale) if msg_norm else None
+        self.edge_encoder = (Linear(edge_feat_dim, in_dim, generator=generator)
+                             if encode_edge else None)
 
-    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
-        if g.edge_attr is not None:
-            raise NotImplementedError("GENConv with edge features comes with the "
-                                      "edge-feature slice of the port")
+    def _edge_embeddings(self, g: Graph, edge_attr, edge_attr_csc, edge_emb, edge_emb_csc):
+        """(edge_emb, edge_emb_csc) in the JAX package's order of precedence
+        (`convs/sparse.py:139-152`): given embeddings are used as they are;
+        otherwise the raw features (``edge_attr``, else the graph's) are
+        encoded here, each edge order separately, or used as they are when
+        the conv has no encoder."""
+        if edge_emb is not None:
+            return edge_emb, edge_emb_csc
+        ea = edge_attr if edge_attr is not None else g.edge_attr
+        # the sender-ordered twin: explicit edge_attr needs an explicit copy
+        ea_csc = edge_attr_csc if edge_attr is not None else g.edge_attr_csc
+        if self.edge_encoder is not None:
+            if ea is None:
+                return None, edge_emb_csc
+            if edge_emb_csc is None and ea_csc is not None:
+                edge_emb_csc = self.edge_encoder(ea_csc)
+            return self.edge_encoder(ea), edge_emb_csc
+        return ea, ea_csc if edge_emb_csc is None else edge_emb_csc
+
+    def forward(self, x: torch.Tensor, g: Graph, edge_attr: Optional[torch.Tensor] = None,
+                edge_attr_csc: Optional[torch.Tensor] = None,
+                edge_emb: Optional[torch.Tensor] = None,
+                edge_emb_csc: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``edge_attr``: raw edge features, encoded here with ``encode_edge``;
+        ``edge_emb``: embeddings used as they are; the ``*_csc`` twins are the
+        same in sender order, which the fused route's backward (K4) needs."""
+        edge_emb, edge_emb_csc = self._edge_embeddings(g, edge_attr, edge_attr_csc,
+                                                       edge_emb, edge_emb_csc)
         n = x.shape[0]
         cd = self.compute_dtype
         xc = x.to(cd)
-        band = band_ok(g, self.aggr)
+        if edge_emb is not None and edge_emb.shape[-1] != x.shape[1]:
+            raise ValueError(f"edge embeddings of width {edge_emb.shape[-1]} do not match "
+                             f"{x.shape[1]} node channels (give the conv an edge encoder)")
+        band = edge_emb is None and band_ok(g, self.aggr)
+        fused = self.aggr in SOFTMAX_AGGRS and (
+            edge_emb is None or (edge_emb_csc is not None
+                                 and edge_emb.shape == (g.num_edges_padded, x.shape[1])))
         t = self.t if self.grad_w else self.t.detach()
         if band and self.aggr in BAND_SOFTMAX_AGGRS:
             # gather-free: num/den are one band product of the packed node
@@ -115,19 +152,28 @@ class GENConv(nn.Module):
                 s = band_sum_auto(msg.to(cd), g.band).float()
                 m = s / mean_div if self.aggr == "mean" else s
             m = m.to(cd)
-        elif self.aggr in SOFTMAX_AGGRS:
+        elif fused:
+            # the edge-embedding cotangent flows through the sender-ordered
+            # copy only (the same values): `ee` enters detached
+            ee = ee_csc = None
+            if edge_emb is not None:
+                ee = edge_emb.detach().to(cd).contiguous()
+                ee_csc = edge_emb_csc.to(cd).contiguous()
             m = fused_softmax_gather_agg_auto(
-                xc.contiguous(), g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr,
-                t, self.eps, self.grad_w)
+                xc.contiguous(), g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr, t,
+                ee=ee, ee_csc=ee_csc, eps=self.eps, grad_weights=self.grad_w)
             if self.aggr == "softmax_sum":
                 deg = segment_degree(g.receivers, n, g.edge_mask)
                 m = torch.pow(deg, torch.sigmoid(self.y))[:, None].to(m.dtype) * m
         else:
             send = torch.clamp(g.senders.long(), max=n - 1)
-            msg = torch.relu(xc.index_select(0, send)) + torch.tensor(self.eps, dtype=cd)
+            msg = xc.index_select(0, send)
+            if edge_emb is not None:
+                msg = msg + edge_emb.to(cd)
+            msg = torch.relu(msg) + torch.tensor(self.eps, dtype=cd)
             m = generalized_aggregate(
                 msg, g.receivers, n, aggr=self.aggr, t=self.t, p=self.p, y=self.y,
-                mask=g.edge_mask)
+                learn_t=self.grad_w, mask=g.edge_mask)
         m = m.to(x.dtype)
         if self.msg_norm is not None:
             m = self.msg_norm(x, m)

@@ -3,18 +3,26 @@
 
 The JAX package runs the layer stack under `lax.scan` over stacked per-layer
 parameters; here it is a Python loop over `nn.ModuleList`s whose names follow
-the reference `state_dict` (`node_features_encoder`, `gcns.{i}.mlp.0`,
-`gcns.{i}.t` when learned, `norms.{i}`, `node_pred_linear`).
+the reference `state_dict` (`node_features_encoder`, `node_one_hot_encoder`,
+`edge_encoder`, `gcns.{i}.mlp.0`, `gcns.{i}.edge_encoder`, `gcns.{i}.t` when
+learned, `norms.{i}`, `node_pred_linear`).
 
 Block semantics (reference `examples/ogb/ogbn_arxiv/model.py:84-136`):
   res+ : h ← gcn_l( drop( relu( norm_{l-1}(h) ) ) ) + h   (pre-activation)
   res  : h ← relu( norm_l( gcn_l(h) ) ) + h, then dropout
   plain: h ← drop( relu( norm_l( gcn_l(h) ) ) )
 
-Not in this slice (the constructor raises on them): edge features
-(`edge_mode` other than "none"), the atom encoder, the one-hot encoder, the
-virtual node, graph pooling, and the memory knobs `remat` and
-`checkpoint_prologue`.
+Edge features (`deeper_gcn.py:53-59, 101-131, 186-196`): ``edge_mode``
+"per_layer" gives every GENConv its own edge encoder; "one_time" encodes once
+at the model level and feeds the same embeddings to every layer. Either way
+`g.edge_attr` and `g.edge_attr_csc` are encoded separately, never permuted on
+the card, so that the fused route's backward (K4) gets its sender-ordered
+copy. The proteins one-hot encoder (``use_one_hot_encoding``) concatenates
+the node features with Linear(species one-hot).
+
+Not ported yet (the constructor raises on them): the bond edge modes, the
+atom encoder, the virtual node, graph pooling, and the memory knobs `remat`
+and `checkpoint_prologue`.
 """
 
 from __future__ import annotations
@@ -66,10 +74,10 @@ class DeeperGCNConfig:
     residual_dtype: str = "float32"
 
 
-# (field, value this slice supports) — anything else is a later slice's work
-_SUPPORTED = (("node_encoder", "linear"), ("edge_mode", "none"), ("graph_pooling", ""),
-              ("remat", False), ("add_virtual_node", False),
-              ("checkpoint_prologue", False), ("use_one_hot_encoding", False))
+# (field, value the port supports) — anything else is a later slice's work
+_SUPPORTED = (("node_encoder", "linear"), ("graph_pooling", ""), ("remat", False),
+              ("add_virtual_node", False), ("checkpoint_prologue", False))
+EDGE_MODES = ("none", "per_layer", "one_time")
 
 
 class DeeperGCN(nn.Module):
@@ -82,14 +90,22 @@ class DeeperGCN(nn.Module):
                     f"(this slice supports {value!r})")
         if cfg.block not in ("res+", "res", "plain"):
             raise NotImplementedError(f"Unknown block Type {cfg.block}")
+        if cfg.edge_mode not in EDGE_MODES:
+            raise NotImplementedError(f"DeeperGCNConfig.edge_mode={cfg.edge_mode!r} is not "
+                                      f"ported yet (the port has {EDGE_MODES})")
         self.cfg = c = cfg
-        self.node_features_encoder = Linear(c.in_channels, c.hidden_channels,
-                                            generator=generator)
+        if c.use_one_hot_encoding:
+            self.node_one_hot_encoder = Linear(c.in_channels, c.in_channels,
+                                               generator=generator)
+        enc_in = c.node_feat_dim + c.in_channels if c.use_one_hot_encoding else c.in_channels
+        self.node_features_encoder = Linear(enc_in, c.hidden_channels, generator=generator)
         self.gcns = nn.ModuleList(
             GENConv(c.hidden_channels, c.hidden_channels, aggr=c.aggr, t=c.t,
                     learn_t=c.learn_t, p=c.p, learn_p=c.learn_p, y=c.y,
                     learn_y=c.learn_y, msg_norm=c.msg_norm,
-                    learn_msg_scale=c.learn_msg_scale, norm=c.norm,
+                    learn_msg_scale=c.learn_msg_scale,
+                    encode_edge=c.edge_mode == "per_layer",
+                    edge_feat_dim=c.edge_feat_dim or None, norm=c.norm,
                     mlp_layers=c.mlp_layers, compute_dtype=c.compute_dtype,
                     generator=generator)
             for _ in range(c.num_layers))
@@ -97,11 +113,16 @@ class DeeperGCN(nn.Module):
                                    for _ in range(c.num_layers))
         self.node_pred_linear = Linear(c.hidden_channels, c.num_tasks,
                                        generator=generator)
+        if c.edge_mode == "one_time":
+            self.edge_encoder = Linear(c.edge_feat_dim, c.hidden_channels,
+                                       generator=generator)
 
     def forward(self, x: torch.Tensor, g: Graph,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                node_feats: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits [N_pad, num_tasks]; dropout masks come from ``generator``
-        in training mode."""
+        in training mode. With the one-hot encoder ``x`` is the species
+        one-hot and ``node_feats`` the aggregated node features."""
         c = self.cfg
         train = self.training
         mask = g.node_mask
@@ -110,16 +131,25 @@ class DeeperGCN(nn.Module):
         def drop(h):
             return dropout(h, c.dropout, train=train, generator=generator)
 
+        if c.use_one_hot_encoding:
+            if node_feats is None:
+                raise ValueError("use_one_hot_encoding needs node_feats")
+            x = torch.cat([node_feats, self.node_one_hot_encoder(x)], 1)
         h = self.node_features_encoder(x)
         if carry is not None:
             h = h.to(carry)
+        ee = {}
+        if c.edge_mode == "one_time" and g.edge_attr is not None:
+            ee["edge_emb"] = self.edge_encoder(g.edge_attr)
+            if g.edge_attr_csc is not None:
+                ee["edge_emb_csc"] = self.edge_encoder(g.edge_attr_csc)
         if c.block == "res+":
-            h = self.gcns[0](h, g)
+            h = self.gcns[0](h, g, **ee)
             if carry is not None:
                 h = h.to(carry)
             for i in range(1, c.num_layers):
                 h2 = drop(torch.relu(self.norms[i - 1](h, mask)))
-                h = h + self.gcns[i](h2, g).to(h.dtype)
+                h = h + self.gcns[i](h2, g, **ee).to(h.dtype)
             h = self.norms[c.num_layers - 1](h, mask)
             if c.final_relu:
                 h = torch.relu(h)
@@ -127,6 +157,6 @@ class DeeperGCN(nn.Module):
                 h = drop(h)
         else:
             for i in range(c.num_layers):
-                h3 = torch.relu(self.norms[i](self.gcns[i](h, g), mask))
+                h3 = torch.relu(self.norms[i](self.gcns[i](h, g, **ee), mask))
                 h = drop(h3 + h if c.block == "res" else h3)
         return self.node_pred_linear(h)

@@ -1,8 +1,10 @@
-"""Native (C++) host library for the band route: reordering and band building.
+"""Native (C++) host library: per-cluster edge extraction for cluster
+training, and the band route's reordering and band building.
 
-Counterpart of `deep_gcns_torch_tpu/native/__init__.py:27-225`, with only the
-entry points this slice needs: `rcm_order`, `cluster_order`, `band_windows`
-and `band_counts`. The source is the port's copy of `graphbuild.cpp`. It is
+Counterpart of `deep_gcns_torch_tpu/native/__init__.py:27-225`, with the
+entry points the port calls: `partition_clusters`, `rcm_order`,
+`cluster_order`, `band_windows` and `band_counts`. The source is the port's
+copy of `graphbuild.cpp`. It is
 compiled with `g++` at first use into the git-ignored
 `deep_gcns_torch_tpu_torch/build/` (never beside the source), under a name
 that carries a hash of the source, and bound with ctypes.
@@ -71,6 +73,12 @@ def _load() -> Optional[ctypes.CDLL]:
         i64p = ctypes.POINTER(ctypes.c_int64)
         i8p = ctypes.POINTER(ctypes.c_int8)
         u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.partition_edges.argtypes = [i32p, i32p, ctypes.c_int64, i32p, ctypes.c_int32,
+                                        ctypes.c_int32, i32p, i64p, i32p]
+        lib.partition_edges.restype = ctypes.c_int64
+        lib.extract_cluster.argtypes = [i32p, i32p, ctypes.c_int64, i32p, i32p,
+                                        ctypes.c_int32, i32p, i32p, i32p]
+        lib.extract_cluster.restype = ctypes.c_int64
         lib.rcm_order.argtypes = [i32p, i32p, ctypes.c_int64, ctypes.c_int32, i32p]
         lib.rcm_order.restype = None
         lib.cluster_order.argtypes = [i32p, i32p, ctypes.c_int64, ctypes.c_int32,
@@ -95,6 +103,35 @@ def available() -> bool:
 
 def _ptr(a: np.ndarray, typ=ctypes.c_int32):
     return a.ctypes.data_as(ctypes.POINTER(typ))
+
+
+def partition_clusters(senders: np.ndarray, receivers: np.ndarray, parts: np.ndarray,
+                       n_clusters: int):
+    """Per-cluster edge extraction: (local_id [N], cluster sizes, and per
+    cluster (local senders, local receivers, original edge ids)), or None
+    when the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    senders = np.ascontiguousarray(senders, np.int32)
+    receivers = np.ascontiguousarray(receivers, np.int32)
+    parts = np.ascontiguousarray(parts, np.int32)
+    n, e = len(parts), len(senders)
+    local_id = np.empty(n, np.int32)
+    sizes = np.empty(n_clusters, np.int64)
+    edge_cluster = np.empty(e, np.int32)
+    lib.partition_edges(_ptr(senders), _ptr(receivers), e, _ptr(parts), n, n_clusters,
+                        _ptr(local_id), _ptr(sizes, ctypes.c_int64), _ptr(edge_cluster))
+    counts = np.bincount(edge_cluster[edge_cluster >= 0], minlength=n_clusters)
+    out = []
+    for c in range(n_clusters):
+        ls = np.empty(counts[c], np.int32)
+        lr = np.empty(counts[c], np.int32)
+        ei = np.empty(counts[c], np.int32)
+        k = lib.extract_cluster(_ptr(senders), _ptr(receivers), e, _ptr(edge_cluster),
+                                _ptr(local_id), c, _ptr(ls), _ptr(lr), _ptr(ei))
+        out.append((ls[:k], lr[:k], ei[:k]))
+    return local_id, sizes, out
 
 
 def rcm_order(senders: np.ndarray, receivers: np.ndarray, num_nodes: int

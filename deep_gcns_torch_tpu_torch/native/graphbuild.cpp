@@ -1,10 +1,12 @@
 // Native host-side graph preprocessing.
 //
 // The port's own copy of the entry points of
-// `deep_gcns_torch_tpu/native/graphbuild.cpp` that the band route needs
-// (rcm_order, cluster_order, band_windows and band_counts), byte for byte in
-// their bodies so that both packages build identical host arrays.  The edge
-// sort and partition helpers come with the slices that call them.
+// `deep_gcns_torch_tpu/native/graphbuild.cpp` that the port calls: the
+// per-cluster edge extraction of cluster training (partition_edges,
+// extract_cluster) and the band route's rcm_order, cluster_order,
+// band_windows and band_counts, byte for byte in their bodies so that both
+// packages build identical host arrays.  The edge sort comes with the slice
+// that calls it.
 //
 // The reference delegates its host hot loops to third-party native code
 // (scipy CSR slicing for per-epoch partitioning, `utils/data_util.py:48-61`;
@@ -14,9 +16,59 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <cstring>
 #include <vector>
 
 extern "C" {
+
+// Per-cluster subgraph extraction for random-partition training
+// (reference semantics: keep intra-cluster edges only,
+// `examples/ogb/ogbn_proteins/dataset.py:117-144`).
+//
+//   parts:        [n_nodes] cluster id per node, in [0, n_clusters)
+//   local_id:     [n_nodes] output: node rank within its cluster
+//   cluster_size: [n_clusters] output
+//   edge_cluster: [n_edges] output: owning cluster of each intra-cluster edge,
+//                 or -1 for cross-cluster edges
+// Returns the number of kept (intra-cluster) edges.
+int64_t partition_edges(const int32_t* senders, const int32_t* receivers,
+                        int64_t n_edges, const int32_t* parts, int32_t n_nodes,
+                        int32_t n_clusters, int32_t* local_id,
+                        int64_t* cluster_size, int32_t* edge_cluster) {
+  std::memset(cluster_size, 0, sizeof(int64_t) * n_clusters);
+  for (int32_t v = 0; v < n_nodes; ++v)
+    local_id[v] = static_cast<int32_t>(cluster_size[parts[v]]++);
+  int64_t kept = 0;
+  for (int64_t i = 0; i < n_edges; ++i) {
+    int32_t cs = parts[senders[i]];
+    if (cs == parts[receivers[i]]) {
+      edge_cluster[i] = cs;
+      kept++;
+    } else {
+      edge_cluster[i] = -1;
+    }
+  }
+  return kept;
+}
+
+// Gather + localize one cluster's edges (after partition_edges).
+//   Writes localized (senders, receivers) of edges belonging to `cluster`
+//   into out arrays; returns count.
+int64_t extract_cluster(const int32_t* senders, const int32_t* receivers,
+                        int64_t n_edges, const int32_t* edge_cluster,
+                        const int32_t* local_id, int32_t cluster,
+                        int32_t* out_s, int32_t* out_r, int32_t* out_eidx) {
+  int64_t k = 0;
+  for (int64_t i = 0; i < n_edges; ++i) {
+    if (edge_cluster[i] == cluster) {
+      out_s[k] = local_id[senders[i]];
+      out_r[k] = local_id[receivers[i]];
+      out_eidx[k] = static_cast<int32_t>(i);
+      k++;
+    }
+  }
+  return k;
+}
 
 // Reverse Cuthill-McKee ordering of the symmetrized graph — the host-side
 // locality pass that makes the band/block-sparse TPU aggregation kernels

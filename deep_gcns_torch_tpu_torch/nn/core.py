@@ -187,6 +187,17 @@ def dropout(x: torch.Tensor, rate: float, *, train: bool,
                                                             device=x.device))
 
 
+def shared_dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One Bernoulli keep-mask (keep probability 1 − rate) divided by
+    (1 − rate), shared by all the layers of a reversible stack
+    (`nn/core.py:146-150`, reference `model_rev.py:101-102`); drawn on the
+    generator's device."""
+    device = None if generator is None else generator.device
+    keep = torch.rand(shape, device=device, generator=generator) < 1.0 - rate
+    return keep.to(dtype) / (1.0 - rate)
+
+
 class MLP(nn.Sequential):
     """Lin → norm → ReLU per layer, a bare Lin last when ``last_lin``; child
     indices match the reference `nn.Sequential` (`mlp.0`, `mlp.1`, `mlp.3`).

@@ -28,16 +28,19 @@ from typing import Dict, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("seg_sum", "softmax_agg", "band")
+SOURCES = ("seg_sum", "softmax_agg", "band", "softmax_bwd_csc")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every C entry point, by source
 _SIGNATURES = {
     "seg_sum": {name: [_P, _P, _P, _P, _I, _I, _I, _P]
                 for name in ("dgc_seg_sum_f32", "dgc_seg_sum_bf16")},
-    "softmax_agg": {name: [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P]
+    "softmax_agg": {name: [_P] * 8 + [_I, _I, _F, _I, _P]
                     for name in ("dgc_softmax_agg_f32", "dgc_softmax_agg_bf16")},
+    "softmax_bwd_csc": {name: [_P] * 10 + [_I, _I, _L, _F, _I, _I, _P]
+                        for name in ("dgc_softmax_bwd_csc_f32", "dgc_softmax_bwd_csc_bf16")},
     "band": {name: [_P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _I, _P]
              for name in ("dgc_band_f32", "dgc_band_bf16")},
 }

@@ -1,16 +1,18 @@
-"""CSR segment sum (K1) and fused softmax aggregation (K2): CUDA kernels, their
-plain PyTorch versions and the autograd Functions around them.
+"""CSR segment sum (K1), fused softmax aggregation (K2, with or without edge
+embeddings) and its CSC backward with edge embeddings (K4): CUDA kernels,
+their plain PyTorch versions and the autograd Functions around them.
 
 Counterpart of `deep_gcns_torch_tpu/ops/spmm_pallas.py:252-315, 322-412,
-649-803`. The kernels are hand-written CUDA C++ for Hopper (`csrc/seg_sum.cu`,
-`csrc/softmax_agg.cu`, built by `ops/_build.py`); each source names the TPU
-kernel it replaces and what bounds it on the card.
+466-803`. The kernels are hand-written CUDA C++ for Hopper (`csrc/seg_sum.cu`,
+`csrc/softmax_agg.cu`, `csrc/softmax_bwd_csc.cu`, built by `ops/_build.py`);
+each source names the TPU kernel it replaces and what bounds it on the card.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel (or raises). Each kernel
 wrapper counts its launches in a plain int attribute (`csr_seg_sum.launches`,
-`softmax_agg.launches`), so a run can show that its main path went through
-the kernels.
+`softmax_agg.launches` and, for its edge-embedding form,
+`softmax_agg.launches_ee`, `softmax_bwd_csc.launches`), so a run can show
+that its main path went through the kernels.
 
 The TPU artifacts of the Pallas kernels (one-hot MXU matmuls, 128-lane
 padding, the VMEM slot ring, BN/CHUNK tiles) are not carried over:
@@ -135,19 +137,26 @@ def segment_sum_csr(msgs: torch.Tensor, receivers: torch.Tensor,
     return _SegmentSumCSR.apply(msgs, receivers, row_ptr)
 
 
+
+
 # ---------------------------------------------------------------------------
 # K2: fused gather + message + softmax aggregation
 # ---------------------------------------------------------------------------
 
 def softmax_agg_plain(x: torch.Tensor, senders: torch.Tensor, row_ptr: torch.Tensor,
-                      t: torch.Tensor, cmax: torch.Tensor, eps: float
+                      t: torch.Tensor, cmax: torch.Tensor, eps: float,
+                      ee: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, den) of K2: per receiver and channel, num = Σ round(w·m) and
-    den = Σ round(w) in float32 with m = relu(x[send]) + ε, w = exp(t·m − cmax)
-    and round() the rounding to x's dtype; out = num/den (0 where den = 0).
-    Both outputs are in x's dtype."""
+    den = Σ round(w) in float32 with m = relu(x[send] [+ ee[e]]) + ε,
+    w = exp(t·m − cmax) and round() the rounding to x's dtype; out = num/den
+    (0 where den = 0). ``ee`` is in receiver order. Both outputs are in x's
+    dtype."""
     edges, rows = _edge_rows(row_ptr)
-    m = torch.relu(x.index_select(0, senders[edges].long()).float()) + eps
+    xj = x.index_select(0, senders[edges].long()).float()
+    if ee is not None:
+        xj = xj + ee.index_select(0, edges).float()
+    m = torch.relu(xj) + eps
     w = torch.exp(m * t - cmax)
     shape = (row_ptr.shape[0] - 1, x.shape[1])
     num = torch.zeros(shape, dtype=torch.float32, device=x.device)
@@ -159,49 +168,165 @@ def softmax_agg_plain(x: torch.Tensor, senders: torch.Tensor, row_ptr: torch.Ten
     return out.to(x.dtype), den.to(x.dtype)
 
 
-def softmax_agg(x: torch.Tensor, senders: torch.Tensor, row_ptr: torch.Tensor,
-                t: torch.Tensor, cmax: torch.Tensor, eps: float
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 (`csrc/softmax_agg.cu`) on a CUDA tensor; the plain version on a CPU
-    one. ``t`` is a float32 one-element tensor read on the device."""
-    if x.device.type == "cpu":
-        return softmax_agg_plain(x, senders, row_ptr, t, cmax, eps)
-    _check_rows("x", x)
-    _check_index("senders", senders, x.device)
-    _check_index("row_ptr", row_ptr, x.device)
-    n_rows, c = row_ptr.shape[0] - 1, x.shape[1]
+def _check_t_cmax(t: torch.Tensor, cmax: torch.Tensor, x: torch.Tensor):
+    c = x.shape[1]
     _require(t.device == x.device and t.dtype == torch.float32 and t.numel() == 1,
              "t must be a one-element float32 tensor on x's device")
     _require(cmax.device == x.device and cmax.dtype == torch.float32
              and cmax.shape == (c,) and cmax.is_contiguous(),
              "cmax must be a contiguous float32 [C] tensor on x's device")
+
+
+def _check_edge_rows(name: str, a: torch.Tensor, x: torch.Tensor, rows: int):
+    _check_rows(name, a)
+    _require(a.device == x.device and a.dtype == x.dtype and a.shape == (rows, x.shape[1]),
+             f"{name} must be [{rows}, {x.shape[1]}] of x's dtype on x's device, got "
+             f"{tuple(a.shape)} {a.dtype} on {a.device}")
+
+
+def softmax_agg(x: torch.Tensor, senders: torch.Tensor, row_ptr: torch.Tensor,
+                t: torch.Tensor, cmax: torch.Tensor, eps: float,
+                ee: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 (`csrc/softmax_agg.cu`) on a CUDA tensor; the plain version on a CPU
+    one. ``t`` is a float32 one-element tensor read on the device; ``ee``
+    (optional) holds one row per edge slot of ``senders``, in x's dtype."""
+    if x.device.type == "cpu":
+        return softmax_agg_plain(x, senders, row_ptr, t, cmax, eps, ee)
+    _check_rows("x", x)
+    _check_index("senders", senders, x.device)
+    _check_index("row_ptr", row_ptr, x.device)
+    _check_t_cmax(t, cmax, x)
+    if ee is not None:
+        _check_edge_rows("ee", ee, x, senders.shape[0])
+    n_rows, c = row_ptr.shape[0] - 1, x.shape[1]
     out = torch.empty((n_rows, c), dtype=x.dtype, device=x.device)
     den = torch.empty((n_rows, c), dtype=x.dtype, device=x.device)
     if n_rows == 0 or c == 0:
         return out, den
     t = t.contiguous()
+    vec_of = (x, out, den, cmax) if ee is None else (x, out, den, cmax, ee)
     fn = getattr(library("softmax_agg"), f"dgc_softmax_agg_{_SUFFIX[x.dtype]}")
-    rc = fn(x.data_ptr(), senders.data_ptr(), row_ptr.data_ptr(), t.data_ptr(),
-            cmax.data_ptr(), out.data_ptr(), den.data_ptr(), n_rows, c, float(eps),
-            _vec(c, x, out, den, cmax), torch.cuda.current_stream(x.device).cuda_stream)
-    softmax_agg.launches += 1
+    rc = fn(x.data_ptr(), None if ee is None else ee.data_ptr(), senders.data_ptr(),
+            row_ptr.data_ptr(), t.data_ptr(), cmax.data_ptr(), out.data_ptr(),
+            den.data_ptr(), n_rows, c, float(eps), _vec(c, *vec_of),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if ee is None:
+        softmax_agg.launches += 1
+    else:
+        softmax_agg.launches_ee += 1
     _raise_on(rc, "K2 softmax_agg")
     return out, den
 
 
-softmax_agg.launches = 0
+softmax_agg.launches = 0     # K2 without edge embeddings
+softmax_agg.launches_ee = 0  # K2 with edge embeddings (the `has_ee` form)
 
 
-def fused_cmax(x: torch.Tensor, t: torch.Tensor, eps: float) -> torch.Tensor:
-    """Per-channel GLOBAL upper bound of the scores t·(relu(x_j) + ε) over all
-    N_pad rows, padding included (`_fused_cmax`, spmm_pallas.py:649-662).
-    relu commutes with the max, so the max is taken in x's dtype."""
-    m_ub = torch.clamp_min(x.detach().amax(0).float(), 0.0) + eps
+def fused_cmax(x: torch.Tensor, t: torch.Tensor, eps: float,
+               ee: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-channel GLOBAL upper bound of the scores t·(relu(x_j [+ ee_e]) + ε)
+    (`_fused_cmax`, spmm_pallas.py:649-662): m_ub = max relu(x), over all
+    N_pad rows, and with edge embeddings relu(m_ub + max ee) with the max
+    over all E_pad rows of ``ee``, padding included (padded rows carry the
+    edge encoder's bias). relu commutes with the max, so the maxima are
+    taken in the inputs' dtype."""
+    m_ub = torch.clamp_min(x.detach().amax(0).float(), 0.0)
+    if ee is not None:
+        m_ub = torch.relu(m_ub + ee.detach().amax(0).float())
+    m_ub = m_ub + eps
     return torch.where(t > 0, t * m_ub, t * eps)
 
 
+# ---------------------------------------------------------------------------
+# K4: the CSC backward with edge embeddings
+# ---------------------------------------------------------------------------
+
+def softmax_bwd_csc_plain(x: torch.Tensor, ee_csc: torch.Tensor, qo: torch.Tensor,
+                          col_ptr: torch.Tensor, csc_receivers: torch.Tensor,
+                          t: torch.Tensor, cmax: torch.Tensor, eps: float,
+                          grad_weights: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """(dx, dee_csc, dt) of K4. Per edge e of sender s's CSC range with
+    receiver r: xj = x[s] + ee_csc[e], m = relu(xj) + ε, w = exp(t·m − cmax),
+    q = qo[r, :C]; dm = q·w·(1 + t·(m − o)) with o = qo[r, C:] under
+    ``grad_weights``, else q·w; dxj = dm where xj > 0. dee_csc[e] = dxj in
+    ee's dtype (0 on rows outside every range), dx[s] = Σ dxj rounded to x's
+    dtype and summed in float32, dt = Σ q·w·m·(m − o) (None without
+    ``grad_weights``)."""
+    edges, rows = _edge_rows(col_ptr)
+    c = x.shape[1]
+    xj = x.index_select(0, rows).float() + ee_csc.index_select(0, edges).float()
+    m = torch.relu(xj) + eps
+    w = torch.exp(m * t - cmax)
+    qr = qo.index_select(0, csc_receivers[edges].long()).float()
+    qw = qr[:, :c] * w
+    dt = None
+    if grad_weights:
+        dl = m - qr[:, c:]
+        dm = qw * (1.0 + t * dl)
+        dt = (qw * m * dl).sum()
+    else:
+        dm = qw
+    dxj = torch.where(xj > 0, dm, 0.0)
+    dee = torch.zeros_like(ee_csc)
+    dee[edges] = dxj.to(ee_csc.dtype)
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    dx.index_add_(0, rows, dxj.to(x.dtype).float())
+    return dx.to(x.dtype), dee, dt
+
+
+def softmax_bwd_csc(x: torch.Tensor, ee_csc: torch.Tensor, qo: torch.Tensor,
+                    col_ptr: torch.Tensor, csc_receivers: torch.Tensor, t: torch.Tensor,
+                    cmax: torch.Tensor, eps: float, grad_weights: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K4 (`csrc/softmax_bwd_csc.cu`) on a CUDA tensor; the plain version on a
+    CPU one. ``qo`` is [N_pad, C] (q = g/den) or, with ``grad_weights``,
+    [N_pad, 2C] ([q | out]), in x's dtype; the kernel gathers its rows by
+    receiver. dt comes back as the float32 sum of one partial per sender row."""
+    if x.device.type == "cpu":
+        return softmax_bwd_csc_plain(x, ee_csc, qo, col_ptr, csc_receivers, t, cmax, eps,
+                                     grad_weights)
+    _check_rows("x", x)
+    _check_index("col_ptr", col_ptr, x.device)
+    _check_index("csc_receivers", csc_receivers, x.device)
+    _check_t_cmax(t, cmax, x)
+    n_rows, c = col_ptr.shape[0] - 1, x.shape[1]
+    e_pad = csc_receivers.shape[0]
+    _require(n_rows == x.shape[0], f"col_ptr has {n_rows} ranges for {x.shape[0]} rows of x")
+    _check_edge_rows("ee_csc", ee_csc, x, e_pad)
+    _check_rows("qo", qo)
+    qc = 2 * c if grad_weights else c
+    _require(qo.dtype == x.dtype and qo.device == x.device and qo.shape == (n_rows, qc),
+             f"qo must be [{n_rows}, {qc}] of x's dtype, got {tuple(qo.shape)} {qo.dtype}")
+    dx = torch.empty_like(x)
+    dee = torch.empty_like(ee_csc)
+    dt_part = (torch.empty(n_rows, dtype=torch.float32, device=x.device)
+               if grad_weights else None)
+    if n_rows == 0 or c == 0:
+        return dx, dee.zero_(), None if dt_part is None else dt_part.sum()
+    t = t.contiguous()
+    fn = getattr(library("softmax_bwd_csc"), f"dgc_softmax_bwd_csc_{_SUFFIX[x.dtype]}")
+    rc = fn(x.data_ptr(), ee_csc.data_ptr(), qo.data_ptr(), col_ptr.data_ptr(),
+            csc_receivers.data_ptr(), t.data_ptr(), cmax.data_ptr(), dx.data_ptr(),
+            dee.data_ptr(), None if dt_part is None else dt_part.data_ptr(), n_rows, c,
+            e_pad, float(eps), int(grad_weights), _vec(c, x, ee_csc, qo, dx, dee, cmax),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    softmax_bwd_csc.launches += 1
+    _raise_on(rc, "K4 softmax_bwd_csc")
+    return dx, dee, None if dt_part is None else dt_part.sum()
+
+
+softmax_bwd_csc.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the fused aggregation as one autograd Function
+# ---------------------------------------------------------------------------
+
 class _FusedSoftmaxGatherAgg(torch.autograd.Function):
-    """Forward: K2. Backward: the node-factored formula of
+    """Forward: K2 (with ``ee`` when there are edge embeddings).
+
+    Backward without edge embeddings: the node-factored formula of
     spmm_pallas.py:727-760 with Aᵀq through K1 with the fused gather:
 
         softmax_sg: dx = relu'(x) ⊙ E ⊙ Aᵀq
@@ -209,30 +334,42 @@ class _FusedSoftmaxGatherAgg(torch.autograd.Function):
                     dt = Σ E⊙M⊙(M⊙S₁ − S₂),   [S₁|S₂] = Aᵀ[q | q⊙out]
 
     with q = g/den, M = relu(x) + ε and E = exp(t·M − cmax). It holds only
-    because cmax is one shift for every receiver."""
+    because cmax is one shift for every receiver. With edge embeddings the
+    message is no node table, and the backward is K4 over the CSC ranges
+    (spmm_pallas.py:762-776): the whole edge cotangent goes to ``ee_csc``,
+    and ``ee`` gets none."""
 
     @staticmethod
-    def forward(ctx, x, t, senders, row_ptr, csc_receivers, csc_col_ptr, eps,
-                grad_weights, agg: Callable, seg: Callable):
+    def forward(ctx, x, t, ee, ee_csc, senders, row_ptr, csc_receivers, csc_col_ptr, eps,
+                grad_weights, ops):
+        agg, seg, bwd = ops
         t32 = t.detach().float().reshape(1)
-        cmax = fused_cmax(x, t32, eps)
-        out, den = agg(x, senders, row_ptr, t32, cmax, eps)
+        cmax = fused_cmax(x, t32, eps, ee)
+        out, den = agg(x, senders, row_ptr, t32, cmax, eps, ee)
         ctx.save_for_backward(x, t32, den, cmax, csc_receivers, csc_col_ptr,
-                              out if grad_weights else None)
-        ctx.eps, ctx.grad_weights, ctx.seg, ctx.t_shape = eps, grad_weights, seg, t.shape
+                              out if grad_weights else None, ee_csc)
+        ctx.eps, ctx.grad_weights, ctx.t_shape = eps, grad_weights, t.shape
+        ctx.seg, ctx.bwd = seg, bwd
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, t, den, cmax, csc_receivers, csc_col_ptr, out = ctx.saved_tensors
+        x, t, den, cmax, csc_receivers, csc_col_ptr, out, ee_csc = ctx.saved_tensors
         den = den.float()
         pos = den > 0
         q = torch.where(pos, g.float() / torch.where(pos, den, 1.0), 0.0)
+        dt = dee = None
+        if ee_csc is not None:
+            qo = torch.cat([q, out.float()], 1) if ctx.grad_weights else q
+            dx, dee, dt = ctx.bwd(x, ee_csc, qo.to(x.dtype).contiguous(), csc_col_ptr,
+                                  csc_receivers, t, cmax, ctx.eps, ctx.grad_weights)
+            if dt is not None:
+                dt = dt.reshape(ctx.t_shape)
+            return dx, dt, None, dee, None, None, None, None, None, None, None
         m_node = torch.relu(x.float()) + ctx.eps
         e_node = torch.exp(m_node * t - cmax)
         qo = torch.cat([q, q * out.float()], 1) if ctx.grad_weights else q
         s_all = ctx.seg(qo.to(x.dtype).contiguous(), csc_col_ptr, csc_receivers).float()
-        dt = None
         if ctx.grad_weights:
             c = x.shape[1]
             s1, s2 = s_all[:, :c], s_all[:, c:]
@@ -241,34 +378,49 @@ class _FusedSoftmaxGatherAgg(torch.autograd.Function):
         else:
             dm = e_node * s_all
         dx = torch.where(x > 0, dm, 0.0).to(x.dtype)
-        return dx, dt, None, None, None, None, None, None, None, None
+        return dx, dt, None, None, None, None, None, None, None, None, None
+
+
+def _fused(ops, x, senders, row_ptr, csc_receivers, csc_col_ptr, t, ee, ee_csc, eps,
+           grad_weights):
+    _require((ee is None) == (ee_csc is None),
+             "edge embeddings come in both orders: pass ee and ee_csc, or neither")
+    return _FusedSoftmaxGatherAgg.apply(x, t, ee, ee_csc, senders, row_ptr, csc_receivers,
+                                        csc_col_ptr, eps, grad_weights, ops)
 
 
 def fused_softmax_gather_agg(x: torch.Tensor, senders: torch.Tensor,
                              row_ptr: torch.Tensor, csc_receivers: torch.Tensor,
                              csc_col_ptr: torch.Tensor, t: torch.Tensor,
+                             ee: Optional[torch.Tensor] = None,
+                             ee_csc: Optional[torch.Tensor] = None,
                              eps: float = 1e-7, grad_weights: bool = False
                              ) -> torch.Tensor:
-    """GENConv aggregation fused at the node level (no edge embeddings):
+    """GENConv aggregation fused at the node level:
 
-        out[n] = Σ_{e: recv=n} softmax_e(t·m_e)·m_e,   m_e = relu(x[send_e]) + ε
+        out[n] = Σ_{e: recv=n} softmax_e(t·m_e)·m_e,   m_e = relu(x[send_e] [+ ee_e]) + ε
 
     ``grad_weights`` False keeps the reference's stop-gradient softmax
     weights (softmax_sg); True differentiates through them and through ``t``.
+    Edge embeddings come in both edge orders, as in the JAX package
+    (spmm_pallas.py:666-686): ``ee`` in receiver order feeds the forward,
+    ``ee_csc`` in sender order the backward (K4), which returns the whole
+    edge cotangent for ``ee_csc``. Encode ``g.edge_attr`` and
+    ``g.edge_attr_csc`` separately to make them; never permute on the card.
     The edge ranges come from ``row_ptr`` (receiver-sorted) and
     ``csc_col_ptr`` (sender-sorted), so sentinel edges are never read."""
-    return _FusedSoftmaxGatherAgg.apply(x, t, senders, row_ptr, csc_receivers,
-                                        csc_col_ptr, eps, grad_weights,
-                                        softmax_agg, csr_seg_sum)
+    return _fused((softmax_agg, csr_seg_sum, softmax_bwd_csc), x, senders, row_ptr,
+                  csc_receivers, csc_col_ptr, t, ee, ee_csc, eps, grad_weights)
 
 
-def fused_softmax_gather_agg_plain(x, senders, row_ptr, csc_receivers, csc_col_ptr,
-                                   t, eps: float = 1e-7, grad_weights: bool = False):
-    """The same Function on the plain versions of K1 and K2, on any device:
-    the oracle that the kernels' forward and backward are held against."""
-    return _FusedSoftmaxGatherAgg.apply(x, t, senders, row_ptr, csc_receivers,
-                                        csc_col_ptr, eps, grad_weights,
-                                        softmax_agg_plain, csr_seg_sum_plain)
+def fused_softmax_gather_agg_plain(x, senders, row_ptr, csc_receivers, csc_col_ptr, t,
+                                   ee=None, ee_csc=None, eps: float = 1e-7,
+                                   grad_weights: bool = False):
+    """The same Function on the plain versions of K1, K2 and K4, on any
+    device: the oracle that the kernels' forward and backward are held
+    against."""
+    return _fused((softmax_agg_plain, csr_seg_sum_plain, softmax_bwd_csc_plain), x, senders,
+                  row_ptr, csc_receivers, csc_col_ptr, t, ee, ee_csc, eps, grad_weights)
 
 
 # the call site's name in the JAX package; on the GPU there are no lanes to pad

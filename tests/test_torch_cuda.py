@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from deep_gcns_torch_tpu_torch.graph import attach_band, build_graph
-from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig
+from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig, RevGCN, RevGCNConfig
 from deep_gcns_torch_tpu_torch.nn.core import Linear
 from deep_gcns_torch_tpu_torch.ops import band as tband
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
@@ -104,14 +104,132 @@ def test_fused_backward_matches_plain(cuda_device, dtype, grad_weights):
     for fn in (tsp.fused_softmax_gather_agg, tsp.fused_softmax_gather_agg_plain):
         xx = x.detach().clone().requires_grad_(True)
         tt = torch.tensor([0.1], device=cuda_device, requires_grad=grad_weights)
-        o = fn(xx, g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr, tt, 1e-7,
-               grad_weights)
+        o = fn(xx, g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr, tt, eps=1e-7,
+               grad_weights=grad_weights)
         (o.float() ** 2).sum().backward()
         res.append((o.detach(), xx.grad, tt.grad))
     _assert_close(res[0][0], res[1][0], **TOL[dtype])
     _assert_close(res[0][1], res[1][1], **TOL_BWD[dtype])
     if grad_weights:
         _assert_close(res[0][2], res[1][2], **TOL_DT[dtype])
+
+
+def _edge_inputs(g, c, dtype, seed=0):
+    """x and edge embeddings in both edge orders, as an edge encoder makes
+    them: Linear(8, C) of the raw features, so the padded rows carry the
+    bias."""
+    gen = torch.Generator(device=g.senders.device).manual_seed(seed)
+    dev = g.senders.device
+    x = torch.randn(g.num_nodes_padded, c, device=dev, generator=gen).to(dtype)
+    w = torch.randn(8, c, device=dev, generator=gen) * 0.5
+    b = torch.randn(c, device=dev, generator=gen) * 0.1
+    ee = (g.edge_attr @ w + b).to(dtype)
+    ee_csc = (g.edge_attr_csc @ w + b).to(dtype)
+    return x, ee, ee_csc
+
+
+def _edge_graph(dev, seed=0, n=5000, e=60000):
+    """_graph's shape with 8-dim edge features in both edge orders."""
+    rng = np.random.default_rng(seed)
+    s, r = rng.integers(0, n, e), rng.integers(0, n - 100, e)
+    r[:8000] = 7
+    ea = rng.random((e, 8)).astype(np.float32)
+    return build_graph(None, s, r, edge_attr=ea, num_nodes=n).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [40, 64, 30])
+def test_edge_kernels_match_plain(cuda_device, dtype, c):
+    """K2 with edge embeddings and K4 (both branches) against their plain
+    versions: C=40 and 64 take the 4-wide loads, C=30 the scalar ones. K4's
+    per-edge output d(ee) is bit for bit the plain version's terms; dx and dt
+    are sums in another order."""
+    g = _edge_graph(cuda_device)
+    tol = TOL[dtype]
+    x, ee, ee_csc = _edge_inputs(g, c, dtype)
+    t = torch.tensor([0.9], device=cuda_device)
+    cmax = tsp.fused_cmax(x, t, 1e-7, ee)
+    k2, k4 = tsp.softmax_agg.launches_ee, tsp.softmax_bwd_csc.launches
+    out, den = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+    out_p, den_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+    _assert_close(out, out_p, **tol)
+    _assert_close(den, den_p, **tol)
+    q = torch.randn(g.num_nodes_padded, c, device=cuda_device).to(dtype)
+    for gw in (False, True):
+        qo = torch.cat([q, out_p], 1).contiguous() if gw else q
+        args = (x, ee_csc, qo, g.csc_col_ptr, g.csc_receivers, t, cmax, 1e-7, gw)
+        dx, dee, dt = tsp.softmax_bwd_csc(*args)
+        dx_p, dee_p, dt_p = tsp.softmax_bwd_csc_plain(*args)
+        _assert_close(dx, dx_p, **tol)
+        _assert_close(dee, dee_p, **tol)
+        assert not dee[g.n_edge:].any()  # padded rows are zero
+        if gw:
+            _assert_close(dt, dt_p, **TOL_DT[torch.float32])
+        else:
+            assert dt is None and dt_p is None
+    torch.cuda.synchronize()
+    assert (tsp.softmax_agg.launches_ee - k2, tsp.softmax_bwd_csc.launches - k4) == (1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad_weights", [False, True])
+def test_fused_with_edge_emb_matches_plain(cuda_device, dtype, grad_weights):
+    """The fused Function with edge embeddings (K2 with `ee` forward, K4
+    backward) against the same Function on the plain versions: out, dx, the
+    cotangent of the sender-ordered embeddings and dt. With learned weights
+    in bf16, one ulp of `out` moves the factor 1 + t·(m − out) of a single
+    edge term by t·2^-8·|out|, which sets the floor."""
+    g = _edge_graph(cuda_device, seed=1)
+    x, ee, ee_csc = _edge_inputs(g, 40, dtype, seed=1)
+    co = torch.randn(g.num_nodes_padded, 40, device=cuda_device)
+    res = []
+    for fn in (tsp.fused_softmax_gather_agg, tsp.fused_softmax_gather_agg_plain):
+        xx = x.detach().clone().requires_grad_(True)
+        ec = ee_csc.detach().clone().requires_grad_(True)
+        tt = torch.tensor([1.0], device=cuda_device, requires_grad=grad_weights)
+        o = fn(xx, g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr, tt, ee=ee,
+               ee_csc=ec, eps=1e-7, grad_weights=grad_weights)
+        (o.float() * co).sum().backward()
+        res.append((o.detach(), xx.grad, ec.grad, tt.grad))
+    bwd = dict(TOL_BWD[dtype])
+    if grad_weights and dtype == torch.bfloat16:
+        bwd["atol_rel"] = 2.0 ** -7
+    _assert_close(res[0][0], res[1][0], **TOL[dtype])
+    _assert_close(res[0][1], res[1][1], **bwd)
+    _assert_close(res[0][2], res[1][2], **bwd)
+    if grad_weights:
+        _assert_close(res[0][3], res[1][3], **TOL_DT[dtype])
+
+
+@pytest.mark.cuda
+def test_small_rev_gcn_card_matches_cpu(cuda_device):
+    """A 3-layer RevGCN (group 2, edge encoders, learned t) through the
+    reversible engine and K2 with `ee`/K4 on the card against the same
+    weights through the plain versions on the CPU, in float32."""
+    rng = np.random.default_rng(4)
+    n, e = 3000, 30000
+    g = build_graph(None, rng.integers(0, n, e), rng.integers(0, n, e),
+                    edge_attr=rng.random((e, 8)).astype(np.float32), num_nodes=n)
+    n_pad = g.num_nodes_padded
+    species = torch.from_numpy(np.eye(8, dtype=np.float32)[rng.integers(0, 8, n_pad)])
+    nf = torch.from_numpy(rng.standard_normal((n_pad, 8)).astype(np.float32))
+    co = torch.from_numpy(rng.standard_normal((n_pad, 12)).astype(np.float32))
+    cfg = RevGCNConfig(hidden_channels=32, num_tasks=12, num_layers=3, group=2,
+                       aggr="softmax", learn_t=True, dropout=0.0)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = RevGCN(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+        model.train()
+        logits = model(species.to(dev), g.to(dev), node_feats=nf.to(dev))
+        (logits * co.to(dev)).sum().backward()
+        outs.append((logits.detach().cpu(),
+                     {k: p.grad.detach().cpu() for k, p in model.named_parameters()}))
+    _assert_close(outs[0][0], outs[1][0], 1e-4, 1e-4)
+    g_max = max(float(v.abs().max()) for v in outs[1][1].values())
+    for k, want in outs[1][1].items():
+        _assert_close(outs[0][1][k], want, 1e-3, 1e-4, ref_max=g_max)
 
 
 @pytest.mark.cuda

@@ -19,7 +19,14 @@ MODULES = ["deep_gcns_torch_tpu_torch", "deep_gcns_torch_tpu_torch.device",
            "deep_gcns_torch_tpu_torch.utils.loss", "deep_gcns_torch_tpu_torch.utils.optim",
            "deep_gcns_torch_tpu_torch.utils.metrics",
            "deep_gcns_torch_tpu_torch.utils.import_jax",
-           "deep_gcns_torch_tpu_torch.apps.ogbn_arxiv"]
+           "deep_gcns_torch_tpu_torch.apps.ogbn_arxiv",
+           "deep_gcns_torch_tpu_torch.data.partition", "deep_gcns_torch_tpu_torch.data.ogb",
+           "deep_gcns_torch_tpu_torch.rev", "deep_gcns_torch_tpu_torch.rev.coupling",
+           "deep_gcns_torch_tpu_torch.rev.invertible", "deep_gcns_torch_tpu_torch.rev.rev_layer",
+           "deep_gcns_torch_tpu_torch.models.rev_gcn",
+           "deep_gcns_torch_tpu_torch.apps.proteins_common",
+           "deep_gcns_torch_tpu_torch.apps.ogbn_proteins",
+           "deep_gcns_torch_tpu_torch.apps.ogbn_proteins_rev"]
 
 
 def test_import_leaves_jax_out():

@@ -111,7 +111,8 @@ def test_fused_softmax_gather_agg_grads(rng_np, grad_weights):
     gx, gt = jax.grad(f, argnums=(0, 1))(jnp.asarray(x), jnp.float32(0.9))
     x_t = _t(x).requires_grad_(True)
     t_t = torch.tensor([0.9], requires_grad=grad_weights)
-    out = tsp.fused_softmax_gather_agg(x_t, *_port_args(g), t_t, 1e-7, grad_weights)
+    out = tsp.fused_softmax_gather_agg(x_t, *_port_args(g), t_t, eps=1e-7,
+                                       grad_weights=grad_weights)
     (out ** 2).sum().backward()
     np.testing.assert_allclose(x_t.grad.numpy(), np.asarray(gx), **GRAD)
     if grad_weights:
