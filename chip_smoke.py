@@ -21,7 +21,7 @@ every check; nothing is caught):
    trained through the app's `train_step` for one warm-up and 5 timed steps,
    then one `predict`; the launch counts must show 28 K2 launches per
    forward and 28 K1 launches per backward;
-5. profile: a `torch.profiler` trace of two more train steps, printed as
+5. profile: a `torch.profiler` trace of one more train step, printed as
    device time by kernel and the device's busy share of the window;
 6. timing: CUDA-event times of K1 (gathered form, as the backward calls it)
    and K2 at the main shapes, beside their plain versions, a library yardstick
@@ -38,9 +38,9 @@ every check; nothing is caught):
 9. main path, band route: ResGEN-28 on the band graph, one warm-up, 5 timed
    steps and a `predict`; K3 must launch 56 times a step and 28 times a
    `predict`, K1 as often wherever the leftover is not empty, K2 never;
-10. profile of two band-route steps;
+10. profile of one band-route step;
 11. the same graph on the gather route (`g.replace(band=None)`): one warm-up
-   and 3 steps, and the card's band/gather step ratio;
+   and 2 steps, and the card's band/gather step ratio;
 12. timing of K3 in bf16 on the packed forward table, its bound and a
    `torch.sparse.mm` yardstick of the in-band adjacency;
 13. cluster graph: one ogbn-proteins cluster under the reference's 10-way
@@ -55,21 +55,44 @@ every check; nothing is caught):
    the same weights on the CPU: logits and every gradient;
 16. main path, RevGCN at L=101 then L=1001 (80 channels, group 2, bf16)
    through `apps/ogbn_proteins_rev`'s `train_step` and `predict`: one
-   warm-up, 2 timed steps and a `predict` each; K2 with `ee` must launch
-   2·L·G times a step and L·G times a `predict`, K4 L·G times a step, K1,
-   K3 and K2 without `ee` never; a profile of one L=101 step; the O(1)
-   memory check: the peak may grow from L=101 to L=1001 by no more than the
-   parameters, gradients and Adam moments of the extra layers (16 bytes a
-   parameter) plus 256 MB;
+   warm-up, 2 timed steps (1 at L=1001) and a `predict` each; K2 with
+   `ee` must launch 2·L·G times a step and L·G times a `predict`, K4 L·G
+   times a step, K1, K3 and K2 without `ee` never; a profile of one L=101
+   step; the O(1)-memory check: the peak may grow from L=101 to L=1001 by
+   no more than the parameters, gradients and Adam moments of the extra
+   layers (16 bytes a parameter) plus 256 MB;
 17. main path, DyResGEN-112 (C=64, learned t, per-layer edge encoders,
-   bf16) through `apps/ogbn_proteins`: one warm-up, 3 timed steps and a
+   bf16) through `apps/ogbn_proteins`: one warm-up, 2 timed steps and a
    `predict`; K2 with `ee` 112 launches a step and a `predict`, K4 112 a
    step;
 18. app: `apps/ogbn_proteins_rev.main` for one epoch on synthetic
    ogbn-proteins (132,534 nodes, degree 60, 10 clusters, 28 layers, 5
    evaluation parts, bf16), with its host partition seconds;
 19. timing of K2 with `ee` and K4 in bf16 at C=40 on the cluster graph,
-   beside their plain versions and bounds.
+   beside their plain versions and bounds;
+20. RevGAT graph: `bench.py:420-428`'s power-law community graph (N=169,343,
+   degree 8, alpha 0.6) made symmetric, with self-loops, cluster order at
+   16,384 and its band ("auto");
+21. GAT kernels: K5 against its plain version, and K6 through the
+   Function's backward against the Function on the plain versions, at
+   RevGAT-5L's three packed widths (3x256+3, 3x128+3, 1x40+1, padded to a
+   multiple of 8), in float32 and bfloat16, with and without the hash keep;
+22. GAT agreement: a small RevGAT on the card against the same weights on
+   the CPU, on the CSC route and on the band route;
+23. main path, RevGAT-5L (`bench.py:119-132`: 256 hidden x 3 heads, group
+   2, 128 + 40 label channels, dropout 0.75, input dropout 0.25, edge-drop
+   0.3, symmetric norm, bf16, RMSprop warming up from lr 0) through
+   `apps/ogbn_arxiv_dgl`'s `train_step` and `predict`, on the band route
+   and on the CSC route of the same graph: one warm-up, 3 timed steps and a
+   `predict` each, the launch counts (CSC: 14 K5 and 8 K6 a step, 16 K5 a
+   `predict`; band: 22 K3 a step and 16 a `predict`, K1 as often where the
+   leftover is not empty, no K5/K6), peaks, the CSC/band ratio, a profile
+   of one step on each route;
+24. app: `apps/ogbn_arxiv_dgl.main` for 6 epochs on synthetic data (20,000
+   nodes, bf16);
+25. timing of K5 and K6 in bf16 at the three widths with the training
+   step's hash keep, beside their plain versions, their bounds and the
+   bound if every row gather came from HBM.
 
 The line before the last is a JSON object listing the kernels; the last line
 is `{"ok": true, "device": {...}}`. `--rehearse-cpu` runs every phase on the
@@ -121,12 +144,24 @@ TOL_LIBRARY = dict(rtol=2.0 ** -5, atol_rel=2.0 ** -5)
 # t·2^-8·|out|, which may cancel to near 0, so the floor is one bf16 ulp of
 # the largest value
 TOL_EE_LEARN_T_BF16 = dict(rtol=2.0 ** -5, atol_rel=2.0 ** -7)
+# K6's el column in bf16: each edge's term (⟨msg, gnum⟩ + gden)·w·lrelu' has
+# a dot summed across the warp in the kernel and by torch in the plain
+# version, so its bf16 rounding may flip by one ulp of the term; the floor is
+# one bf16 ulp of the largest value
+TOL_GAT_EL_BF16 = dict(rtol=2.0 ** -5, atol_rel=2.0 ** -7)
 # the O(1)-memory check's allowance beside the optimizer state
 MEMORY_SLACK_BYTES = 256 * 2 ** 20
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+T_START = time.time()
+
+
+def mark(phase):
+    log(f"[time] {phase} done at {time.time() - T_START:.1f}s")
 
 
 class Checks:
@@ -292,16 +327,19 @@ def reset_launches():
     tsp.softmax_agg.launches_ee = 0
     tband.band_call.launches = 0
     tsp.softmax_bwd_csc.launches = 0
+    tsp.gat_fwd.launches = 0
+    tsp.gat_bwd_csc.launches = 0
 
 
 def read_launches():
     return {"K1": tsp.csr_seg_sum.launches, "K2": tsp.softmax_agg.launches,
             "K2 ee": tsp.softmax_agg.launches_ee, "K3": tband.band_call.launches,
-            "K4": tsp.softmax_bwd_csc.launches}
+            "K4": tsp.softmax_bwd_csc.launches, "K5": tsp.gat_fwd.launches,
+            "K6": tsp.gat_bwd_csc.launches}
 
 
 def no_launches():
-    return {"K1": 0, "K2": 0, "K2 ee": 0, "K3": 0, "K4": 0}
+    return {"K1": 0, "K2": 0, "K2 ee": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
 
 
 def expected_launches(g, layers, steps):
@@ -376,33 +414,38 @@ def arxiv_step(g, state):
     return lambda: ogbn_arxiv.train_step(model, opt, g, lab, g.node_mask, gen)
 
 
-def phase_profile(dev, step, steps=2, tag="profile"):
-    """Device time by kernel over ``steps`` calls of the train step ``step``,
-    and the device's busy share of that window (host clock around the
-    steps, ending in a sync)."""
+def phase_profile(dev, step, tag="profile"):
+    """Device time by kernel over one call of the train step ``step``, and
+    the device's busy share of that window (host clock around the step,
+    ending in a sync). On the card only the device activity is traced."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    t_phase = time.time()
+    acts = [ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU]
     sync(dev)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
+        step()
         sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []  # device-side events only: the kernels and memory copies
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CPU and e.self_device_time_total > 0:
-            rows.append((e.self_device_time_total, e.count, e.key))
-    rows.sort(reverse=True)
+    # device-side events only (kernels, memory copies and sets), summed by
+    # name straight from the trace: building torch's per-event objects for
+    # `key_averages()` takes seconds at ~30,000 events
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU and e.duration_ns() > 0:
+            us, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
+    rows = sorted(((us, count, key) for key, (us, count) in by_name.items()), reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[{tag}] {steps} train steps: wall {wall_us / 1e3:.3f} ms, device busy "
+    log(f"[{tag}] 1 train step: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of the window), "
-        f"{sum(r[1] for r in rows) // steps} device calls per step")
-    for dev_us, count, key in rows[:25]:
-        log(f"[{tag}] {dev_us / 1e3 / steps:10.3f} ms/step {count // steps:6d} calls/step "
+        f"{sum(r[1] for r in rows)} device calls")
+    for dev_us, count, key in rows[:40]:
+        log(f"[{tag}] {dev_us / 1e3:10.3f} ms {count:6d} calls "
             f"{100 * dev_us / max(busy, 1e-9):5.1f}%  {key[:160]}")
+    log(f"[{tag}] traced and read in {time.time() - t_phase:.1f}s")
 
 
 def time_fn(fn, dev, iters):
@@ -776,9 +819,11 @@ def phase_proteins_path(app, argv, g, feats, steps, expected, tag):
     """A proteins model built by ``app.build_model`` from the app's own flags,
     trained through ``app.train_step`` (one warm-up, ``steps`` timed) and
     run through ``app.predict`` once, with the launch counts set to 0 just
-    before and read just after. ``expected(layers, steps)`` gives the counts
-    a card run must show. Returns (info, a closure of one more train step)."""
+    before and read just after. ``expected(layers, train_steps)`` gives the
+    counts a card run must show. Returns (info, a closure of one more train
+    step)."""
     dev = g.senders.device
+    t_phase = time.time()
     species, node_feats, labels = feats
     args = app.get_args(argv + ["--device", dev.type])
     base = free_memory(dev)
@@ -794,9 +839,7 @@ def phase_proteins_path(app, argv, g, feats, steps, expected, tag):
         return app.train_step(model, opt, g, species, node_feats, labels, mask, gen)
 
     reset_launches()
-    loss = step()  # warm-up
-    sync(dev)
-    losses, times = [float(loss)], []
+    losses, times = [float(step())], []  # the warm-up
     for _ in range(steps):
         t0 = time.perf_counter()
         loss = step()
@@ -815,14 +858,14 @@ def phase_proteins_path(app, argv, g, feats, steps, expected, tag):
     if logits.shape != (g.num_nodes_padded, 112) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{tag}: predict gave shape {tuple(logits.shape)} or "
                              "non-finite logits")
-    want = expected(args.num_layers, steps) if dev.type == "cuda" else no_launches()
+    want = expected(args.num_layers, steps + 1) if dev.type == "cuda" else no_launches()
     log(f"[{tag}] launches {launches} expected {want}")
     if launches != want:
         raise AssertionError(f"{tag}: kernel launches {launches} != expected {want}")
     info = {"layers": args.num_layers, "params": n_params, "model_build_s": build_s,
             "step_ms_median": sorted(times)[len(times) // 2] * 1e3,
             "step_ms_all": [v * 1e3 for v in times], "predict_ms": predict_s * 1e3,
-            "losses": losses, "launches": launches}
+            "losses": losses, "launches": launches, "phase_s": time.time() - t_phase}
     if dev.type == "cuda":
         peak = torch.cuda.max_memory_allocated(dev)
         info.update(peak_bytes=peak, peak_above_start_bytes=peak - base,
@@ -836,32 +879,33 @@ def rev_expected(group):
     forward and once in the backward's fused inverse+VJP (K2 with `ee`),
     plus its K4; `predict` runs the forward once. An inverse that re-ran
     the forward would show 3·L·G K2 launches a step."""
-    def want(layers, steps):
-        lg, n = layers * group, steps + 1
+    def want(layers, n):
+        lg = layers * group
         out = no_launches()
         out.update({"K2 ee": 2 * lg * n + lg, "K4": lg * n})
         return out
     return want
 
 
-def dyresgen_expected(layers, steps):
+def dyresgen_expected(layers, n):
     out = no_launches()
-    out.update({"K2 ee": layers * (steps + 2), "K4": layers * (steps + 1)})
+    out.update({"K2 ee": layers * (n + 1), "K4": layers * n})
     return out
 
 
 def phase_rev_paths(g, feats, depths, steps):
-    """RevGCN at the two depths (80 channels, group 2, bf16), a profile of a
-    step at the smaller one, and the O(1)-memory check between them."""
+    """RevGCN at the two depths (80 channels, group 2, bf16) with ``steps[i]``
+    timed steps at ``depths[i]``, a profile of a step at the smaller one, and
+    the O(1)-memory check between them."""
     dev = g.senders.device
     infos = {}
-    for layers in depths:
+    for layers, n_steps in zip(depths, steps):
         argv = ["--num_layers", str(layers), "--compute_dtype", "bfloat16"]
-        info, step = phase_proteins_path(ogbn_proteins_rev, argv, g, feats, steps,
+        info, step = phase_proteins_path(ogbn_proteins_rev, argv, g, feats, n_steps,
                                          rev_expected(2), f"revgcn-{layers}")
         infos[layers] = info
         if layers == depths[0]:
-            phase_profile(dev, step, steps=1, tag=f"revgcn-{layers}-profile")
+            phase_profile(dev, step, tag=f"revgcn-{layers}-profile")
         del step
     lo, hi = (infos[d] for d in depths)
     if dev.type != "cuda":
@@ -952,6 +996,307 @@ def phase_edge_timing(g, errs, launches, iters):
     return rows
 
 
+def revgat_graph(n, dev):
+    """The RevGAT-5L graph of `bench.py:420-428`: power-law community edges
+    (degree 8, alpha 0.6) made symmetric, with self-loops, cluster order at
+    16,384, 128 features and 40 labels from seed 0, and the band ("auto")."""
+    rng = np.random.default_rng(0)
+    t0 = time.time()
+    s, r = powerlaw_community_edges(rng, n, 8, alpha=0.6)
+    s, r = to_undirected(s, r)
+    s, r = add_self_loops(s, r, n)
+    perm = cluster_order(s, r, n, cluster_size=16384)
+    s, r = permute_graph(perm, s, r)
+    x = rng.standard_normal((n, 128)).astype(np.float32)
+    labels = rng.integers(0, 40, n)
+    g = build_graph(x, s, r, num_nodes=n)
+    t_edges = time.time() - t0
+    t0 = time.time()
+    g = attach_band(g)
+    t_band = time.time() - t0
+    g = g.to(dev)
+    sync(dev)
+    f, b = g.band.fwd, g.band.bwd
+    in_deg = np.bincount(r, minlength=n)
+    info = {"n": g.n_node, "e": g.n_edge, "n_pad": g.num_nodes_padded,
+            "e_pad": g.num_edges_padded, "max_in_degree": int(in_deg.max()),
+            "edges_and_order_s": t_edges, "attach_band_s": t_band,
+            "window": [f.window, b.window], "coverage": [f.coverage, b.coverage],
+            "n_lo": [f.n_lo, b.n_lo], "n_hub": [f.n_hub, b.n_hub],
+            "n_hub_row": [f.n_hub_row, b.n_hub_row], "band_device_bytes": g.band.nbytes()}
+    log(f"[revgat-graph] (fwd, bwd) {json.dumps(info)}")
+    return g, labels
+
+
+# RevGAT-5L's three packed table widths H·D + H: the first layer (3 x 256),
+# a middle group (3 x 128) and the last layer (1 x 40)
+GAT_SHAPES = ((3, 256), (3, 128), (1, 40))
+
+
+def gat_table(g, h, d, dtype, gen):
+    """A packed table [msg | el | 0] of the main path's width (H·D + H padded
+    to a multiple of 8, as `SymGATConv` builds it), el with a spread of 3."""
+    hd = h * d
+    p = hd + h + (-(hd + h)) % 8
+    t = torch.randn(g.num_nodes_padded, p, device=g.senders.device, generator=gen)
+    t[:, hd:hd + h] *= 3.0
+    t[:, hd + h:] = 0.0
+    return t.to(dtype).contiguous()
+
+
+def gat_drop(g, drop):
+    """(receivers_eff, keep_csc) of the hash edge-drop p=0.3, or none."""
+    if not drop:
+        return g.receivers, None
+    spec = tband.DropSpec(k0=-1640531527, k1=2024, thresh=tband.drop_thresh(0.3))
+    keep = tband.edge_keep_mask(spec, g.receivers, g.senders) > 0
+    recv = torch.where(keep & g.edge_mask, g.receivers, g.num_nodes_padded)
+    return recv, keep.index_select(0, g.csc_perm.long())
+
+
+def phase_gat_kernels(g):
+    """K5 against its plain version and K6 through the Function's backward
+    against the Function on the plain versions, at the three widths, in f32
+    and bf16, with and without the hash keep."""
+    dev = g.senders.device
+    chk = Checks("gat kernels")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        tol_el = TOL_F32 if dtype == torch.float32 else TOL_GAT_EL_BF16
+        e5 = e6 = 0.0
+        for h, d in GAT_SHAPES:
+            hd = h * d
+            t = gat_table(g, h, d, dtype, gen)
+            co = torch.randn(t.shape, device=dev, generator=gen)
+            for drop in (False, True):
+                recv, keep_csc = gat_drop(g, drop)
+                name = f"{h}x{d} (P={t.shape[1]}){' drop' if drop else ''} {tag}"
+                cmax = tsp.gat_cmax(t, hd, h)
+                args = (g.senders, recv, g.row_ptr, cmax, hd, h, 0.2)
+                e5 = max(e5, chk.close(f"K5 {name}", tsp.gat_fwd(t, *args),
+                                       tsp.gat_fwd_plain(t, *args), **tol))
+                res = []
+                for fn in (tsp.gat_softmax_spmm, tsp.gat_softmax_spmm_plain):
+                    tt = t.detach().clone().requires_grad_(True)
+                    o = fn(tt, g.senders, recv, g.row_ptr, g.csc_senders, g.csc_receivers,
+                           g.csc_col_ptr, keep_csc, hd, h, 0.2)
+                    (o.float() * co).sum().backward()
+                    res.append(tt.grad)
+                    del o, tt
+                e6 = max(e6, chk.close(f"K6 dmsg {name}", res[0][:, :hd], res[1][:, :hd],
+                                       **tol),
+                         chk.close(f"K6 d_el {name}", res[0][:, hd:], res[1][:, hd:],
+                                   **tol_el))
+                del res
+            del t, co
+        errs[tag] = {"K5": e5, "K6": e6}
+    sync(dev)
+    chk.raise_if_failed()
+    return errs
+
+
+def phase_gat_agreement(dev):
+    """A small RevGAT (4 layers, 2 heads, group 2, dropout 0, explicit drop
+    keys) on the card against the same weights on the CPU, on the CSC route
+    (K5/K6) and on the band route (K3/K1)."""
+    chk = Checks("gat agreement")
+    rng = np.random.default_rng(7)
+    n = 3000
+    s, r = powerlaw_community_edges(rng, n, 8, alpha=0.6)
+    s, r = add_self_loops(*to_undirected(s, r), n)
+    s, r = permute_graph(cluster_order(s, r, n, cluster_size=1024), s, r)
+    gh = attach_band(build_graph(rng.standard_normal((n, 24)).astype(np.float32), s, r,
+                                 num_nodes=n))
+    co = torch.from_numpy(rng.standard_normal((gh.num_nodes_padded, 6)).astype(np.float32))
+    cfg = RevGATConfig(in_feats=24, n_classes=6, n_hidden=16, n_layers=4, n_heads=2, group=2,
+                       dropout=0.0, input_drop=0.0, edge_drop=0.3)
+    keys = ((5, -6), [(7, 8), (-9, 10)], (11, 12))
+    for route, g in (("csc", gh.replace(band=None)), ("band", gh)):
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            model = RevGAT(cfg, generator=torch.Generator().manual_seed(0)).to(d)
+            model.train()
+            gd = g.to(d)
+            logits = model(gd.x, gd, drop_keys=keys)
+            (logits * co.to(d)).sum().backward()
+            outs.append((logits.detach().cpu(),
+                         {k: p.grad.detach().cpu() for k, p in model.named_parameters()}))
+        # float32 through 4 layers, as the other agreement phases
+        chk.close(f"small RevGAT {route} logits, card vs cpu", outs[0][0], outs[1][0], 1e-4,
+                  1e-4)
+        g_max = max(float(v.abs().max()) for v in outs[1][1].values())
+        for k in outs[1][1]:
+            chk.close(f"small RevGAT {route} grad {k}", outs[0][1][k], outs[1][1][k], 1e-3,
+                      1e-4, ref_max=g_max)
+    chk.raise_if_failed()
+
+
+def revgat_expected(g, steps, args):
+    """Launches of (steps + 1) train steps and one `predict` of RevGAT-5L.
+    A forward runs 2 + (L−2)·G convs; the backward runs the first and last
+    convs' backward and, in the reversible stack, every group conv once more
+    forward and once backward. So a step runs 2 + 2·(L−2)·G conv forwards
+    and 2 + (L−2)·G backwards, and `predict` (1 + n_label_iters) forwards.
+    The CSC route launches K5 per conv forward and K6 per backward; the band
+    route K3 per forward and backward, plus K1 wherever that direction's
+    leftover is not empty."""
+    want = no_launches()
+    mid = (args.n_layers - 2) * args.group
+    step_fwd, step_bwd, predict_fwd = 2 + 2 * mid, 2 + mid, (1 + args.n_label_iters) * (2 + mid)
+    log(f"[revgat] a step runs {step_fwd} conv forwards and {step_bwd} backwards, a "
+        f"predict {predict_fwd} forwards")
+    if g.senders.device.type != "cuda":
+        return want
+    fwd = step_fwd * (steps + 1) + predict_fwd
+    bwd = step_bwd * (steps + 1)
+    if g.band is None:
+        want.update(K5=fwd, K6=bwd)
+    else:
+        lo_f, lo_b = int(g.band.fwd.n_lo > 0), int(g.band.bwd.n_lo > 0)
+        want.update(K3=fwd + bwd, K1=fwd * lo_f + bwd * lo_b)
+    return want
+
+
+def phase_revgat_path(g, labels, steps, tag):
+    """RevGAT-5L (`bench.py:119-132`: 256 hidden x 3 heads, group 2, in_feats
+    128 + 40 label channels, dropout 0.75, input dropout 0.25, edge-drop 0.3,
+    sender-only scores, symmetric norm, bf16, RMSprop warming up from lr 0
+    to 2e-3 over 50 steps), random weights from seed 0, through the app's
+    `train_step` (one warm-up, ``steps`` timed) and `predict` (with one label
+    refinement), the launch counts set to 0 just before and read just after.
+    Returns (info, a closure of one more train step)."""
+    dev = g.senders.device
+    argv = ["--compute_dtype", "bfloat16", "--device", dev.type]
+    args = ogbn_arxiv_dgl.get_args(argv)
+    n, n_pad = g.n_node, g.num_nodes_padded
+    base = free_memory(dev)
+    lab = torch.zeros(n_pad, dtype=torch.long)
+    lab[:n] = torch.from_numpy(np.asarray(labels))
+    lab = lab.to(dev)
+    onehot = torch.nn.functional.one_hot(lab, 40).float()
+    sel = torch.from_numpy(np.random.default_rng(1).random(n_pad) < 0.5).to(dev) & g.node_mask
+    feat = ogbn_arxiv_dgl.make_features(g.x, onehot, sel)
+    sup = g.node_mask & ~sel
+    model = ogbn_arxiv_dgl.build_model(args, 128, torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer("rmsprop", model.parameters(), 1.0)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, linear_schedule(0.0, 2e-3, 50))
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def step():
+        return ogbn_arxiv_dgl.train_step(model, opt, sched, g, feat, lab, sup, gen)
+
+    reset_launches()
+    loss = step()  # warm-up
+    sync(dev)
+    losses, times = [float(loss)], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step()
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    t0 = time.perf_counter()
+    logits = ogbn_arxiv_dgl.predict(model, g, g.x, onehot, sel, args.n_label_iters)
+    sync(dev)
+    predict_s = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"[{tag}] losses {losses}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: loss is not finite")
+    if logits.shape != (n_pad, 40) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag}: predict gave shape {tuple(logits.shape)} or "
+                             "non-finite logits")
+    want = revgat_expected(g, steps, args)
+    log(f"[{tag}] launches {launches} expected {want}")
+    if launches != want:
+        raise AssertionError(f"{tag}: kernel launches {launches} != expected {want}")
+    info = {"params": sum(p.numel() for p in model.parameters()),
+            "step_ms_median": sorted(times)[len(times) // 2] * 1e3,
+            "step_ms_all": [v * 1e3 for v in times], "predict_ms": predict_s * 1e3,
+            "losses": losses, "launches": launches}
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(dev)
+        info.update(peak_bytes=peak, peak_above_start_bytes=peak - base,
+                    smi_after_steps=smi("clocks.sm,power.draw,temperature.gpu"))
+    log(f"[{tag}] {json.dumps(info)}")
+    return info, step
+
+
+def phase_revgat_app(dev, argv):
+    """`apps/ogbn_arxiv_dgl.main` for a few epochs on synthetic data: the
+    per-epoch label split, RMSprop with its warm-up, `predict` with the
+    refinement, accuracies."""
+    reset_launches()
+    t0 = time.time()
+    res = ogbn_arxiv_dgl.main(argv + ["--device", dev.type])
+    launches = read_launches()
+    info = dict(res, wall_s=time.time() - t0, launches=launches)
+    log(f"[revgat-app] {json.dumps(info)}")
+    if not math.isfinite(res["loss"]) or not 0.0 <= res["best_valid"] <= 1.0:
+        raise AssertionError(f"revgat-app: loss {res['loss']} or accuracy "
+                             f"{res['best_valid']} out of range")
+    if dev.type == "cuda" and (launches["K5"] == 0 or launches["K6"] == 0):
+        raise AssertionError(f"revgat-app: K5/K6 did not run: {launches}")
+
+
+def phase_gat_timing(g, errs, launches, iters):
+    """K5 and K6 in bf16 at the three widths with the hash keep of the
+    training step, beside their plain versions and bounds; the row of the
+    middle width (6 of a forward's 8 convs) goes into the kernels line."""
+    dev = g.senders.device
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n_pad, e_pad = g.num_nodes_padded, g.num_edges_padded
+    recv, keep_csc = gat_drop(g, True)
+    kept = int(keep_csc[:g.n_edge].sum()) if keep_csc is not None else g.n_edge
+    rows = {}
+    for h, d in GAT_SHAPES:
+        hd = h * d
+        t = gat_table(g, h, d, torch.bfloat16, gen)
+        p = t.shape[1]
+        q = torch.randn(t.shape, device=dev, generator=gen).to(torch.bfloat16)
+        cmax = tsp.gat_cmax(t, hd, h)
+        fa = (g.senders, recv, g.row_ptr, cmax, hd, h, 0.2)
+        ba = (g.csc_col_ptr, g.csc_receivers, keep_csc, cmax, hd, h, 0.2)
+        k5 = (time_fn(lambda: tsp.gat_fwd(t, *fa), dev, iters),
+              time_fn(lambda: tsp.gat_fwd_plain(t, *fa), dev, 2))
+        k6 = (time_fn(lambda: tsp.gat_bwd_csc(t, q, *ba), dev, iters),
+              time_fn(lambda: tsp.gat_bwd_csc_plain(t, q, *ba), dev, 2))
+        table = n_pad * p * 2
+        # K5: T read once, out written once (bf16), senders and receivers_eff
+        # (all E_pad slots), row_ptr, cmax; per kept (edge, column): a
+        # multiply, a rounding and an add, and per kept (edge, head) the
+        # weight's 5 operations
+        b5 = bound(2 * table + 8 * e_pad + 4 * (n_pad + 1) + 4 * h,
+                   kept * (3 * hd + 6 * h))
+        # K6: T and g read once, dT written once, col_ptr, csc_receivers and
+        # the keep bytes; per kept (edge, column): the dot's multiply-add, the
+        # weight's multiply, a rounding and an add
+        b6 = bound(3 * table + 5 * e_pad + 4 * (n_pad + 1) + 4 * h,
+                   kept * (5 * hd + 8 * h))
+        # the same if every kept edge's row gather missed L2 and came from HBM
+        miss5 = (b5[0] + kept * p * 2 / HBM_BYTES_PER_S * 1e3)
+        miss6 = (b6[0] + kept * p * 2 / HBM_BYTES_PER_S * 1e3)
+        log(f"[gat-timing] {h}x{d} P={p} bf16, {kept} kept edges: K5 {k5[0]:.4f} ms "
+            f"(plain {k5[1]:.3f}), bound {b5[0]:.4f} ms ({b5[1]}), all gathers from HBM "
+            f"{miss5:.4f} ms; K6 {k6[0]:.4f} ms (plain {k6[1]:.3f}), bound {b6[0]:.4f} ms "
+            f"({b6[1]}), all gathers from HBM {miss6:.4f} ms")
+        rows[(h, d)] = (k5, b5, k6, b6)
+        del t, q
+    log("[gat-timing] no single PyTorch call computes K5 or K6: library_ms is null")
+    k5, b5, k6, b6 = rows[GAT_SHAPES[1]]
+    return [{"name": "K5 gat_fwd", "route": "cuda", "source": f"{PKG}/csrc/gat_fwd.cu",
+             "replaces": "deep_gcns_torch_tpu/ops/spmm_pallas.py:837",
+             "launches": launches["K5"], "max_abs_err": errs["bf16"]["K5"], "ms": k5[0],
+             "plain_ms": k5[1], "bound_ms": b5[0], "bound_by": b5[1], "library_ms": None},
+            {"name": "K6 gat_bwd_csc", "route": "cuda", "source": f"{PKG}/csrc/gat_bwd_csc.cu",
+             "replaces": "deep_gcns_torch_tpu/ops/spmm_pallas.py:862",
+             "launches": launches["K6"], "max_abs_err": errs["bf16"]["K6"], "ms": k6[0],
+             "plain_ms": k6[1], "bound_ms": b6[0], "bound_by": b6[1], "library_ms": None}]
+
+
 def main(argv):
     rehearse = "--rehearse-cpu" in argv
     if not rehearse and not torch.cuda.is_available():
@@ -961,10 +1306,14 @@ def main(argv):
     n, layers, steps, iters = (2000, 3, 2, 2) if rehearse else (169_343, 28, 5, 50)
     t_all = time.time()
     info = phase_device(dev)
+    mark("device")
     g, labels = main_graph(n, dev)
     errs = phase_kernels(g)
+    mark("kernels")
     phase_agreement(dev)
+    mark("agreement")
     main_info, state = phase_main_path(g, labels, layers, steps)
+    mark("main path")
     phase_profile(dev, arxiv_step(g, state))
     del state
     rows = phase_timing(g, errs, main_info["launches"], iters)
@@ -972,11 +1321,13 @@ def main(argv):
     log(f"[done] gather-route phases in {time.time() - t_all:.1f}s")
 
     gb, labels_b, _ = band_graph(n, dev)
+    mark("band graph")
     errs_b = phase_band_kernels(gb)
+    mark("band kernels")
     band_info, state = phase_main_path(gb, labels_b, layers, steps, tag="band-main")
     phase_profile(dev, arxiv_step(gb, state), tag="band-profile")
     del state
-    gather_info, _ = phase_main_path(gb.replace(band=None), labels_b, layers, 3,
+    gather_info, _ = phase_main_path(gb.replace(band=None), labels_b, layers, 2,
                                      tag="band-graph-gather")
     log(f"[band-main] band/gather step ratio on the same graph: "
         f"{band_info['step_ms_median'] / gather_info['step_ms_median']:.4f} "
@@ -987,21 +1338,50 @@ def main(argv):
 
     gpr, feats = cluster_graph(*((800, 10) if rehearse else (13_000, 60)), dev)
     errs_e = phase_edge_kernels(gpr)
+    mark("edge kernels")
     phase_edge_agreement(dev)
-    rev = phase_rev_paths(gpr, feats, (3, 5) if rehearse else (101, 1001), 2)
+    mark("edge agreement")
+    rev = phase_rev_paths(gpr, feats, (3, 5) if rehearse else (101, 1001), (2, 1))
     dy_layers = 3 if rehearse else 112
     phase_proteins_path(ogbn_proteins, ["--learn_t", "--num_layers", str(dy_layers),
                                         "--compute_dtype", "bfloat16"],
-                        gpr, feats, 3, dyresgen_expected, f"dyresgen-{dy_layers}")
+                        gpr, feats, 2, dyresgen_expected, f"dyresgen-{dy_layers}")
     app_argv = ["--synthetic", "--synthetic_nodes", "3000" if rehearse else "132534",
                 "--synthetic_degree", "8" if rehearse else "60", "--cluster_number", "10",
                 "--num_layers", "3" if rehearse else "28", "--eval_parts", "5",
                 "--compute_dtype", "bfloat16", "--epochs", "1"]
+    mark("rev and dyresgen paths")
     phase_proteins_app(dev, app_argv)
+    mark("proteins app")
     edge_rows = phase_edge_timing(gpr, errs_e, max(rev.values(),
                                                    key=lambda i: i["layers"])["launches"],
                                   iters)
     rows = rows[:2] + edge_rows[:1] + [k3_row] + edge_rows[1:]
+    del gpr, feats
+    log(f"[done] proteins phases in {time.time() - t_all:.1f}s")
+
+    ggat, labels_g = revgat_graph(n, dev)
+    mark("revgat graph")
+    errs_g = phase_gat_kernels(ggat)
+    mark("gat kernels")
+    phase_gat_agreement(dev)
+    mark("gat agreement")
+    gat_steps = 2 if rehearse else 3
+    band_info, step = phase_revgat_path(ggat, labels_g, gat_steps, "revgat-band")
+    phase_profile(dev, step, tag="revgat-band-profile")
+    del step
+    csc_info, step = phase_revgat_path(ggat.replace(band=None), labels_g, gat_steps,
+                                       "revgat-csc")
+    phase_profile(dev, step, tag="revgat-csc-profile")
+    del step
+    free_memory(dev)
+    log(f"[revgat] csc/band step ratio on the same graph: "
+        f"{csc_info['step_ms_median'] / band_info['step_ms_median']:.4f} "
+        f"({csc_info['step_ms_median']:.3f} / {band_info['step_ms_median']:.3f} ms)")
+    mark("revgat paths")
+    phase_revgat_app(dev, ["--synthetic", "--synthetic_nodes", "1000" if rehearse else "20000",
+                           "--epochs", "2" if rehearse else "6", "--compute_dtype", "bfloat16"])
+    rows += phase_gat_timing(ggat, errs_g, csc_info["launches"], iters)
     log(f"[done] all phases in {time.time() - t_all:.1f}s")
     if rehearse:
         print(json.dumps({"kernels": rows}))
@@ -1025,16 +1405,18 @@ if __name__ == "__main__":
     import torch
 
     from deep_gcns_torch_tpu_torch import native
-    from deep_gcns_torch_tpu_torch.apps import ogbn_arxiv, ogbn_proteins, ogbn_proteins_rev
+    from deep_gcns_torch_tpu_torch.apps import (ogbn_arxiv, ogbn_arxiv_dgl, ogbn_proteins,
+                                                ogbn_proteins_rev)
     from deep_gcns_torch_tpu_torch.data.reorder import cluster_order, permute_graph
     from deep_gcns_torch_tpu_torch.data.synthetic import (powerlaw_community_edges,
                                                           random_node_graph)
-    from deep_gcns_torch_tpu_torch.graph import attach_band, build_graph
-    from deep_gcns_torch_tpu_torch.models import (DeeperGCN, DeeperGCNConfig, RevGCN,
-                                                  RevGCNConfig)
+    from deep_gcns_torch_tpu_torch.graph import (add_self_loops, attach_band, build_graph,
+                                                 to_undirected)
+    from deep_gcns_torch_tpu_torch.models import (DeeperGCN, DeeperGCNConfig, RevGAT,
+                                                  RevGATConfig, RevGCN, RevGCNConfig)
     from deep_gcns_torch_tpu_torch.ops import _build
     from deep_gcns_torch_tpu_torch.ops import band as tband
     from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
-    from deep_gcns_torch_tpu_torch.utils.optim import make_optimizer
+    from deep_gcns_torch_tpu_torch.utils.optim import linear_schedule, make_optimizer
 
     sys.exit(main(sys.argv[1:]))

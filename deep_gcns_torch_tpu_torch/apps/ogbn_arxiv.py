@@ -88,6 +88,20 @@ def _maybe_band(args, g: Graph) -> Graph:
     return g
 
 
+def reorder_and_band(args, g: Graph, labels, splits):
+    """``--reorder``/``--band`` on a host graph of ``g.n_node`` valid nodes:
+    rebuild it through the locality pass and attach the band, relabelling
+    the labels and split index sets alike (a no-op when both are off)."""
+    if args.reorder == "none" and args.band == "off":
+        return g, labels, splits
+    n = g.n_node
+    s = g.senders[:g.n_edge].numpy()
+    r = g.receivers[:g.n_edge].numpy()
+    x_np = g.x[:n].numpy()
+    s, r, x_np, labels, splits = _reorder(args, s, r, n, x_np, labels, splits)
+    return _maybe_band(args, build_graph(x_np, s, r, num_nodes=n)), labels, splits
+
+
 def train_step(model: DeeperGCN, opt: torch.optim.Optimizer, g: Graph,
                labels: torch.Tensor, mask: torch.Tensor,
                generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -118,13 +132,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     perm = rng.permutation(n)
     splits = {"train": perm[: int(0.6 * n)], "valid": perm[int(0.6 * n): int(0.8 * n)],
               "test": perm[int(0.8 * n):]}
-    if args.reorder != "none" or args.band != "off":
-        # rebuild through the same reorder/band pipeline as real data
-        s = g.senders[:g.n_edge].numpy()
-        r = g.receivers[:g.n_edge].numpy()
-        x_np = g.x[:n].numpy()
-        s, r, x_np, labels, splits = _reorder(args, s, r, n, x_np, labels, splits)
-        g = _maybe_band(args, build_graph(x_np, s, r, num_nodes=n))
+    # rebuild through the same reorder/band pipeline as real data
+    g, labels, splits = reorder_and_band(args, g, labels, splits)
     g = g.to(dev)
     lab = torch.zeros(g.num_nodes_padded, dtype=torch.long)
     lab[:n] = torch.from_numpy(labels)

@@ -65,4 +65,17 @@ inline int blocks_for_rows(int n_rows) {
   return (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
 
+// The GAT attention weight of a sender-only score: exp(leaky_relu(el) - cmax),
+// with the plain version's roundings (no fma contraction).
+__device__ __forceinline__ float gat_weight(float el, float cmax, float neg_slope) {
+  const float s = el >= 0.f ? el : __fmul_rn(neg_slope, el);
+  return expf(__fsub_rn(s, cmax));
+}
+
+// Edges a warp keeps in flight per step when each lane holds NCH groups of
+// VEC columns per edge (fewer for wide rows, so the loads stay in registers).
+template <int NCH> struct EdgesInFlight {
+  static constexpr int value = NCH <= 2 ? 4 : (NCH == 4 ? 2 : 1);
+};
+
 }  // namespace dgc

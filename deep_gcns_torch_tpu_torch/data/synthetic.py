@@ -76,9 +76,17 @@ def powerlaw_community_edges(rng: np.random.Generator, n: int, avg_degree: int,
     s = rng.choice(n, e, p=w / w.sum())
     r = rng.integers(0, n, e)
     same = rng.random(e) < homophily
+    # the homophilous edges and the nodes of each community, bucketed once in
+    # id order, so community k draws exactly what a per-k mask would give it
+    sel = np.flatnonzero(same)
+    cs = comm[s[sel]]
+    edges = sel[np.argsort(cs, kind="stable")]
+    e_lo = np.searchsorted(np.sort(cs), np.arange(n_comm + 1))
+    nodes = np.argsort(comm, kind="stable")
+    n_lo = np.searchsorted(comm[nodes], np.arange(n_comm + 1))
     for k in range(n_comm):
-        m = same & (comm[s] == k)
-        idx = np.flatnonzero(comm == k)
-        if m.any() and idx.size:
-            r[m] = idx[rng.integers(0, idx.size, int(m.sum()))]
+        m = edges[e_lo[k]:e_lo[k + 1]]
+        idx = nodes[n_lo[k]:n_lo[k + 1]]
+        if m.size and idx.size:
+            r[m] = idx[rng.integers(0, idx.size, m.size)]
     return s.astype(np.int64), r.astype(np.int64)

@@ -28,7 +28,7 @@ from typing import Dict, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("seg_sum", "softmax_agg", "band", "softmax_bwd_csc")
+SOURCES = ("seg_sum", "softmax_agg", "band", "softmax_bwd_csc", "gat_fwd", "gat_bwd_csc")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -43,6 +43,10 @@ _SIGNATURES = {
                         for name in ("dgc_softmax_bwd_csc_f32", "dgc_softmax_bwd_csc_bf16")},
     "band": {name: [_P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _I, _P]
              for name in ("dgc_band_f32", "dgc_band_bf16")},
+    "gat_fwd": {name: [_P] * 6 + [_I] * 4 + [_F, _I, _I, _P]
+                for name in ("dgc_gat_fwd_f32", "dgc_gat_fwd_bf16")},
+    "gat_bwd_csc": {name: [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P]
+                    for name in ("dgc_gat_bwd_csc_f32", "dgc_gat_bwd_csc_bf16")},
 }
 
 _lock = threading.Lock()

@@ -23,7 +23,9 @@ On the TPU the route exists because XLA's row gather is issue-rate bound
 (`ops/band.py:3-22` of the JAX package). Whether it pays on the H100 is
 measured by `chip_smoke.py`; the gate thresholds tuned on the TPU stay as
 they are, so that the port's arrays and routes match the JAX package's.
-Left for later: `band_extreme` (max/min), the band GAT functions.
+`band_gat_agg` serves the sender-only-score GAT through `band_sum_auto`.
+Left for later: `band_extreme` (max/min) and the dense destination-score GAT
+(`band_gat_dense_agg`, K7–K9), which raises until then.
 """
 
 from __future__ import annotations
@@ -651,6 +653,41 @@ band_softmax_agg_auto = band_softmax_agg
 
 
 # ---------------------------------------------------------------------------
+# GAT with sender-only scores
+# ---------------------------------------------------------------------------
+
+def band_gat_agg(feat_src: torch.Tensor, el: torch.Tensor, bands: BandPair,
+                 neg_slope: float = 0.2, compute_dtype: Optional[torch.dtype] = None,
+                 drop: Optional[DropSpec] = None):
+    """Gather-free GAT aggregation for sender-only scores (`band_gat_agg`,
+    `ops/band.py:732-777` of the JAX package): score_e = leaky_relu(el[send_e])
+    is a node table, so with one global per-head shift cmax (no gradient)
+    num and den are ONE band product of the packed [e·feat | e] table,
+    e = exp(score − cmax). ``drop`` is the hash edge-drop, applied alike in
+    the forward and its transpose.
+
+    feat_src [N, H, D], el [N, H]; returns (num [N, H, D], den [N, H]) in
+    float32, for the caller to divide. The table is padded with zero columns
+    to a multiple of 8, which is exact and gives K3 and K1 their 4-wide loads
+    (H·D + H is odd at RevGAT's widths)."""
+    n, h, d = feat_src.shape
+    score = torch.nn.functional.leaky_relu(el.float(), neg_slope)
+    cmax = score.detach().amax(0)
+    e = torch.exp(score - cmax)
+    cd = compute_dtype or feat_src.dtype
+    p = torch.cat([(e[:, :, None] * feat_src.float()).reshape(n, h * d), e], 1).to(cd)
+    p = torch.nn.functional.pad(p, (0, (-p.shape[1]) % 8))
+    agg = band_sum_auto(p, bands, drop)
+    return (agg[:, :h * d].float().reshape(n, h, d), agg[:, h * d:h * d + h].float())
+
+
+def band_gat_dense_agg(*args, **kwargs):
+    """The dense destination-score GAT (`ops/gat_dense.py`, K7–K9) is not
+    ported yet."""
+    raise NotImplementedError("the dense dst-score GAT, K7–K9, comes with slice 5")
+
+
+# ---------------------------------------------------------------------------
 # gates
 # ---------------------------------------------------------------------------
 
@@ -676,3 +713,11 @@ def band_ok(g, aggr: str) -> bool:
     """Route GENConv's aggregation through the band: a band-servable
     aggregator and `band_sum_ok`."""
     return aggr in BAND_SOFTMAX_AGGRS + BAND_SUM_AGGRS and band_sum_ok(g)
+
+
+def band_gat_dense_ok(g, min_coverage: float = MIN_COVERAGE) -> bool:
+    """Gate of the dense destination-score GAT route (`band_gat_dense_ok`,
+    `ops/band.py:814-828`): a band carrying at least ``min_coverage`` of the
+    edges; hub structures are allowed. No platform check, as `band_sum_ok`."""
+    band = getattr(g, "band", None)
+    return band is not None and band.fwd.coverage >= min_coverage

@@ -1,22 +1,27 @@
 """CSR segment sum (K1), fused softmax aggregation (K2, with or without edge
-embeddings) and its CSC backward with edge embeddings (K4): CUDA kernels,
-their plain PyTorch versions and the autograd Functions around them.
+embeddings), its CSC backward with edge embeddings (K4), and the GAT
+attention SpMM (K5 forward, K6 CSC backward): CUDA kernels, their plain
+PyTorch versions and the autograd Functions around them.
 
 Counterpart of `deep_gcns_torch_tpu/ops/spmm_pallas.py:252-315, 322-412,
-466-803`. The kernels are hand-written CUDA C++ for Hopper (`csrc/seg_sum.cu`,
-`csrc/softmax_agg.cu`, `csrc/softmax_bwd_csc.cu`, built by `ops/_build.py`);
-each source names the TPU kernel it replaces and what bounds it on the card.
+466-803, 805-996`. The kernels are hand-written CUDA C++ for Hopper
+(`csrc/seg_sum.cu`, `csrc/softmax_agg.cu`, `csrc/softmax_bwd_csc.cu`,
+`csrc/gat_fwd.cu`, `csrc/gat_bwd_csc.cu`, built by `ops/_build.py`); each
+source names the TPU kernel it replaces and what bounds it on the card.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel (or raises). Each kernel
 wrapper counts its launches in a plain int attribute (`csr_seg_sum.launches`,
 `softmax_agg.launches` and, for its edge-embedding form,
-`softmax_agg.launches_ee`, `softmax_bwd_csc.launches`), so a run can show
-that its main path went through the kernels.
+`softmax_agg.launches_ee`, `softmax_bwd_csc.launches`, `gat_fwd.launches`,
+`gat_bwd_csc.launches`), so a run can show that its main path went through
+the kernels.
 
 The TPU artifacts of the Pallas kernels (one-hot MXU matmuls, 128-lane
 padding, the VMEM slot ring, BN/CHUNK tiles) are not carried over:
-`fused_softmax_gather_agg_auto` has no lane padding left to do.
+`fused_softmax_gather_agg_auto` has no lane padding left to do, and the GAT
+table needs none either (its callers pad it to a multiple of 8 columns only
+so that the kernels take their wide loads).
 """
 
 from __future__ import annotations
@@ -425,3 +430,225 @@ def fused_softmax_gather_agg_plain(x, senders, row_ptr, csc_receivers, csc_col_p
 
 # the call site's name in the JAX package; on the GPU there are no lanes to pad
 fused_softmax_gather_agg_auto = fused_softmax_gather_agg
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6: the GAT attention SpMM with sender-only scores
+# ---------------------------------------------------------------------------
+
+# edges per block of the plain versions: bounds their [E, P] float32
+# intermediates at the main shape to a few hundred MB each
+_PLAIN_EDGE_BLOCK = 1 << 18
+
+
+def gat_cmax(T: torch.Tensor, hd: int, h: int) -> torch.Tensor:
+    """The per-head GLOBAL shift of the attention weights (`_gat_cmax`,
+    spmm_pallas.py:892-895): max of el over all N_pad rows of the table,
+    clamped at 0 (the sentinel rows' score), float32 [h], no gradient."""
+    el_max = T[:, hd:hd + h].detach().float().amax(0)
+    return torch.where(el_max >= 0, el_max, 0.0)
+
+
+def _gat_weights(el: torch.Tensor, cmax: torch.Tensor, neg_slope: float) -> torch.Tensor:
+    return torch.exp(torch.where(el >= 0, el, el * neg_slope) - cmax)
+
+
+def gat_fwd_plain(T: torch.Tensor, senders: torch.Tensor, receivers_eff: torch.Tensor,
+                  row_ptr: torch.Tensor, cmax: torch.Tensor, hd: int, h: int,
+                  neg_slope: float) -> torch.Tensor:
+    """K5's function: for each receiver row and head, over the CSR edges
+    whose receiver is still that row, [Σ round(w·msg) | Σ round(w)] with
+    w = exp(lrelu(el[send]) − cmax), summed in float32 and returned in T's
+    dtype, zeros in the columns past hd + h."""
+    n_rows, p = T.shape
+    d = hd // h
+    edges, rows = _edge_rows(row_ptr)
+    kept = receivers_eff[edges].long() == rows
+    edges, rows = edges[kept], rows[kept]
+    acc = torch.zeros((n_rows, hd + h), dtype=torch.float32, device=T.device)
+    for a in range(0, edges.shape[0], _PLAIN_EDGE_BLOCK):
+        e_b, r_b = edges[a:a + _PLAIN_EDGE_BLOCK], rows[a:a + _PLAIN_EDGE_BLOCK]
+        te = T.index_select(0, senders[e_b].long()).float()
+        w = _gat_weights(te[:, hd:hd + h], cmax, neg_slope)
+        terms = torch.cat([te[:, :hd] * w.repeat_interleave(d, 1), w], 1)
+        acc.index_add_(0, r_b, terms.to(T.dtype).float())
+    return torch.nn.functional.pad(acc, (0, p - hd - h)).to(T.dtype)
+
+
+def _check_gat(T: torch.Tensor, cmax: torch.Tensor, hd: int, h: int):
+    _check_rows("T", T)
+    _require(h > 0 and hd % h == 0 and hd + h <= T.shape[1],
+             f"T of width {T.shape[1]} cannot hold {h} heads of {hd // max(h, 1)} columns "
+             "and el")
+    _require(cmax.device == T.device and cmax.dtype == torch.float32
+             and cmax.shape == (h,) and cmax.is_contiguous(),
+             "cmax must be a contiguous float32 [h] tensor on T's device")
+
+
+def _gat_launch(d: int, p: int, *tables: torch.Tensor) -> Tuple[int, int]:
+    """(vec, nch) of a K5/K6 launch: 4-wide loads when the head width D and
+    the row width P are multiples of 4 and every table is aligned, and the
+    number of 32·vec-column groups a lane walks per head."""
+    vec = _vec(d, *tables) if p % 4 == 0 else 1
+    groups = -(-d // (32 * vec))
+    nch = next((n for n in (1, 2, 4, 8) if n >= groups), None)
+    _require(nch is not None, f"a head of {d} columns is wider than the kernels take "
+                              f"({256 * vec} with these loads)")
+    return vec, nch
+
+
+def gat_fwd(T: torch.Tensor, senders: torch.Tensor, receivers_eff: torch.Tensor,
+            row_ptr: torch.Tensor, cmax: torch.Tensor, hd: int, h: int,
+            neg_slope: float) -> torch.Tensor:
+    """K5 (`csrc/gat_fwd.cu`) on a CUDA tensor; the plain version on a CPU
+    one. ``T`` is [N_pad, P] = [msg (hd) | el (h) | zeros]; ``senders`` and
+    ``receivers_eff`` (dropped edges carry the sentinel N_pad) are in
+    receiver order, with the CSR ``row_ptr``."""
+    if T.device.type == "cpu":
+        return gat_fwd_plain(T, senders, receivers_eff, row_ptr, cmax, hd, h, neg_slope)
+    _check_gat(T, cmax, hd, h)
+    for name, a in (("senders", senders), ("receivers_eff", receivers_eff),
+                    ("row_ptr", row_ptr)):
+        _check_index(name, a, T.device)
+    _require(senders.shape == receivers_eff.shape,
+             "senders and receivers_eff must have one entry per edge slot")
+    n_rows, p = row_ptr.shape[0] - 1, T.shape[1]
+    out = torch.empty((n_rows, p), dtype=T.dtype, device=T.device)
+    if n_rows == 0:
+        return out
+    vec, nch = _gat_launch(hd // h, p, T, out)
+    fn = getattr(library("gat_fwd"), f"dgc_gat_fwd_{_SUFFIX[T.dtype]}")
+    rc = fn(T.data_ptr(), senders.data_ptr(), receivers_eff.data_ptr(), row_ptr.data_ptr(),
+            cmax.data_ptr(), out.data_ptr(), n_rows, p, hd // h, h, float(neg_slope), vec, nch,
+            torch.cuda.current_stream(T.device).cuda_stream)
+    gat_fwd.launches += 1
+    _raise_on(rc, "K5 gat_fwd")
+    return out
+
+
+gat_fwd.launches = 0
+
+
+def gat_bwd_csc_plain(T: torch.Tensor, g: torch.Tensor, col_ptr: torch.Tensor,
+                      csc_receivers: torch.Tensor, keep_csc: Optional[torch.Tensor],
+                      cmax: torch.Tensor, hd: int, h: int, neg_slope: float) -> torch.Tensor:
+    """K6's function: per sender row s, over its kept CSC edges with
+    receiver r, dT[s] = [Σ round(w·gnum) | Σ round((⟨msg, gnum⟩_h + gden)·w·
+    lrelu'(el))] with w = exp(lrelu(el[s]) − cmax) and [gnum | gden] = g[r],
+    summed in float32 and returned in T's dtype, zeros past hd + h."""
+    n_rows, p = T.shape
+    d = hd // h
+    edges, rows = _edge_rows(col_ptr)
+    if keep_csc is not None:
+        kept = keep_csc[edges]
+        edges, rows = edges[kept], rows[kept]
+    acc = torch.zeros((n_rows, hd + h), dtype=torch.float32, device=T.device)
+    for a in range(0, edges.shape[0], _PLAIN_EDGE_BLOCK):
+        e_b, r_b = edges[a:a + _PLAIN_EDGE_BLOCK], rows[a:a + _PLAIN_EDGE_BLOCK]
+        te = T.index_select(0, r_b).float()
+        qg = g.index_select(0, csc_receivers[e_b].long()).float()
+        el = te[:, hd:hd + h]
+        w = _gat_weights(el, cmax, neg_slope)
+        gnum = qg[:, :hd]
+        dot = (te[:, :hd] * gnum).reshape(-1, h, d).sum(-1)
+        d_el = (dot + qg[:, hd:hd + h]) * w * torch.where(el >= 0, 1.0, neg_slope)
+        terms = torch.cat([gnum * w.repeat_interleave(d, 1), d_el], 1)
+        acc.index_add_(0, r_b, terms.to(T.dtype).float())
+    return torch.nn.functional.pad(acc, (0, p - hd - h)).to(T.dtype)
+
+
+def gat_bwd_csc(T: torch.Tensor, g: torch.Tensor, col_ptr: torch.Tensor,
+                csc_receivers: torch.Tensor, keep_csc: Optional[torch.Tensor],
+                cmax: torch.Tensor, hd: int, h: int, neg_slope: float) -> torch.Tensor:
+    """K6 (`csrc/gat_bwd_csc.cu`) on a CUDA tensor; the plain version on a CPU
+    one. ``g`` is the cotangent of K5's output in T's dtype; ``keep_csc`` an
+    optional bool [E_pad] in CSC order (False: the edge was dropped)."""
+    if T.device.type == "cpu":
+        return gat_bwd_csc_plain(T, g, col_ptr, csc_receivers, keep_csc, cmax, hd, h,
+                                 neg_slope)
+    _check_gat(T, cmax, hd, h)
+    _check_rows("g", g)
+    _require(g.shape == T.shape and g.dtype == T.dtype and g.device == T.device,
+             f"g must be a {tuple(T.shape)} tensor of T's dtype on T's device, got "
+             f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    _check_index("col_ptr", col_ptr, T.device)
+    _check_index("csc_receivers", csc_receivers, T.device)
+    n_rows, p = T.shape
+    _require(col_ptr.shape[0] == n_rows + 1, f"col_ptr has {col_ptr.shape[0] - 1} ranges "
+                                             f"for {n_rows} rows of T")
+    if keep_csc is not None:
+        _require(keep_csc.device == T.device and keep_csc.dtype == torch.bool
+                 and keep_csc.shape == csc_receivers.shape and keep_csc.is_contiguous(),
+                 "keep_csc must be a contiguous bool tensor with one entry per edge slot")
+    dT = torch.empty_like(T)
+    if n_rows == 0:
+        return dT
+    vec, nch = _gat_launch(hd // h, p, T, g, dT)
+    fn = getattr(library("gat_bwd_csc"), f"dgc_gat_bwd_csc_{_SUFFIX[T.dtype]}")
+    rc = fn(T.data_ptr(), g.data_ptr(), col_ptr.data_ptr(), csc_receivers.data_ptr(),
+            None if keep_csc is None else keep_csc.data_ptr(), cmax.data_ptr(), dT.data_ptr(),
+            n_rows, p, hd // h, h, float(neg_slope), vec, nch,
+            torch.cuda.current_stream(T.device).cuda_stream)
+    gat_bwd_csc.launches += 1
+    _raise_on(rc, "K6 gat_bwd_csc")
+    return dT
+
+
+gat_bwd_csc.launches = 0
+
+
+class _GatSoftmaxSpmm(torch.autograd.Function):
+    """Forward K5 over the CSR ranges, backward K6 over the CSC ranges
+    (`gat_softmax_spmm`'s custom VJP, spmm_pallas.py:945-996). cmax is saved
+    from the forward, so both see one shift."""
+
+    @staticmethod
+    def forward(ctx, T, senders, receivers_eff, row_ptr, csc_receivers, csc_col_ptr, keep_csc,
+                hd, h, neg_slope, ops):
+        fwd, ctx.bwd = ops
+        cmax = gat_cmax(T, hd, h)
+        ctx.save_for_backward(T, csc_receivers, csc_col_ptr, keep_csc, cmax)
+        ctx.hd, ctx.h, ctx.neg_slope = hd, h, neg_slope
+        return fwd(T, senders, receivers_eff, row_ptr, cmax, hd, h, neg_slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        T, csc_receivers, csc_col_ptr, keep_csc, cmax = ctx.saved_tensors
+        dT = ctx.bwd(T, g.to(T.dtype).contiguous(), csc_col_ptr, csc_receivers, keep_csc,
+                     cmax, ctx.hd, ctx.h, ctx.neg_slope)
+        return (dT,) + (None,) * 10
+
+
+def _gat(ops, T, senders, receivers_eff, row_ptr, csc_receivers, csc_col_ptr, keep_csc, hd,
+         h, neg_slope):
+    keep = None if keep_csc is None else (keep_csc > 0).contiguous()
+    return _GatSoftmaxSpmm.apply(T.contiguous(), senders, receivers_eff, row_ptr,
+                                 csc_receivers, csc_col_ptr, keep, hd, h, neg_slope, ops)
+
+
+def gat_softmax_spmm(T: torch.Tensor, senders: torch.Tensor, receivers_eff: torch.Tensor,
+                     row_ptr: torch.Tensor, csc_senders: torch.Tensor,
+                     csc_receivers: torch.Tensor, csc_col_ptr: torch.Tensor,
+                     keep_csc: Optional[torch.Tensor] = None, hd: int = 0, h: int = 1,
+                     neg_slope: float = 0.2) -> torch.Tensor:
+    """agg[n] = [Σ_e w_{e,h}·msg_{e,h,:} | Σ_e w_{e,h} | 0] over the edges
+    into n, with w = exp(leaky_relu(el[send_e]) − cmax) per head, for the
+    packed table T = [msg (hd) | el (h) | zero columns] (JAX's contract,
+    spmm_pallas.py:926-942). Edge-drop: dropped edges carry the sentinel
+    receiver N_pad in ``receivers_eff``, and ``keep_csc`` (float or bool, in
+    CSC order) zeroes their cotangents. Normalisation (num/den) happens
+    outside. ``csc_senders`` is part of the contract but not read: the CSC
+    ranges of ``csc_col_ptr`` give each edge's sender."""
+    del csc_senders
+    return _gat((gat_fwd, gat_bwd_csc), T, senders, receivers_eff, row_ptr, csc_receivers,
+                csc_col_ptr, keep_csc, hd, h, neg_slope)
+
+
+def gat_softmax_spmm_plain(T, senders, receivers_eff, row_ptr, csc_senders, csc_receivers,
+                           csc_col_ptr, keep_csc=None, hd: int = 0, h: int = 1,
+                           neg_slope: float = 0.2) -> torch.Tensor:
+    """The same Function on the plain versions of K5 and K6, on any device:
+    the oracle the kernels are held against."""
+    del csc_senders
+    return _gat((gat_fwd_plain, gat_bwd_csc_plain), T, senders, receivers_eff, row_ptr,
+                csc_receivers, csc_col_ptr, keep_csc, hd, h, neg_slope)

@@ -33,37 +33,47 @@ from .coupling import GroupAdditiveCoupling
 
 class _ReversibleStack(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, layers, g, n_args, x, *rest):
+    def forward(ctx, layers, layer_args, g, n_args, x, *rest):
         args = rest[:n_args]
         with torch.no_grad():
             h = x
-            for layer in layers:
-                h = layer(h, g, *args)
-        ctx.layers, ctx.g, ctx.n_args = layers, g, n_args
+            for layer, own in zip(layers, layer_args):
+                h = layer(h, g, *args, *own)
+        ctx.layers, ctx.layer_args, ctx.g, ctx.n_args = layers, layer_args, g, n_args
         ctx.save_for_backward(h, *args)
         return h
 
     @staticmethod
     def backward(ctx, gy):
         y, *args = ctx.saved_tensors
-        need = ctx.needs_input_grad[4:4 + ctx.n_args]
+        need = ctx.needs_input_grad[5:5 + ctx.n_args]
         g_args = [None] * ctx.n_args
         g_params = []
-        for layer in reversed(ctx.layers):
-            y, gy, gp, ga = layer.inverse_and_vjp(y, ctx.g, gy, *args, arg_grads=need)
+        for layer, own in zip(reversed(ctx.layers), reversed(ctx.layer_args)):
+            y, gy, gp, ga = layer.inverse_and_vjp(y, ctx.g, gy, *args, *own,
+                                                  arg_grads=tuple(need) + (False,) * len(own))
             g_params.append(gp)
-            for k, d in enumerate(ga):
+            for k, d in enumerate(ga[:ctx.n_args]):
                 if d is not None:  # ga's tensors are fresh: accumulate in place
                     g_args[k] = d if g_args[k] is None else g_args[k].add_(d)
         flat = [d for gp in reversed(g_params) for d in gp]
-        return (None, None, None, gy, *g_args, *flat)
+        return (None, None, None, None, gy, *g_args, *flat)
 
 
 def reversible_stack(layers: Sequence[GroupAdditiveCoupling], x: torch.Tensor, g: Graph,
-                     args: Sequence[Optional[torch.Tensor]] = ()) -> torch.Tensor:
+                     args: Sequence[Optional[torch.Tensor]] = (),
+                     layer_args: Optional[Sequence[Sequence[torch.Tensor]]] = None
+                     ) -> torch.Tensor:
     """x through the couplings ``layers`` in order, each called as
-    ``layer(h, g, *args)``, with activation memory that does not grow with
-    the depth. ``args`` are shared by every layer; their gradients are the
-    sums over the layers."""
+    ``layer(h, g, *args, *layer_args[l])``, with activation memory that does
+    not grow with the depth. ``args`` are shared by every layer; their
+    gradients are the sums over the layers. ``layer_args`` (one sequence per
+    layer, the same length for all) are per-layer arguments without
+    gradients, such as RevGAT's edge-drop keys; the couplings chunk them
+    across groups as they chunk the shared ones."""
+    if layer_args is None:
+        layer_args = [()] * len(layers)
+    if len(layer_args) != len(layers):
+        raise ValueError(f"{len(layer_args)} layer_args for {len(layers)} layers")
     params = [p for layer in layers for p in layer.parameters() if p.requires_grad]
-    return _ReversibleStack.apply(layers, g, len(args), x, *args, *params)
+    return _ReversibleStack.apply(layers, layer_args, g, len(args), x, *args, *params)

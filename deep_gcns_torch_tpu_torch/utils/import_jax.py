@@ -1,5 +1,6 @@
-"""Carry weights from the JAX package's DeeperGCN and RevGCN into the port's
-`state_dict` (the inverse direction of `deep_gcns_torch_tpu/utils/import_torch.py`).
+"""Carry weights from the JAX package's DeeperGCN, RevGCN and RevGAT into the
+port's `state_dict` (the inverse direction of
+`deep_gcns_torch_tpu/utils/import_torch.py`).
 
 The JAX model keeps per-layer parameters stacked on a leading L axis for
 `lax.scan`, `Linear.w` as [in, out], and norms as `scale`/`bias` params plus
@@ -124,4 +125,38 @@ def rev_gcn_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
             pre = f"gcns.{l}.Fms.{g}"
             _norm(out, f"{pre}.norm", layers["norm"], {}, norm, (l, g))
             _genconv(out, f"{pre}.gcn", layers["gcn"], {}, cfg, norm, (l, g))
+    return out
+
+
+def _gat(out: Dict[str, torch.Tensor], prefix: str, p: dict, idx=()):
+    """One SymGATConv: JAX's fc/res_fc [in, H·D] → torch [H·D, in], attn
+    [H, D] → [1, H, D]; ``idx`` picks from the leading stacked axes."""
+    out[prefix + ".fc.weight"] = _t(np.asarray(p["fc"])[idx].T)
+    for name in ("attn_l", "attn_r"):
+        if name in p:
+            out[f"{prefix}.{name}"] = _t(np.asarray(p[name])[idx][None])
+    if "res_fc" in p:
+        out[prefix + ".res_fc.weight"] = _t(np.asarray(p["res_fc"])[idx].T)
+
+
+def rev_gat_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
+    """`state_dict` of `models.RevGAT(cfg)` from the JAX `RevGAT(cfg)`'s params
+    (numpy arrays). The JAX middle layers are stacked [L−2, G, ...]; here they
+    unstack into `convs.{l}.Fms.{g}.norm.*` and `convs.{l}.Fms.{g}.conv.*`,
+    the names of `export_revgat` (`utils/import_torch.py:381-410`) without
+    the `_fn.` of the reference's wrapper and without running statistics."""
+    out: Dict[str, torch.Tensor] = {}
+    last = cfg.n_layers - 1
+    _gat(out, "convs.0", params["first"])
+    mid = params["mid"]
+    for l in range(cfg.n_layers - 2):
+        for g in range(cfg.group):
+            pre = f"convs.{l + 1}.Fms.{g}"
+            out[pre + ".norm.weight"] = _t(np.asarray(mid["norm"]["scale"])[l, g])
+            out[pre + ".norm.bias"] = _t(np.asarray(mid["norm"]["bias"])[l, g])
+            _gat(out, pre + ".conv", mid["conv"], (l, g))
+    _gat(out, f"convs.{last}", params["last"])
+    out["norm.weight"] = _t(params["norm"]["scale"])
+    out["norm.bias"] = _t(params["norm"]["bias"])
+    out["bias_last.bias"] = _t(params["bias_last"])
     return out

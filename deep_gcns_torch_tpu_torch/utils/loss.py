@@ -1,6 +1,6 @@
-"""Losses (counterpart of `deep_gcns_torch_tpu/utils/loss.py:22-29, 46-55`:
-`cross_entropy` and `bce_with_logits`; the other losses of the JAX package
-come with later slices)."""
+"""Losses (counterpart of `deep_gcns_torch_tpu/utils/loss.py:22-29, 46-70`:
+`cross_entropy`, `bce_with_logits` and `kd_loss`; the other losses of the
+JAX package come with later slices)."""
 
 from __future__ import annotations
 
@@ -33,4 +33,19 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
         return per.mean()
     m = mask.to(per.dtype).reshape(mask.shape + (1,) * (per.ndim - mask.ndim))
     m = m.expand(per.shape)
+    return (per * m).sum() / torch.clamp_min(m.sum(), 1.0)
+
+
+def kd_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+            temperature: float = 0.7, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """KL(teacher ‖ student) of the temperature-softened distributions, times
+    T² (RevGAT's self-distillation, `utils/loss.py:58-69`), averaged over the
+    (masked) rows."""
+    t = temperature
+    sp = torch.log_softmax(student_logits / t, dim=-1)
+    tp = torch.softmax(teacher_logits / t, dim=-1)
+    per = (tp * (torch.log(torch.clamp_min(tp, 1e-12)) - sp)).sum(-1) * (t * t)
+    if mask is None:
+        return per.mean()
+    m = mask.to(per.dtype)
     return (per * m).sum() / torch.clamp_min(m.sum(), 1.0)

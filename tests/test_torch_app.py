@@ -4,7 +4,7 @@ import math
 
 import pytest
 
-from deep_gcns_torch_tpu_torch.apps import ogbn_arxiv
+from deep_gcns_torch_tpu_torch.apps import ogbn_arxiv, ogbn_arxiv_dgl
 
 
 def test_app_trains_on_cpu(capsys):
@@ -37,3 +37,33 @@ def test_app_band_route_on_cpu(capsys, monkeypatch, reorder):
     assert "band attached: window=" in out and "epoch 1 loss" in out
     # 2 train steps and 2 predicts of 3 layers, all on the band route
     assert len(calls) == 12
+
+
+@pytest.mark.parametrize("band", [False, True])
+def test_revgat_app_trains_on_cpu(capsys, monkeypatch, band):
+    """apps/ogbn_arxiv_dgl at a tiny size: label reuse, RMSprop with its
+    warm-up, the refinement in `predict`; the CSC route (K5/K6's plain
+    versions) on the plain graph, the band route after --reorder/--band."""
+    import deep_gcns_torch_tpu_torch.convs.dgl_gat as tconv
+
+    calls = []
+    name = "band_gat_agg" if band else "gat_softmax_spmm"
+    real = getattr(tconv, name)
+    monkeypatch.setattr(tconv, name, lambda *a, **k: calls.append(1) or real(*a, **k))
+    argv = ["--synthetic", "--synthetic_nodes", "384", "--epochs", "2", "--device", "cpu",
+            "--n_layers", "3", "--n_hidden", "8", "--n_heads", "2"]
+    if band:
+        argv += ["--reorder", "cluster", "--band", "auto", "--compute_dtype", "bfloat16"]
+    res = ogbn_arxiv_dgl.main(argv)
+    assert math.isfinite(res["loss"]) and 0.0 <= res["best_valid"] <= 1.0
+    assert "epoch 1 loss" in capsys.readouterr().out
+    # 2 steps of 2 + 2 group convs (the backward re-runs the middle groups
+    # once more) and 2 predicts of two forwards each (one label refinement)
+    assert len(calls) == 2 * (4 + 2) + 2 * 2 * 4
+
+
+@pytest.mark.parametrize("argv", [["--synthetic", "--mode", "student"], [],
+                                  ["--synthetic", "--use_attn_dst", "--band", "auto"]])
+def test_revgat_app_raises_for_what_is_not_ported(argv):
+    with pytest.raises(NotImplementedError):
+        ogbn_arxiv_dgl.main(argv + ["--device", "cpu", "--epochs", "1"])

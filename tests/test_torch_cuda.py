@@ -360,3 +360,110 @@ def test_bf16_linear_on_card_matches_cpu(cuda_device):
     # round to bf16 once, so they may sit one bf16 ulp apart
     for i, (got, want) in enumerate(zip(*outs)):
         _assert_close(got, want, **(TOL[torch.float32] if i in (0, 3) else TOL[torch.bfloat16]))
+
+
+# K6's el column sums terms (⟨msg, gnum⟩ + gden)·w·lrelu' whose dot is a
+# warp reduction in the kernel and a torch sum in the plain version: in bf16
+# a term's rounding may then flip by one ulp of the term, so the floor is one
+# bf16 ulp of the largest value
+TOL_GAT_EL = {torch.float32: dict(rtol=1e-5, atol_rel=1e-5),
+              torch.bfloat16: dict(rtol=2.0 ** -5, atol_rel=2.0 ** -7)}
+
+
+def _gat_inputs(dev, dtype, h, d, drop, seed=0, n=5000, e=60000):
+    """A graph with a hub receiver row and a hub sender row (2,000 edges
+    each, far more than one warp's pass) and a packed table [msg | el | 0]
+    with a spread of scores; P is padded to a multiple of 8 where D is a
+    multiple of 4 (the kernels' 4-wide loads), else left ragged."""
+    rng = np.random.default_rng(seed)
+    s, r = rng.integers(0, n, e), rng.integers(0, n - 100, e)
+    r[:2000] = 7
+    s[2000:4000] = 11
+    g = build_graph(None, s, r, num_nodes=n).to(dev)
+    n_pad, hd = g.num_nodes_padded, h * d
+    p = hd + h + ((-(hd + h)) % 8 if d % 4 == 0 else 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.randn(n_pad, p, device=dev, generator=gen)
+    t[:, hd:hd + h] *= 3.0
+    t[:, hd + h:] = 0.0
+    recv, keep_csc = g.receivers, None
+    if drop:
+        spec = tband.DropSpec(k0=-99, k1=31337, thresh=tband.drop_thresh(0.3))
+        keep = tband.edge_keep_mask(spec, g.receivers, g.senders) > 0
+        recv = torch.where(keep & g.edge_mask, g.receivers, n_pad)
+        keep_csc = keep.index_select(0, g.csc_perm.long())
+    return g, t.to(dtype).contiguous(), recv, keep_csc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("h,d", [(3, 256), (3, 128), (1, 40), (2, 41)])
+def test_gat_kernels_match_plain(cuda_device, dtype, drop, h, d):
+    """K5 and K6 against their plain versions at RevGAT's three head shapes
+    (4-wide loads, two column groups per lane at D=256) and at D=41 (P=123,
+    scalar loads), with and without the renormalising edge-drop; K6 also
+    through the Function's backward."""
+    g, t, recv, keep_csc = _gat_inputs(cuda_device, dtype, h, d, drop)
+    hd = h * d
+    cmax = tsp.gat_cmax(t, hd, h)
+    k5, k6 = tsp.gat_fwd.launches, tsp.gat_bwd_csc.launches
+    fwd_args = (g.senders, recv, g.row_ptr, cmax, hd, h, 0.2)
+    out = tsp.gat_fwd(t, *fwd_args)
+    _assert_close(out, tsp.gat_fwd_plain(t, *fwd_args), **TOL[dtype])
+    assert not out[:, hd + h:].any()
+    q = torch.randn(t.shape, device=cuda_device).to(dtype)
+    bwd_args = (g.csc_col_ptr, g.csc_receivers, keep_csc, cmax, hd, h, 0.2)
+    dt = tsp.gat_bwd_csc(t, q, *bwd_args)
+    dt_p = tsp.gat_bwd_csc_plain(t, q, *bwd_args)
+    _assert_close(dt[:, :hd], dt_p[:, :hd], **TOL[dtype])
+    _assert_close(dt[:, hd:], dt_p[:, hd:], **TOL_GAT_EL[dtype])
+    co = torch.randn(t.shape, device=cuda_device)
+    grads = []
+    for fn in (tsp.gat_softmax_spmm, tsp.gat_softmax_spmm_plain):
+        tt = t.detach().clone().requires_grad_(True)
+        o = fn(tt, g.senders, recv, g.row_ptr, g.csc_senders, g.csc_receivers, g.csc_col_ptr,
+               keep_csc, hd, h, 0.2)
+        (o.float() * co).sum().backward()
+        grads.append(tt.grad)
+    _assert_close(grads[0][:, :hd], grads[1][:, :hd], **TOL[dtype])
+    _assert_close(grads[0][:, hd:], grads[1][:, hd:], **TOL_GAT_EL[dtype])
+    torch.cuda.synchronize()
+    assert (tsp.gat_fwd.launches - k5, tsp.gat_bwd_csc.launches - k6) == (2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [False, True])
+def test_small_rev_gat_card_matches_cpu(cuda_device, band):
+    """A 4-layer RevGAT (2 heads, group 2, edge-drop from explicit keys,
+    dropout 0) through K5/K6 (or K3/K1 on the band route) on the card
+    against the same weights through the plain versions on the CPU, in
+    float32: loss-weighted logits and every gradient."""
+    from deep_gcns_torch_tpu_torch.models import RevGAT, RevGATConfig
+
+    rng = np.random.default_rng(5)
+    n = 3000
+    w = (1.0 / (1.0 + np.arange(n, dtype=np.float64))) ** 0.8
+    rng.shuffle(w)
+    s = rng.choice(n, n * 8, p=w / w.sum())
+    r = np.clip(s + rng.integers(-300, 301, n * 8), 0, n - 1)
+    g = build_graph(rng.standard_normal((n, 24)).astype(np.float32), s, r, num_nodes=n)
+    if band:
+        g = attach_band(g, window=512, hubs=64)
+    co = torch.from_numpy(rng.standard_normal((g.num_nodes_padded, 6)).astype(np.float32))
+    cfg = RevGATConfig(in_feats=24, n_classes=6, n_hidden=16, n_layers=4, n_heads=2, group=2,
+                       dropout=0.0, input_drop=0.0, edge_drop=0.3)
+    keys = ((5, -6), [(7, 8), (-9, 10)], (11, 12))
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = RevGAT(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+        model.train()
+        gd = g.to(dev)
+        logits = model(gd.x, gd, drop_keys=keys)
+        (logits * co.to(dev)).sum().backward()
+        outs.append((logits.detach().cpu(),
+                     {k: p.grad.detach().cpu() for k, p in model.named_parameters()}))
+    _assert_close(outs[0][0], outs[1][0], 1e-4, 1e-4)
+    g_max = max(float(v.abs().max()) for v in outs[1][1].values())
+    for k, want in outs[1][1].items():
+        _assert_close(outs[0][1][k], want, 1e-3, 1e-4, ref_max=g_max)

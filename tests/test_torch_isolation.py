@@ -26,7 +26,11 @@ MODULES = ["deep_gcns_torch_tpu_torch", "deep_gcns_torch_tpu_torch.device",
            "deep_gcns_torch_tpu_torch.models.rev_gcn",
            "deep_gcns_torch_tpu_torch.apps.proteins_common",
            "deep_gcns_torch_tpu_torch.apps.ogbn_proteins",
-           "deep_gcns_torch_tpu_torch.apps.ogbn_proteins_rev"]
+           "deep_gcns_torch_tpu_torch.apps.ogbn_proteins_rev",
+           "deep_gcns_torch_tpu_torch.ops.gather", "deep_gcns_torch_tpu_torch.convs",
+           "deep_gcns_torch_tpu_torch.convs.dgl_gat", "deep_gcns_torch_tpu_torch.models",
+           "deep_gcns_torch_tpu_torch.models.rev_gat",
+           "deep_gcns_torch_tpu_torch.apps.ogbn_arxiv_dgl"]
 
 
 def test_import_leaves_jax_out():
