@@ -18,7 +18,7 @@ every check; nothing is caught):
    weights on the CPU (plain versions): logits and gradients;
 4. main path, gather route: ResGEN-28 (res+, softmax_sg t=0.1, batch norm,
    one-layer MLP, dropout 0.5, bf16 compute, C=128, 40 classes, Adam 1e-2)
-   trained through the app's `train_step` for one warm-up and 5 timed steps,
+   trained through the app's `train_step` for one warm-up and 3 timed steps,
    then one `predict`; the launch counts must show 28 K2 launches per
    forward and 28 K1 launches per backward;
 5. profile: a `torch.profiler` trace of one more train step, printed as
@@ -35,12 +35,12 @@ every check; nothing is caught):
    hash edge-drop (p=0.3) in both id orders, and `band_spmm` and
    `band_softmax_agg` (softmax_sg and learn_t) forward and backward against
    the same Functions on the plain versions;
-9. main path, band route: ResGEN-28 on the band graph, one warm-up, 5 timed
+9. main path, band route: ResGEN-28 on the band graph, one warm-up, 3 timed
    steps and a `predict`; K3 must launch 56 times a step and 28 times a
    `predict`, K1 as often wherever the leftover is not empty, K2 never;
 10. profile of one band-route step;
 11. the same graph on the gather route (`g.replace(band=None)`): one warm-up
-   and 2 steps, and the card's band/gather step ratio;
+   and 1 step, and the card's band/gather step ratio;
 12. timing of K3 in bf16 on the packed forward table, its bound and a
    `torch.sparse.mm` yardstick of the in-band adjacency;
 13. cluster graph: one ogbn-proteins cluster under the reference's 10-way
@@ -55,18 +55,18 @@ every check; nothing is caught):
    the same weights on the CPU: logits and every gradient;
 16. main path, RevGCN at L=101 then L=1001 (80 channels, group 2, bf16)
    through `apps/ogbn_proteins_rev`'s `train_step` and `predict`: one
-   warm-up, 2 timed steps (1 at L=1001) and a `predict` each; K2 with
+   warm-up, 1 timed step and a `predict` each; K2 with
    `ee` must launch 2·L·G times a step and L·G times a `predict`, K4 L·G
    times a step, K1, K3 and K2 without `ee` never; a profile of one L=101
    step; the O(1)-memory check: the peak may grow from L=101 to L=1001 by
    no more than the parameters, gradients and Adam moments of the extra
    layers (16 bytes a parameter) plus 256 MB;
 17. main path, DyResGEN-112 (C=64, learned t, per-layer edge encoders,
-   bf16) through `apps/ogbn_proteins`: one warm-up, 2 timed steps and a
+   bf16) through `apps/ogbn_proteins`: one warm-up, 1 timed step and a
    `predict`; K2 with `ee` 112 launches a step and a `predict`, K4 112 a
    step;
 18. app: `apps/ogbn_proteins_rev.main` for one epoch on synthetic
-   ogbn-proteins (132,534 nodes, degree 60, 10 clusters, 28 layers, 5
+   ogbn-proteins (132,534 nodes, degree 60, 10 clusters, 14 layers, 5
    evaluation parts, bf16), with its host partition seconds;
 19. timing of K2 with `ee` and K4 in bf16 at C=40 on the cluster graph,
    beside their plain versions and bounds;
@@ -83,7 +83,7 @@ every check; nothing is caught):
    2, 128 + 40 label channels, dropout 0.75, input dropout 0.25, edge-drop
    0.3, symmetric norm, bf16, RMSprop warming up from lr 0) through
    `apps/ogbn_arxiv_dgl`'s `train_step` and `predict`, on the band route
-   and on the CSC route of the same graph: one warm-up, 3 timed steps and a
+   and on the CSC route of the same graph: one warm-up, 2 timed steps and a
    `predict` each, the launch counts (CSC: 14 K5 and 8 K6 a step, 16 K5 a
    `predict`; band: 22 K3 a step and 16 a `predict`, K1 as often where the
    leftover is not empty, no K5/K6), peaks, the CSC/band ratio, a profile
@@ -92,7 +92,22 @@ every check; nothing is caught):
    nodes, bf16);
 25. timing of K5 and K6 in bf16 at the three widths with the training
    step's hash keep, beside their plain versions, their bounds and the
-   bound if every row gather came from HBM.
+   bound if every row gather came from HBM;
+26. dense kernels: K7 against its plain version (M bit for bit), K8 and K9
+   directly and through the dense Function's backward against the Function
+   on the plain versions, at the three head shapes, in f32 and bf16, with
+   and without the hash drop, on the RevGAT graph's band;
+27. dense agreement: small RevGATs with destination scores and with the
+   per-receiver stabilizer, and a small PyG GATConv with explicit self
+   edges, on a band's dense route on the card against the CPU;
+28. main path, dense route: RevGAT-5L with destination scores
+   (`--use_attn_dst`) on the band: one warm-up, 3 timed steps, a `predict`
+   and a profiled step; 14 K7 and 8 K8 and K9 a step, 16 K7 a `predict`, K1
+   per leftover pass (14 + 2·8 a step), no K3, K5 or K6; then sender-only
+   scores with `--gat_stabilizer per_receiver`: one warm-up and one step,
+   and both steps over the band route's `auto` step;
+29. timing of K7, K8 and K9 in bf16 at the three head shapes with the
+   step's hash drop, beside their plain versions and bounds.
 
 The line before the last is a JSON object listing the kernels; the last line
 is `{"ok": true, "device": {...}}`. `--rehearse-cpu` runs every phase on the
@@ -186,6 +201,13 @@ class Checks:
         if not ok:
             self.failed.append(name)
         return max_err
+
+    def equal(self, name, got, want):
+        """Bit for bit (``==``, so 0.0 and -0.0 agree)."""
+        ok = got.shape == want.shape and bool((got == want).all())
+        log(f"[check] {name}: equal {'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.failed.append(name)
 
     def raise_if_failed(self):
         if self.failed:
@@ -321,25 +343,25 @@ def main_model(dev, layers):
     return model, make_optimizer("adam", model.parameters(), 1e-2)
 
 
+def _counted():
+    return {"K1": (tsp.csr_seg_sum, "launches"), "K2": (tsp.softmax_agg, "launches"),
+            "K2 ee": (tsp.softmax_agg, "launches_ee"), "K3": (tband.band_call, "launches"),
+            "K4": (tsp.softmax_bwd_csc, "launches"), "K5": (tsp.gat_fwd, "launches"),
+            "K6": (tsp.gat_bwd_csc, "launches"), "K7": (tgd.win_fused, "launches"),
+            "K8": (tgd.win_der, "launches"), "K9": (tgd.win_dsend, "launches")}
+
+
 def reset_launches():
-    tsp.csr_seg_sum.launches = 0
-    tsp.softmax_agg.launches = 0
-    tsp.softmax_agg.launches_ee = 0
-    tband.band_call.launches = 0
-    tsp.softmax_bwd_csc.launches = 0
-    tsp.gat_fwd.launches = 0
-    tsp.gat_bwd_csc.launches = 0
+    for fn, attr in _counted().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {"K1": tsp.csr_seg_sum.launches, "K2": tsp.softmax_agg.launches,
-            "K2 ee": tsp.softmax_agg.launches_ee, "K3": tband.band_call.launches,
-            "K4": tsp.softmax_bwd_csc.launches, "K5": tsp.gat_fwd.launches,
-            "K6": tsp.gat_bwd_csc.launches}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counted().items()}
 
 
 def no_launches():
-    return {"K1": 0, "K2": 0, "K2 ee": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+    return {k: 0 for k in _counted()}
 
 
 def expected_launches(g, layers, steps):
@@ -1134,7 +1156,7 @@ def phase_gat_agreement(dev):
     chk.raise_if_failed()
 
 
-def revgat_expected(g, steps, args):
+def revgat_expected(g, steps, args, n_steps=None):
     """Launches of (steps + 1) train steps and one `predict` of RevGAT-5L.
     A forward runs 2 + (L−2)·G convs; the backward runs the first and last
     convs' backward and, in the reversible stack, every group conv once more
@@ -1142,7 +1164,11 @@ def revgat_expected(g, steps, args):
     and 2 + (L−2)·G backwards, and `predict` (1 + n_label_iters) forwards.
     The CSC route launches K5 per conv forward and K6 per backward; the band
     route K3 per forward and backward, plus K1 wherever that direction's
-    leftover is not empty."""
+    leftover is not empty; the dense route (destination scores or the
+    per-receiver stabilizer on a band) K7 per forward, K8 and K9 per
+    backward, and K1 for the forward band's leftover in the forward and the
+    backward (d_er) and for the transpose band's in the backward (d_el,
+    d_feat). ``n_steps`` overrides steps + 1 (a run without `predict`)."""
     want = no_launches()
     mid = (args.n_layers - 2) * args.group
     step_fwd, step_bwd, predict_fwd = 2 + 2 * mid, 2 + mid, (1 + args.n_label_iters) * (2 + mid)
@@ -1150,26 +1176,33 @@ def revgat_expected(g, steps, args):
         f"predict {predict_fwd} forwards")
     if g.senders.device.type != "cuda":
         return want
-    fwd = step_fwd * (steps + 1) + predict_fwd
-    bwd = step_bwd * (steps + 1)
+    if n_steps is None:
+        fwd, bwd = step_fwd * (steps + 1) + predict_fwd, step_bwd * (steps + 1)
+    else:
+        fwd, bwd = step_fwd * n_steps, step_bwd * n_steps
     if g.band is None:
         want.update(K5=fwd, K6=bwd)
+        return want
+    lo_f, lo_b = int(g.band.fwd.n_lo > 0), int(g.band.bwd.n_lo > 0)
+    if args.use_attn_dst or args.gat_stabilizer == "per_receiver":
+        want.update(K7=fwd, K8=bwd, K9=bwd, K1=fwd * lo_f + bwd * (lo_f + lo_b))
     else:
-        lo_f, lo_b = int(g.band.fwd.n_lo > 0), int(g.band.bwd.n_lo > 0)
         want.update(K3=fwd + bwd, K1=fwd * lo_f + bwd * lo_b)
     return want
 
 
-def phase_revgat_path(g, labels, steps, tag):
+def phase_revgat_path(g, labels, steps, tag, extra_argv=(), with_predict=True):
     """RevGAT-5L (`bench.py:119-132`: 256 hidden x 3 heads, group 2, in_feats
     128 + 40 label channels, dropout 0.75, input dropout 0.25, edge-drop 0.3,
     sender-only scores, symmetric norm, bf16, RMSprop warming up from lr 0
-    to 2e-3 over 50 steps), random weights from seed 0, through the app's
-    `train_step` (one warm-up, ``steps`` timed) and `predict` (with one label
-    refinement), the launch counts set to 0 just before and read just after.
-    Returns (info, a closure of one more train step)."""
+    to 2e-3 over 50 steps; ``extra_argv`` adds app flags such as
+    --use_attn_dst), random weights from seed 0, through the app's
+    `train_step` (one warm-up, ``steps`` timed) and, ``with_predict``,
+    `predict` (with one label refinement), the launch counts set to 0 just
+    before and read just after. Returns (info, a closure of one more train
+    step)."""
     dev = g.senders.device
-    argv = ["--compute_dtype", "bfloat16", "--device", dev.type]
+    argv = ["--compute_dtype", "bfloat16", "--device", dev.type, *extra_argv]
     args = ogbn_arxiv_dgl.get_args(argv)
     n, n_pad = g.n_node, g.num_nodes_padded
     base = free_memory(dev)
@@ -1198,24 +1231,27 @@ def phase_revgat_path(g, labels, steps, tag):
         sync(dev)
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
-    t0 = time.perf_counter()
-    logits = ogbn_arxiv_dgl.predict(model, g, g.x, onehot, sel, args.n_label_iters)
-    sync(dev)
-    predict_s = time.perf_counter() - t0
+    predict_s = None
+    if with_predict:
+        t0 = time.perf_counter()
+        logits = ogbn_arxiv_dgl.predict(model, g, g.x, onehot, sel, args.n_label_iters)
+        sync(dev)
+        predict_s = time.perf_counter() - t0
     launches = read_launches()
     log(f"[{tag}] losses {losses}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{tag}: loss is not finite")
-    if logits.shape != (n_pad, 40) or not bool(torch.isfinite(logits).all()):
+    if with_predict and (logits.shape != (n_pad, 40) or not bool(torch.isfinite(logits).all())):
         raise AssertionError(f"{tag}: predict gave shape {tuple(logits.shape)} or "
                              "non-finite logits")
-    want = revgat_expected(g, steps, args)
+    want = revgat_expected(g, steps, args, None if with_predict else steps + 1)
     log(f"[{tag}] launches {launches} expected {want}")
     if launches != want:
         raise AssertionError(f"{tag}: kernel launches {launches} != expected {want}")
     info = {"params": sum(p.numel() for p in model.parameters()),
             "step_ms_median": sorted(times)[len(times) // 2] * 1e3,
-            "step_ms_all": [v * 1e3 for v in times], "predict_ms": predict_s * 1e3,
+            "step_ms_all": [v * 1e3 for v in times],
+            "predict_ms": None if predict_s is None else predict_s * 1e3,
             "losses": losses, "launches": launches}
     if dev.type == "cuda":
         peak = torch.cuda.max_memory_allocated(dev)
@@ -1297,13 +1333,226 @@ def phase_gat_timing(g, errs, launches, iters):
              "plain_ms": k6[1], "bound_ms": b6[0], "bound_by": b6[1], "library_ms": None}]
 
 
+# K7–K9 against their plain versions: M is a maximum, equal bit for bit;
+# num, den, d_er, d_el and d_feat are float32 sums of terms that kernel and
+# plain version compute alike (the same expf, weights rounded to the compute
+# type alike), so only the order of the sums differs, and for d_er and d_el
+# also the order of each per-head dot product
+TOL_DENSE = dict(rtol=1e-5, atol_rel=1e-5)
+TOL_DENSE_T = dict(rtol=1e-4, atol_rel=1e-5)
+# the dense Function in bf16: the leftover's K1 sums round to bf16, so one ulp
+# of a partial sum passes into the result, as on the band route
+TOL_DENSE_FN = {"f32": dict(rtol=1e-4, atol_rel=1e-5),
+                "bf16": dict(rtol=2.0 ** -5, atol_rel=1e-4)}
+
+
+def dense_drop(drop):
+    """The hash edge-drop p=0.3 of a training step, or none."""
+    return tband.DropSpec(k0=-1640531527, k1=2024, thresh=tband.drop_thresh(0.3)) if drop \
+        else None
+
+
+def dense_inputs(g, h, d, dtype, gen):
+    """feat [N_pad, H·D] in ``dtype`` and el, er [N_pad, H] float32 with a
+    spread of scores, as a conv makes them."""
+    n = g.num_nodes_padded
+    dev = g.senders.device
+    feat = torch.randn(n, h * d, device=dev, generator=gen).to(dtype)
+    el = torch.randn(n, h, device=dev, generator=gen) * 2.0
+    er = torch.randn(n, h, device=dev, generator=gen) * 2.0
+    return feat, el, er
+
+
+def dense_m_other(band, el, er, spec):
+    """The main path's m_other: the maxima of the structures outside K7."""
+    return tgd.other_maxima(band, el, er, 0.2, tgd.Keeps(band, spec, False))
+
+
+def phase_dense_kernels(g):
+    """K7 against its plain version (M bit for bit), K8 and K9 directly and
+    through the Function's backward against the Function on the plain
+    versions, at RevGAT-5L's three head shapes, in f32 and bf16, with and
+    without the hash edge-drop, on the RevGAT graph's band."""
+    dev = g.senders.device
+    chk = Checks("dense kernels")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    band, bwd = g.band.fwd, g.band.bwd
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        e7 = e8 = e9 = 0.0
+        for h, d in GAT_SHAPES:
+            feat, el, er = dense_inputs(g, h, d, dtype, gen)
+            gnum = torch.randn(feat.shape, device=dev, generator=gen).to(dtype)
+            gden = torch.randn(el.shape, device=dev, generator=gen)
+            for drop in (False, True):
+                spec = dense_drop(drop)
+                name = f"{h}x{d}{' drop' if drop else ''} {tag}"
+                m_other = dense_m_other(band, el, er, spec)
+                num, den, m = tgd.win_fused(band, el, er, m_other, feat, 0.2, spec)
+                num_p, den_p, m_p = tgd.win_fused_plain(band, el, er, m_other, feat, 0.2, spec)
+                chk.equal(f"K7 M {name}", m, m_p)
+                e7 = max(e7, chk.close(f"K7 num {name}", num, num_p, **TOL_DENSE),
+                         chk.close(f"K7 den {name}", den, den_p, **TOL_DENSE))
+                del num, den, m, num_p, den_p
+                args = (el, er, m_p, feat, gnum, gden, 0.2, spec)
+                e8 = max(e8, chk.close(f"K8 d_er {name}", tgd.win_der(band, *args),
+                                       tgd.win_der_plain(band, *args), **TOL_DENSE_T))
+                d_el, d_feat = tgd.win_dsend(bwd, *args)
+                d_el_p, d_feat_p = tgd.win_dsend_plain(bwd, *args)
+                e9 = max(e9, chk.close(f"K9 d_el {name}", d_el, d_el_p, **TOL_DENSE_T),
+                         chk.close(f"K9 d_feat {name}", d_feat, d_feat_p, **TOL_DENSE))
+                del d_el, d_feat, d_el_p, d_feat_p
+                co_n = torch.randn(feat.shape, device=dev, generator=gen).reshape(-1, h, d)
+                co_d = torch.randn(el.shape, device=dev, generator=gen)
+                res = []
+                for fn in (tgd.gat_dense_agg, tgd.gat_dense_agg_plain):
+                    f = feat.float().reshape(-1, h, d).requires_grad_(True)
+                    l_, r_ = el.clone().requires_grad_(True), er.clone().requires_grad_(True)
+                    o_n, o_d = fn(f, l_, r_, None, None, None, g.band, spec, 0.2, dtype)
+                    ((o_n * co_n).sum() + (o_d * co_d).sum()).backward()
+                    res.append((o_n.detach(), o_d.detach(), f.grad, l_.grad, r_.grad))
+                    del o_n, o_d, f, l_, r_
+                for part, a, b in zip(("num", "den", "d_feat", "d_el", "d_er"), *res):
+                    chk.close(f"Function {part} {name}", a, b, **TOL_DENSE_FN[tag])
+                del res, co_n, co_d
+            del feat, el, er, gnum, gden
+        errs[tag] = {"K7": e7, "K8": e8, "K9": e9}
+    sync(dev)
+    chk.raise_if_failed()
+    return errs
+
+
+def phase_dense_agreement(dev):
+    """A small RevGAT with destination scores and one with the per-receiver
+    stabilizer (4 layers, 2 heads, group 2, dropout 0, explicit drop keys),
+    and a small PyG GATConv on a graph with explicit self edges, on a band's
+    dense route on the card (K7–K9, K1) against the same weights on the CPU
+    (plain versions): logits (outputs) and every gradient, float32."""
+    chk = Checks("dense agreement")
+    rng = np.random.default_rng(10)
+    n = 3000
+    s, r = powerlaw_community_edges(rng, n, 8, alpha=0.6)
+    s, r = add_self_loops(*to_undirected(s, r), n)
+    s, r = permute_graph(cluster_order(s, r, n, cluster_size=1024), s, r)
+    gh = attach_band(build_graph(rng.standard_normal((n, 24)).astype(np.float32), s, r,
+                                 num_nodes=n))
+    co = torch.from_numpy(rng.standard_normal((gh.num_nodes_padded, 6)).astype(np.float32))
+    keys = ((5, -6), [(7, 8), (-9, 10)], (11, 12))
+    runs = []
+    for name, kw in (("attn_dst", dict(use_attn_dst=True)),
+                     ("per_receiver", dict(stabilizer="per_receiver"))):
+        cfg = RevGATConfig(in_feats=24, n_classes=6, n_hidden=16, n_layers=4, n_heads=2,
+                           group=2, dropout=0.0, input_drop=0.0, edge_drop=0.3, **kw)
+
+        def run(d, cfg=cfg):
+            model = RevGAT(cfg, generator=torch.Generator().manual_seed(0)).to(d)
+            model.train()
+            gd = gh.to(d)
+            logits = model(gd.x, gd, drop_keys=keys)
+            (logits * co.to(d)).sum().backward()
+            return logits.detach().cpu(), {k: p.grad.detach().cpu()
+                                           for k, p in model.named_parameters()}
+        runs.append((f"small RevGAT {name}", run))
+    # PyG's GATConv with explicit self edges (already in the graph) and the
+    # analytic self term
+    co_p = torch.from_numpy(rng.standard_normal((gh.num_nodes_padded, 32)).astype(np.float32))
+
+    def run_pyg(d):
+        conv = GATConv(24, 8, heads=4, generator=torch.Generator().manual_seed(1)).to(d)
+        gd = gh.to(d)
+        x = gd.x.clone().requires_grad_(True)
+        out = conv(x, gd)
+        (out * co_p.to(d)).sum().backward()
+        grads = {k: p.grad.detach().cpu() for k, p in conv.named_parameters()}
+        grads["x"] = x.grad.cpu()
+        return out.detach().cpu(), grads
+    runs.append(("small PyG GATConv", run_pyg))
+    for name, run in runs:
+        got, want = run(dev), run(torch.device("cpu"))
+        # float32 through 4 layers, as the other agreement phases
+        chk.close(f"{name} outputs, card vs cpu", got[0], want[0], 1e-4, 1e-4)
+        g_max = max(float(v.abs().max()) for v in want[1].values())
+        for k in want[1]:
+            chk.close(f"{name} grad {k}", got[1][k], want[1][k], 1e-3, 1e-4, ref_max=g_max)
+    chk.raise_if_failed()
+
+
+def phase_dense_timing(g, errs, launches, iters):
+    """K7, K8 and K9 in bf16 at the three head shapes with the training
+    step's hash drop, beside their plain versions and bounds; the rows of the
+    middle shape (6 of a forward's 8 convs) go into the kernels line."""
+    dev = g.senders.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    band, bwd = g.band.fwd, g.band.bwd
+    spec = dense_drop(True)
+    n = g.num_nodes_padded
+    small = 4 * n  # one float32 [N_pad] column
+
+    def struct_bytes(b):
+        hub = 0 if b.hub_ids is None else b.a_hub.numel() * 2 + b.hub_ids.numel() * 4
+        return b.a.numel() + b.w_lo.numel() * 4 + hub
+
+    # valid positions (edges the drop keeps) in each kernel's structures
+    valid_f = int(tgd._entries(band, spec, False)[0].shape[0])
+    valid_b = int(tgd._entries(bwd, spec, True)[0].shape[0])
+    rows = {}
+    for h, d in GAT_SHAPES:
+        feat, el, er = dense_inputs(g, h, d, torch.bfloat16, gen)
+        gnum = torch.randn(feat.shape, device=dev, generator=gen).to(torch.bfloat16)
+        gden = torch.randn(el.shape, device=dev, generator=gen)
+        m_other = dense_m_other(band, el, er, spec)
+        m = tgd.win_fused(band, el, er, m_other, feat, 0.2, spec)[2]
+        args = (el, er, m, feat, gnum, gden, 0.2, spec)
+        t7 = (time_fn(lambda: tgd.win_fused(band, el, er, m_other, feat, 0.2, spec), dev, iters),
+              time_fn(lambda: tgd.win_fused_plain(band, el, er, m_other, feat, 0.2, spec),
+                      dev, 2))
+        t8 = (time_fn(lambda: tgd.win_der(band, *args), dev, iters),
+              time_fn(lambda: tgd.win_der_plain(band, *args), dev, 2))
+        t9 = (time_fn(lambda: tgd.win_dsend(bwd, *args), dev, iters),
+              time_fn(lambda: tgd.win_dsend_plain(bwd, *args), dev, 2))
+        hd2 = n * h * d * 2  # one bf16 [N_pad, H·D] table
+        # K7: A, the hub counts, el, er, m_other and feat read once, num
+        # (float32), den and M written once; per valid (position, head) the
+        # two score walks and the weight (~11 operations) and 2·D for num
+        b7 = bound(struct_bytes(band) + 3 * h * small + hd2 + 2 * hd2 + 2 * h * small,
+                   valid_f * h * (11 + 2 * d))
+        # K8: A, hub counts, el, er, M, gden, feat and gnum read once, d_er
+        # written; per valid (position, head) ~10 operations and the 2·D dot
+        b8 = bound(struct_bytes(band) + 4 * h * small + 2 * hd2 + h * small,
+                   valid_f * h * (10 + 2 * d))
+        # K9: the transpose band's structures, el, er, M, gden, feat and gnum
+        # read once, d_el and d_feat (float32) written; per valid (position,
+        # head) ~12 operations, the 2·D dot and 2·D for d_feat
+        b9 = bound(struct_bytes(bwd) + 4 * h * small + 2 * hd2 + h * small + 2 * hd2,
+                   valid_b * h * (12 + 4 * d))
+        log(f"[dense-timing] {h}x{d} bf16, {valid_f} / {valid_b} valid positions (fwd / bwd "
+            f"band): K7 {t7[0]:.4f} ms (plain {t7[1]:.3f}), bound {b7[0]:.4f} ms ({b7[1]}); "
+            f"K8 {t8[0]:.4f} ms (plain {t8[1]:.3f}), bound {b8[0]:.4f} ms ({b8[1]}); K9 "
+            f"{t9[0]:.4f} ms (plain {t9[1]:.3f}), bound {b9[0]:.4f} ms ({b9[1]})")
+        rows[(h, d)] = ((t7, b7), (t8, b8), (t9, b9))
+        del feat, el, er, gnum, gden, m_other, m, args
+    log("[dense-timing] no single PyTorch call computes K7, K8 or K9: library_ms is null")
+    out = []
+    for (name, src, line, key), (t, b) in zip(
+            (("K7 win_fused", "win_fused.cu", "deep_gcns_torch_tpu/ops/gat_dense.py:1274", "K7"),
+             ("K8 win_der", "win_der.cu", "deep_gcns_torch_tpu/ops/gat_dense.py:966", "K8"),
+             ("K9 win_dsend", "win_dsend.cu", "deep_gcns_torch_tpu/ops/gat_dense.py:1048", "K9")),
+            rows[GAT_SHAPES[1]]):
+        out.append({"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}",
+                    "replaces": line, "launches": launches[key],
+                    "max_abs_err": errs["bf16"][key], "ms": t[0], "plain_ms": t[1],
+                    "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
+    return out
+
+
 def main(argv):
     rehearse = "--rehearse-cpu" in argv
     if not rehearse and not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
         return 1
     dev = torch.device("cpu" if rehearse else "cuda")
-    n, layers, steps, iters = (2000, 3, 2, 2) if rehearse else (169_343, 28, 5, 50)
+    n, layers, steps, iters = (2000, 3, 2, 2) if rehearse else (169_343, 28, 3, 50)
     t_all = time.time()
     info = phase_device(dev)
     mark("device")
@@ -1327,7 +1576,7 @@ def main(argv):
     band_info, state = phase_main_path(gb, labels_b, layers, steps, tag="band-main")
     phase_profile(dev, arxiv_step(gb, state), tag="band-profile")
     del state
-    gather_info, _ = phase_main_path(gb.replace(band=None), labels_b, layers, 2,
+    gather_info, _ = phase_main_path(gb.replace(band=None), labels_b, layers, 1,
                                      tag="band-graph-gather")
     log(f"[band-main] band/gather step ratio on the same graph: "
         f"{band_info['step_ms_median'] / gather_info['step_ms_median']:.4f} "
@@ -1341,14 +1590,14 @@ def main(argv):
     mark("edge kernels")
     phase_edge_agreement(dev)
     mark("edge agreement")
-    rev = phase_rev_paths(gpr, feats, (3, 5) if rehearse else (101, 1001), (2, 1))
+    rev = phase_rev_paths(gpr, feats, (3, 5) if rehearse else (101, 1001), (1, 1))
     dy_layers = 3 if rehearse else 112
     phase_proteins_path(ogbn_proteins, ["--learn_t", "--num_layers", str(dy_layers),
                                         "--compute_dtype", "bfloat16"],
-                        gpr, feats, 2, dyresgen_expected, f"dyresgen-{dy_layers}")
+                        gpr, feats, 1, dyresgen_expected, f"dyresgen-{dy_layers}")
     app_argv = ["--synthetic", "--synthetic_nodes", "3000" if rehearse else "132534",
                 "--synthetic_degree", "8" if rehearse else "60", "--cluster_number", "10",
-                "--num_layers", "3" if rehearse else "28", "--eval_parts", "5",
+                "--num_layers", "3" if rehearse else "14", "--eval_parts", "5",
                 "--compute_dtype", "bfloat16", "--epochs", "1"]
     mark("rev and dyresgen paths")
     phase_proteins_app(dev, app_argv)
@@ -1366,7 +1615,7 @@ def main(argv):
     mark("gat kernels")
     phase_gat_agreement(dev)
     mark("gat agreement")
-    gat_steps = 2 if rehearse else 3
+    gat_steps = 2
     band_info, step = phase_revgat_path(ggat, labels_g, gat_steps, "revgat-band")
     phase_profile(dev, step, tag="revgat-band-profile")
     del step
@@ -1382,6 +1631,28 @@ def main(argv):
     phase_revgat_app(dev, ["--synthetic", "--synthetic_nodes", "1000" if rehearse else "20000",
                            "--epochs", "2" if rehearse else "6", "--compute_dtype", "bfloat16"])
     rows += phase_gat_timing(ggat, errs_g, csc_info["launches"], iters)
+    log(f"[done] sender-score GAT phases in {time.time() - t_all:.1f}s")
+
+    errs_d = phase_dense_kernels(ggat)
+    mark("dense kernels")
+    phase_dense_agreement(dev)
+    mark("dense agreement")
+    dense_info, step = phase_revgat_path(ggat, labels_g, 2 if rehearse else 3, "revgat-dense",
+                                         ["--use_attn_dst"])
+    phase_profile(dev, step, tag="revgat-dense-profile")
+    del step
+    free_memory(dev)
+    pr_info, _ = phase_revgat_path(ggat, labels_g, 1, "revgat-per-receiver",
+                                   ["--gat_stabilizer", "per_receiver"], with_predict=False)
+    free_memory(dev)
+    log(f"[revgat] dense/band (destination scores against the sender-only auto band "
+        f"step): {dense_info['step_ms_median'] / band_info['step_ms_median']:.4f}; "
+        f"per_receiver/auto on the band: "
+        f"{pr_info['step_ms_median'] / band_info['step_ms_median']:.4f} "
+        f"({pr_info['step_ms_median']:.3f} / {band_info['step_ms_median']:.3f} ms; the JAX "
+        f"package measured 1.82 on a TPU v5e, information only)")
+    mark("dense paths")
+    rows += phase_dense_timing(ggat, errs_d, dense_info["launches"], iters)
     log(f"[done] all phases in {time.time() - t_all:.1f}s")
     if rehearse:
         print(json.dumps({"kernels": rows}))
@@ -1407,6 +1678,7 @@ if __name__ == "__main__":
     from deep_gcns_torch_tpu_torch import native
     from deep_gcns_torch_tpu_torch.apps import (ogbn_arxiv, ogbn_arxiv_dgl, ogbn_proteins,
                                                 ogbn_proteins_rev)
+    from deep_gcns_torch_tpu_torch.convs.sparse import GATConv
     from deep_gcns_torch_tpu_torch.data.reorder import cluster_order, permute_graph
     from deep_gcns_torch_tpu_torch.data.synthetic import (powerlaw_community_edges,
                                                           random_node_graph)
@@ -1416,6 +1688,7 @@ if __name__ == "__main__":
                                                   RevGATConfig, RevGCN, RevGCNConfig)
     from deep_gcns_torch_tpu_torch.ops import _build
     from deep_gcns_torch_tpu_torch.ops import band as tband
+    from deep_gcns_torch_tpu_torch.ops import gat_dense as tgd
     from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
     from deep_gcns_torch_tpu_torch.utils.optim import linear_schedule, make_optimizer
 

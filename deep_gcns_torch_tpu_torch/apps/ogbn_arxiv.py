@@ -82,7 +82,7 @@ def _reorder(args, s, r, n, x_np, labels, splits):
 def _maybe_band(args, g: Graph) -> Graph:
     if args.band == "off":
         return g
-    g = attach_band(g)
+    g = attach_band(g, hubs="auto" if getattr(args, "band_hubs", "auto") == "auto" else None)
     print(f"band attached: window={g.band.fwd.window} coverage={g.band.fwd.coverage:.3f} "
           f"(bwd {g.band.bwd.coverage:.3f})", flush=True)
     return g

@@ -3,7 +3,8 @@
 
     python -m deep_gcns_torch_tpu_torch.apps.ogbn_arxiv_dgl --synthetic \\
         [--synthetic_nodes N] [--epochs E] [--device cuda|cpu] \\
-        [--reorder none|rcm|cluster] [--band off|auto] [--compute_dtype bfloat16]
+        [--reorder none|rcm|cluster] [--band off|auto] [--band_hubs auto|off] \\
+        [--use_attn_dst] [--gat_stabilizer auto|per_receiver] [--compute_dtype bfloat16]
 
 Same defaults as the JAX app: RevGAT-5L, 256 hidden x 3 heads, group 2,
 dropout 0.75, input dropout 0.25, edge-drop 0.3, sender-only scores,
@@ -13,11 +14,13 @@ the one-hot labels of a random half of the training nodes, drawn anew every
 epoch (``--mask_rate``); the loss is taken on the other half. `predict` feeds
 its argmax predictions back into the label channel ``--n_label_iters``
 times. With a band attached (``--reorder cluster --band auto``) the GAT
-aggregation takes the band route, otherwise the CSC route (K5/K6).
+aggregation takes the band route, otherwise the CSC route (K5/K6). With a
+band, destination scores (``--use_attn_dst``) and the exact per-receiver
+stabilizer (``--gat_stabilizer per_receiver``) take the dense route (K7–K9);
+``--band_hubs off`` builds the band without hub structures.
 
-This slice has the synthetic SBM task only. The student mode (it needs
-checkpoints), real OGB loading and destination scores with a band (the dense
-GAT route) raise `NotImplementedError`.
+The synthetic SBM task is the only data source; the student mode (it needs
+checkpoints) and real OGB loading raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -57,6 +60,10 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--input_drop", type=float, default=0.25)
     p.add_argument("--edge_drop", type=float, default=0.3)
     p.add_argument("--use_attn_dst", action="store_true")
+    p.add_argument("--gat_stabilizer", type=str, default="auto",
+                   choices=["auto", "per_receiver"],
+                   help="softmax stabilizer of sender-only scores: 'per_receiver' is "
+                        "exact on wide score spreads (the dense route with a band)")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--no_norm_adj", action="store_true", help="disable symmetric norm")
@@ -68,6 +75,8 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--mode", type=str, default="teacher", choices=["teacher", "student"])
     p.add_argument("--reorder", type=str, default="none", choices=["none", "rcm", "cluster"])
     p.add_argument("--band", type=str, default="off", choices=["off", "auto"])
+    p.add_argument("--band_hubs", type=str, default="auto", choices=["auto", "off"],
+                   help="hub extraction for the band; 'off' builds a hub-free band")
     return p.parse_args(argv)
 
 
@@ -78,8 +87,8 @@ def build_model(args, in_feats: int, generator: Optional[torch.Generator] = None
         n_hidden=args.n_hidden, n_layers=args.n_layers, n_heads=args.n_heads,
         group=args.group, dropout=args.dropout, input_drop=args.input_drop,
         edge_drop=args.edge_drop, use_attn_dst=args.use_attn_dst,
-        use_symmetric_norm=not args.no_norm_adj, compute_dtype=args.compute_dtype),
-        generator=generator)
+        use_symmetric_norm=not args.no_norm_adj, compute_dtype=args.compute_dtype,
+        stabilizer=args.gat_stabilizer), generator=generator)
 
 
 def make_features(x_base: torch.Tensor, onehot: Optional[torch.Tensor],
@@ -130,9 +139,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                   "with a later slice")
     if not args.synthetic:
         raise NotImplementedError("OGB dataset loading is not ported yet; pass --synthetic")
-    if args.use_attn_dst and args.band != "off":
-        raise NotImplementedError("--use_attn_dst with --band needs the dense GAT route "
-                                  "(K7–K9), which comes with slice 5")
     dev = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
     n, k = args.synthetic_nodes, args.num_classes

@@ -10,8 +10,11 @@
 * optional residual Linear (no bias); xavier-normal inits with gain √2.
 
 Routes, in the JAX package's order (`convs/dgl_gat.py:195-268`):
-1. the dense route (destination scores, or the ``per_receiver`` stabilizer)
-   on a banded graph: `band_gat_dense_agg`, which raises until slice 5;
+1. the dense route on a band that passes `band_gat_dense_ok`: destination
+   scores with er = ⟨feat, a_r⟩ (the unscaled features: the symmetric norm
+   scales only the sender side), or the ``per_receiver`` stabilizer with
+   er ≡ 0; `band_gat_dense_agg`, K7 forward, K8 and K9 backward, K1 for the
+   leftover, with the exact per-receiver stabilizer;
 2. `band_gat_agg` when a band passes `band_sum_ok`: one band product of the
    packed node table (K3, K1 for the leftover);
 3. `gat_softmax_spmm` when the graph has its CSR and CSC: K5 forward, K6
@@ -19,8 +22,9 @@ Routes, in the JAX package's order (`convs/dgl_gat.py:195-268`):
    arrays are there;
 4. otherwise the per-edge segment softmax with `gather_src_auto` (K1 in the
    backward when the graph has its CSC).
-The ``per_receiver`` stabilizer needs the dense route and raises here rather
-than fall back silently to a global shift.
+Routes 2 and 3 shift by one global maximum per head. Without a band the
+``per_receiver`` stabilizer takes route 4, whose softmax is per receiver
+too, where the JAX package would fall back to a global shift on a TPU.
 """
 
 from __future__ import annotations
@@ -138,21 +142,22 @@ class SymGATConv(nn.Module):
         att_mask = emask if keep_mask is None else emask & (keep_mask > 0)
         cd = self.compute_dtype if self.compute_dtype == torch.bfloat16 else feat_src.dtype
 
-        if self.stabilizer == "per_receiver" and not self.use_attn_dst:
-            # the exact per-receiver shift exists only on the dense route
-            raise NotImplementedError("stabilizer='per_receiver' needs the dense GAT route "
-                                      "(K7–K9), which comes with slice 5")
-        if self.use_attn_dst and band_gat_dense_ok(g):
-            out = safe_div(*band_gat_dense_agg(feat_src, el, g.band, self.neg_slope))
-        elif not self.use_attn_dst and band_sum_ok(g):
+        er = (feat * self.attn_r).sum(-1) if self.use_attn_dst else None
+        # the global-shift routes serve sender-only scores under "auto" only
+        global_shift = not self.use_attn_dst and self.stabilizer == "auto"
+        if (self.use_attn_dst or self.stabilizer == "per_receiver") and band_gat_dense_ok(g):
+            if er is None:
+                er = torch.zeros_like(el)
+            out = safe_div(*band_gat_dense_agg(feat_src, el, er, g.band, self.neg_slope, cd,
+                                               drop))
+        elif global_shift and band_sum_ok(g):
             out = safe_div(*band_gat_agg(feat_src, el, g.band, self.neg_slope, cd, drop))
-        elif (not self.use_attn_dst and g.row_ptr is not None and g.csc_col_ptr is not None
+        elif (global_shift and g.row_ptr is not None and g.csc_col_ptr is not None
                 and g.csc_receivers is not None):
             out = self._csc(feat_src, el, g, att_mask, keep_mask, cd)
         else:
             score = el.index_select(0, torch.clamp(g.senders.long(), max=n - 1))
-            if self.use_attn_dst:
-                er = (feat * self.attn_r).sum(-1)
+            if er is not None:
                 score = score + er.index_select(0, torch.clamp(g.receivers.long(), max=n - 1))
             score = torch.nn.functional.leaky_relu(score, self.neg_slope)
             alpha = segment_softmax(score, g.receivers, n, mask=att_mask)

@@ -1,4 +1,5 @@
-"""GENConv and MsgNorm (counterpart of `deep_gcns_torch_tpu/convs/sparse.py:55-247`).
+"""GENConv, MsgNorm and the PyG-1.x GATConv (counterpart of
+`deep_gcns_torch_tpu/convs/sparse.py:55-247, 342-468`).
 
 Routing of the aggregation, in the JAX package's order
 (`convs/sparse.py:167-236`):
@@ -15,6 +16,11 @@ Routing of the aggregation, in the JAX package's order
   edge embeddings that lack their sender-ordered copy, gathers the messages
   relu(x_j [+ e]) + ε and runs the plain `generalized_aggregate`.
 
+GATConv scores s_ij = leaky_relu(a_l·x_i + a_r·x_j) per head, a
+destination score, so on a band that passes `band_gat_dense_ok` it takes the
+dense route (`band_gat_dense_agg`: K7 forward, K8 and K9 backward), and
+otherwise the per-edge segment softmax with a combined per-receiver maximum.
+
 On a CPU tensor every kernel runs its plain version. The bond encoder
 (ogbg-mol) and the band max/min route (`band_extreme`) belong to later
 slices; the bond encoder raises `NotImplementedError`.
@@ -28,9 +34,11 @@ import torch
 from torch import nn
 
 from ..graph import Graph
-from ..nn.core import MLP, Linear
-from ..ops.band import BAND_SOFTMAX_AGGRS, band_ok, band_softmax_agg_auto, band_sum_auto
-from ..ops.segment import generalized_aggregate, segment_degree
+from ..nn.core import MLP, Linear, make_norm
+from ..ops.band import (BAND_SOFTMAX_AGGRS, band_gat_dense_agg, band_gat_dense_ok, band_ok,
+                        band_softmax_agg_auto, band_sum_auto)
+from ..ops.gather import gather_src_auto
+from ..ops.segment import generalized_aggregate, segment_degree, segment_sum
 from ..ops.spmm_cuda import fused_softmax_gather_agg_auto
 
 SOFTMAX_AGGRS = ("softmax", "softmax_sg", "softmax_sum")
@@ -179,3 +187,110 @@ class GENConv(nn.Module):
             m = self.msg_norm(x, m)
         return self.mlp(x + m, g.node_mask,
                         cd if cd == torch.bfloat16 else None)
+
+
+class _PygGAT(nn.Module):
+    """The parameters of PyG 1.x's `GATConv` under its names: weight [in,
+    H·D], att [1, H, 2D] (a_l for the receiver, a_r for the sender), bias
+    [H·D]; glorot-uniform weight and att, zero bias."""
+
+    def __init__(self, in_dim: int, out_dim: int, heads: int, bias: bool,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        hd = heads * out_dim
+        self.weight = nn.Parameter(torch.empty(in_dim, hd))
+        self.att = nn.Parameter(torch.empty(1, heads, 2 * out_dim))
+        self.bias = nn.Parameter(torch.zeros(hd)) if bias else None
+        with torch.no_grad():
+            for t, bound in ((self.weight, (6.0 / (in_dim + hd)) ** 0.5),
+                             (self.att, (6.0 / (2 * out_dim + 1)) ** 0.5)):
+                t.uniform_(-bound, bound, generator=generator)
+
+
+_ACTS = {"relu": nn.ReLU, "leakyrelu": lambda: nn.LeakyReLU(0.2)}
+
+
+class GATConv(nn.Module):
+    """PyG-1.x GAT conv with activation and norm (reference
+    `torch_vertex.py:117-133`): heads concatenated, then act, then norm.
+    State-dict names are the reference's: `gconv.weight`, `gconv.att`,
+    `gconv.bias`, and the norm at `unlinear.<i>`.
+
+    ``self_loops`` True (PyG's default) softmaxes over the neighbours and
+    exactly one self term, explicit self edges excluded; False over the edge
+    list as it is (the reversible `GATBlock`), where a receiver with no edge
+    gets 0. ``act`` "relu", "leakyrelu" or None; "prelu" raises until the
+    conv zoo is ported, as the port's prelu MLPs do."""
+
+    def __init__(self, in_dim: int, out_dim: int, heads: int = 8, act: Optional[str] = "relu",
+                 norm: Optional[str] = None, bias: bool = True, neg_slope: float = 0.2,
+                 self_loops: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.heads, self.out_dim = heads, out_dim
+        self.neg_slope, self.self_loops = neg_slope, self_loops
+        self.gconv = _PygGAT(in_dim, out_dim, heads, bias, generator)
+        act = None if act is None or str(act).lower() == "none" else str(act).lower()
+        if act is not None and act not in _ACTS:
+            raise NotImplementedError(f"GATConv act {act!r} comes with the conv zoo (the port "
+                                      "has relu and leakyrelu)")
+        layers = [] if act is None else [_ACTS[act]()]
+        nrm = make_norm(norm, heads * out_dim)
+        if nrm is not None:
+            layers.append(nrm)
+        self.unlinear = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        n = x.shape[0]
+        h, d = self.heads, self.out_dim
+        ns = self.neg_slope
+        xt = (x @ self.gconv.weight).reshape(n, h, d)
+        att = self.gconv.att[0]
+        s_dst = (xt * att[:, :d]).sum(-1)   # the receiver's half
+        s_src = (xt * att[:, d:]).sum(-1)   # the sender's half
+        self_score = torch.nn.functional.leaky_relu(s_dst + s_src, ns)
+        if band_gat_dense_ok(g):
+            if self.self_loops:
+                c_self = segment_degree(g.receivers, n, g.edge_mask & (g.senders == g.receivers))
+                num, den = band_gat_dense_agg(xt, s_src, s_dst, g.band, ns,
+                                              self_score=self_score, self_feat=xt,
+                                              self_count=c_self)
+            else:
+                num, den = band_gat_dense_agg(xt, s_src, s_dst, g.band, ns)
+            out = (num / torch.clamp_min(den, 1e-16)[..., None]).to(x.dtype)
+        else:
+            out = self._segment(xt, s_src, s_dst, self_score, g)
+        out = out.reshape(n, h * d)
+        if self.gconv.bias is not None:
+            out = out + self.gconv.bias
+        for layer in self.unlinear:
+            out = layer(out) if isinstance(layer, (nn.ReLU, nn.LeakyReLU)) else \
+                layer(out, g.node_mask)
+        return out
+
+    def _segment(self, xt, s_src, s_dst, self_score, g: Graph):
+        """The per-edge route: softmax over the neighbours (and the self term)
+        with their combined maximum as the stabilizer, no gradient through
+        it (`convs/sparse.py:432-455`)."""
+        n, h, d = xt.shape
+        emask = g.edge_mask & (g.senders != g.receivers) if self.self_loops else g.edge_mask
+        recv = torch.clamp(g.receivers.long(), max=n - 1)
+        send = torch.clamp(g.senders.long(), max=n - 1)
+        e_score = torch.nn.functional.leaky_relu(s_dst[recv] + s_src[send], self.neg_slope)
+        neg_inf = float("-inf")
+        mx = torch.full((n, h), neg_inf, device=xt.device).scatter_reduce(
+            0, recv[:, None].expand(-1, h), torch.where(emask[:, None], e_score, neg_inf),
+            "amax")
+        if self.self_loops:
+            mx = torch.maximum(mx, self_score)
+        mx = torch.where(torch.isfinite(mx), mx, 0.0).detach()
+        e_exp = torch.where(emask[:, None], torch.exp(e_score - mx[recv]), 0.0)
+        denom = segment_sum(e_exp, g.receivers, n)
+        if self.self_loops:
+            self_exp = torch.exp(self_score - mx)
+            denom = denom + self_exp
+        alpha = e_exp / torch.clamp_min(denom[recv], 1e-16)
+        msg = gather_src_auto(xt.reshape(n, h * d), g).reshape(-1, h, d) * alpha[..., None]
+        out = segment_sum(torch.where(emask[:, None, None], msg, 0.0), g.receivers, n)
+        if self.self_loops:
+            out = out + xt * (self_exp / torch.clamp_min(denom, 1e-16))[..., None]
+        return out

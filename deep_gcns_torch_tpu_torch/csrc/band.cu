@@ -38,16 +38,6 @@ namespace dgc {
 constexpr int kBandRows = 128;   // receiver rows per block of A (BN)
 constexpr int kChunkCols = 512;  // A columns per compaction pass: 32 lanes x 16 bytes
 
-__device__ __forceinline__ bool hash_keep(uint32_t recv, uint32_t send, uint32_t k0,
-                                          uint32_t k1, int thresh) {
-  uint32_t h = recv * 0x9E3779B9u + k0;
-  h ^= send * 0x85EBCA6Bu + k1;
-  h ^= h >> 16;
-  h *= 668265295u;  // 0x27D4EB4F, the JAX code's decimal constant
-  h ^= h >> 15;
-  return static_cast<int>(h & 0x7FFFFFFFu) >= thresh;
-}
-
 // Byte k (0..15) of a 16-byte word held as four uint32, by selects rather
 // than a dynamic register index (which would spill the word to local memory).
 __device__ __forceinline__ uint32_t byte_at(const uint32_t* w4, int k) {

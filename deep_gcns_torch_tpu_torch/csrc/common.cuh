@@ -1,5 +1,6 @@
 // Shared helpers for the port's kernels: 4-wide and scalar loads/stores of
-// float32 and bfloat16 rows, with every value widened to float32.
+// float32 and bfloat16 rows, with every value widened to float32, and the
+// hash edge-drop.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,6 +71,18 @@ inline int blocks_for_rows(int n_rows) {
 __device__ __forceinline__ float gat_weight(float el, float cmax, float neg_slope) {
   const float s = el >= 0.f ? el : __fmul_rn(neg_slope, el);
   return expf(__fsub_rn(s, cmax));
+}
+
+// The hash edge-drop's keep decision for the edge (recv, send): the uint32
+// mixer of `_hash_keep` (deep_gcns_torch_tpu/ops/band.py:158-165), bit for bit.
+__device__ __forceinline__ bool hash_keep(uint32_t recv, uint32_t send, uint32_t k0,
+                                          uint32_t k1, int thresh) {
+  uint32_t h = recv * 0x9E3779B9u + k0;
+  h ^= send * 0x85EBCA6Bu + k1;
+  h ^= h >> 16;
+  h *= 668265295u;  // 0x27D4EB4F, the JAX code's decimal constant
+  h ^= h >> 15;
+  return static_cast<int>(h & 0x7FFFFFFFu) >= thresh;
 }
 
 // Edges a warp keeps in flight per step when each lane holds NCH groups of

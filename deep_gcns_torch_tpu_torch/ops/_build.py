@@ -28,7 +28,8 @@ from typing import Dict, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("seg_sum", "softmax_agg", "band", "softmax_bwd_csc", "gat_fwd", "gat_bwd_csc")
+SOURCES = ("seg_sum", "softmax_agg", "band", "softmax_bwd_csc", "gat_fwd", "gat_bwd_csc",
+           "win_fused", "win_der", "win_dsend")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -47,6 +48,12 @@ _SIGNATURES = {
                 for name in ("dgc_gat_fwd_f32", "dgc_gat_fwd_bf16")},
     "gat_bwd_csc": {name: [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P]
                     for name in ("dgc_gat_bwd_csc_f32", "dgc_gat_bwd_csc_bf16")},
+    # K7-K9: the band's 4 pointers, the [N, H] and [N, H*D] tables and the
+    # outputs, then n_rows, W, n_hub, H, D, the slope, the drop key and
+    # threshold, vec, nch and the stream
+    **{src: {f"dgc_{src}_{t}": [_P] * n_ptr + [_I] * 5 + [_F, _U, _U, _I, _I, _I, _P]
+             for t in ("f32", "bf16")}
+       for src, n_ptr in (("win_fused", 11), ("win_der", 11), ("win_dsend", 12))},
 }
 
 _lock = threading.Lock()

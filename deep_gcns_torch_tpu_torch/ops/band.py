@@ -23,9 +23,10 @@ On the TPU the route exists because XLA's row gather is issue-rate bound
 (`ops/band.py:3-22` of the JAX package). Whether it pays on the H100 is
 measured by `chip_smoke.py`; the gate thresholds tuned on the TPU stay as
 they are, so that the port's arrays and routes match the JAX package's.
-`band_gat_agg` serves the sender-only-score GAT through `band_sum_auto`.
-Left for later: `band_extreme` (max/min) and the dense destination-score GAT
-(`band_gat_dense_agg`, K7–K9), which raises until then.
+`band_gat_agg` serves the sender-only-score GAT through `band_sum_auto`, and
+`band_gat_dense_agg` the destination-score GAT (and the per-receiver
+stabilizer) through `ops/gat_dense.py` (K7–K9 over the window band and its
+hub columns). Left for later: `band_extreme` (max/min).
 """
 
 from __future__ import annotations
@@ -65,8 +66,9 @@ class Band:
                              sentinel-padded (N_pad) to a CHUNK multiple
       hub_ids [H], a_hub [N_pad, H]        hub-column senders and counts
       hub_row_ids [R], a_row [R, N_pad]    hub-row receivers and full rows
-      a_t [NB*W, BN], a_hub_t [H, N_pad]   transposed copies (dense GAT, slice 4),
-                                           kept on the host
+      a_t [NB*W, BN], a_hub_t [H, N_pad]   the JAX package's transposed tiles of
+                                           its dense GAT kernels, kept on the host:
+                                           K7–K9 read ``a`` and ``a_hub`` row-major
 
     Hub fields are None when no node crosses the degree threshold."""
 
@@ -115,9 +117,9 @@ class Band:
         return sum(v.numel() * v.element_size() for v in self.tensors().values())
 
 
-# the transposed count tiles of the dense GAT route (slice 4): built for
-# parity with the JAX package's arrays and kept on the host, since no device
-# code reads them yet
+# the transposed count tiles of the JAX package's dense GAT kernels: built
+# for parity with its arrays and kept on the host, since the port's kernels
+# (K7–K9) read the row-major counts
 _HOST_ONLY = ("a_t", "a_hub_t")
 _HUB_COUNTS = ("a_hub", "a_row")
 # on the card the hub counts are held in bf16, the dtype of the main path's
@@ -681,10 +683,32 @@ def band_gat_agg(feat_src: torch.Tensor, el: torch.Tensor, bands: BandPair,
     return (agg[:, :h * d].float().reshape(n, h, d), agg[:, h * d:h * d + h].float())
 
 
-def band_gat_dense_agg(*args, **kwargs):
-    """The dense destination-score GAT (`ops/gat_dense.py`, K7–K9) is not
-    ported yet."""
-    raise NotImplementedError("the dense dst-score GAT, K7–K9, comes with slice 5")
+def band_gat_dense_agg(feat_src: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
+                       bands: BandPair, neg_slope: float = 0.2,
+                       compute_dtype: Optional[torch.dtype] = None,
+                       drop: Optional[DropSpec] = None,
+                       self_score: Optional[torch.Tensor] = None,
+                       self_feat: Optional[torch.Tensor] = None,
+                       self_count: Optional[torch.Tensor] = None):
+    """Gather-free GAT aggregation for destination scores
+    (`band_gat_dense_agg`, `ops/band.py:780-811` of the JAX package):
+    score_e = leaky_relu(el[send_e] + er[recv_e]) per head is not additively
+    separable, so it is evaluated densely over every band structure with an
+    exact shared per-receiver stabilizer (`ops/gat_dense.py`: K7 forward, K8
+    and K9 backward, K1 for the leftover).
+
+    Returns (num [N, H, D], den [N, H]) in float32; the caller divides.
+    PyG-1.x self-loop semantics (`convs/sparse.GATConv`): pass
+    ``self_score`` [N, H], ``self_feat`` [N, H, D] and ``self_count`` [N]
+    (explicit self edges per node), so that the softmax runs over the
+    neighbours and exactly one self term; not with ``drop``."""
+    if self_score is not None and drop is not None:
+        raise ValueError("the self-loop flavour and edge-drop are not composed (PyG's "
+                         "GATConv has no edge-drop)")
+    from .gat_dense import gat_dense_agg
+
+    return gat_dense_agg(feat_src, el, er, self_score, self_feat, self_count, bands, drop,
+                         neg_slope, compute_dtype)
 
 
 # ---------------------------------------------------------------------------

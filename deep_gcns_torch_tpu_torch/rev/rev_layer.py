@@ -4,8 +4,8 @@
 conv. The shared dropout mask is an explicit chunk argument, so the forward
 and the inverse see the same mask by construction.
 
-`GENBlock` is ported. `GCNBlock`, `SAGEBlock` and `GATBlock` need the
-SemiGCN, SAGE and GAT convs of later slices and raise until then.
+`GENBlock` and `GATBlock` are ported. `GCNBlock` and `SAGEBlock` need the
+SemiGCN and SAGE convs of the conv-zoo slice and raise until then.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from ..convs.sparse import GENConv
+from ..convs.sparse import GATConv, GENConv
 from ..graph import Graph
 from ..nn.core import make_norm
 
@@ -63,7 +63,23 @@ class SAGEBlock(nn.Module):
 
 
 class GATBlock(nn.Module):
-    """Not ported yet: needs the GATConv of a later slice."""
+    """norm → relu → shared dropout → PyG GATConv without self loops (the
+    reference's `add_self_loops=False`), heads averaged (`rev_layer.py:135-168`
+    of the JAX package). The chunk arguments are (dropout mask, ...); edge
+    features are not read."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("GATBlock needs the GATConv of a later slice")
+    def __init__(self, in_dim: int, out_dim: int, heads: int = 1, norm: str = "layer",
+                 generator=None):
+        super().__init__()
+        self.heads, self.out_dim = heads, out_dim
+        self.norm = make_norm(norm, in_dim)
+        self.gcn = GATConv(in_dim, out_dim, heads=heads, act=None, norm=None, self_loops=False,
+                           generator=generator)
+
+    def forward(self, x: torch.Tensor, g: Graph, chunk_args: Tuple = ()) -> torch.Tensor:
+        mask = (tuple(chunk_args) + (None,))[0]
+        h = torch.relu(self.norm(x, g.node_mask))
+        if self.training and mask is not None:
+            h = h * mask
+        out = self.gcn(h, g)
+        return out.reshape(out.shape[0], self.heads, self.out_dim).mean(1)

@@ -1,6 +1,6 @@
-"""Carry weights from the JAX package's DeeperGCN, RevGCN and RevGAT into the
-port's `state_dict` (the inverse direction of
-`deep_gcns_torch_tpu/utils/import_torch.py`).
+"""Carry weights from the JAX package's DeeperGCN, RevGCN (GEN or GAT group
+functions), RevGAT and PyG GATConv into the port's `state_dict` (the inverse
+direction of `deep_gcns_torch_tpu/utils/import_torch.py`).
 
 The JAX model keeps per-layer parameters stacked on a leading L axis for
 `lax.scan`, `Linear.w` as [in, out], and norms as `scale`/`bias` params plus
@@ -108,7 +108,8 @@ def rev_gcn_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
     (numpy arrays). The JAX layers are stacked [L, G, ...] (one `lax.scan`
     over L couplings of G group functions); here they unstack into
     `gcns.{l}.Fms.{g}.norm.*` and `gcns.{l}.Fms.{g}.gcn.*`, the reference
-    coupling's names without the `_fn` of its wrapper."""
+    coupling's names without the `_fn` of its wrapper; ``conv`` "gen" or
+    "gat"."""
     out: Dict[str, torch.Tensor] = {}
     norm = str(cfg.norm).lower()
     if "one_hot_encoder" in params:
@@ -124,8 +125,22 @@ def rev_gcn_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
         for g in range(cfg.group):
             pre = f"gcns.{l}.Fms.{g}"
             _norm(out, f"{pre}.norm", layers["norm"], {}, norm, (l, g))
-            _genconv(out, f"{pre}.gcn", layers["gcn"], {}, cfg, norm, (l, g))
+            if cfg.conv == "gat":
+                gat_conv_entries(out, f"{pre}.gcn", layers["gcn"], (l, g))
+            else:
+                _genconv(out, f"{pre}.gcn", layers["gcn"], {}, cfg, norm, (l, g))
     return out
+
+
+def gat_conv_entries(out: Dict[str, torch.Tensor], prefix: str, p: dict, idx=()):
+    """One PyG GATConv (`convs.sparse.GATConv`) under ``prefix``: JAX's w
+    [in, H·D] is PyG's `gconv.weight` as it is, att [H, 2D] → [1, H, 2D],
+    b → `gconv.bias`; ``idx`` picks from the leading stacked axes. A norm
+    (`unlinear.*`) is the caller's."""
+    out[prefix + ".gconv.weight"] = _t(np.asarray(p["w"])[idx])
+    out[prefix + ".gconv.att"] = _t(np.asarray(p["att"])[idx][None])
+    if "b" in p:
+        out[prefix + ".gconv.bias"] = _t(np.asarray(p["b"])[idx])
 
 
 def _gat(out: Dict[str, torch.Tensor], prefix: str, p: dict, idx=()):

@@ -62,8 +62,29 @@ def test_revgat_app_trains_on_cpu(capsys, monkeypatch, band):
     assert len(calls) == 2 * (4 + 2) + 2 * 2 * 4
 
 
-@pytest.mark.parametrize("argv", [["--synthetic", "--mode", "student"], [],
-                                  ["--synthetic", "--use_attn_dst", "--band", "auto"]])
+@pytest.mark.parametrize("extra", [["--use_attn_dst"],
+                                   ["--gat_stabilizer", "per_receiver", "--band_hubs", "off"]])
+def test_revgat_app_dense_route_on_cpu(capsys, monkeypatch, extra):
+    """--use_attn_dst (and --gat_stabilizer per_receiver) with
+    --reorder cluster --band auto: every conv takes the dense route (K7–K9's
+    plain versions), with and without the band's hub structures."""
+    import deep_gcns_torch_tpu_torch.convs.dgl_gat as tconv
+
+    calls = []
+    real = tconv.band_gat_dense_agg
+    monkeypatch.setattr(tconv, "band_gat_dense_agg",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    res = ogbn_arxiv_dgl.main(["--synthetic", "--synthetic_nodes", "384", "--epochs", "2",
+                               "--device", "cpu", "--n_layers", "3", "--n_hidden", "8",
+                               "--n_heads", "2", "--reorder", "cluster", "--band", "auto",
+                               "--compute_dtype", "bfloat16"] + extra)
+    out = capsys.readouterr().out
+    assert math.isfinite(res["loss"]) and 0.0 <= res["best_valid"] <= 1.0
+    assert "band attached: window=" in out and "epoch 1 loss" in out
+    assert len(calls) == 2 * (4 + 2) + 2 * 2 * 4
+
+
+@pytest.mark.parametrize("argv", [["--synthetic", "--mode", "student"], []])
 def test_revgat_app_raises_for_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError):
         ogbn_arxiv_dgl.main(argv + ["--device", "cpu", "--epochs", "1"])

@@ -467,3 +467,157 @@ def test_small_rev_gat_card_matches_cpu(cuda_device, band):
     g_max = max(float(v.abs().max()) for v in outs[1][1].values())
     for k, want in outs[1][1].items():
         _assert_close(outs[0][1][k], want, 1e-3, 1e-4, ref_max=g_max)
+
+
+# K7–K9 (the dense destination-score GAT): M is a maximum, equal bit for
+# bit; num, den, d_er, d_el and d_feat are float32 sums of terms that the
+# kernel and the plain version compute alike (the same expf, the weights
+# rounded to the compute type alike), so they differ in the order of the sums,
+# and d_er and d_el also in the order of each per-head dot product.
+TOL_DENSE = dict(rtol=1e-5, atol_rel=1e-5)
+TOL_DENSE_T = dict(rtol=1e-4, atol_rel=1e-5)
+# the Function in bf16: the leftover's K1 sums round to bf16, so one ulp of a
+# partial sum passes into the result, as on the band route
+TOL_DENSE_FN = {torch.float32: dict(rtol=1e-4, atol_rel=1e-5),
+                torch.bfloat16: dict(rtol=2.0 ** -5, atol_rel=1e-4)}
+
+
+def _dense_graph(dev, hubs=64, seed=0, n=3000, deg=8):
+    """A locality-banded power-law graph with its band (window 512, hub
+    columns and rows of degree ≥ ``hubs`` when given, a leftover)."""
+    rng = np.random.default_rng(seed)
+    w = (1.0 / (1.0 + np.arange(n, dtype=np.float64))) ** 0.8
+    rng.shuffle(w)
+    s = rng.choice(n, n * deg, p=w / w.sum())
+    r = np.clip(s + rng.integers(-300, 301, n * deg), 0, n - 1)
+    g = build_graph(rng.standard_normal((n, 24)).astype(np.float32), s, r, num_nodes=n)
+    return attach_band(g, window=512, hubs=hubs).to(dev)
+
+
+def _dense_drop(drop):
+    return tband.DropSpec(k0=-99, k1=31337, thresh=tband.drop_thresh(0.3)) if drop else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("h,d", [(3, 256), (3, 128), (1, 40), (2, 41)])
+@pytest.mark.parametrize("hubs", [64, None])
+def test_dense_gat_kernels_match_plain(cuda_device, dtype, drop, h, d, hubs):
+    """K7, K8 and K9 against their plain versions at RevGAT's head shapes
+    and at D=41 (scalar loads), with and without the hash edge-drop, on a
+    band with in-kernel hub columns and on a hub-free one; m_other lifts
+    every fifth receiver's stabilizer."""
+    from deep_gcns_torch_tpu_torch.ops import gat_dense as tgd
+
+    g = _dense_graph(cuda_device, hubs)
+    band, bwd = g.band.fwd, g.band.bwd
+    assert (band.hub_ids is not None) == (hubs is not None)
+    spec = _dense_drop(drop)
+    n = g.num_nodes_padded
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    feat = torch.randn(n, h * d, device=cuda_device, generator=gen).to(dtype)
+    el = torch.randn(n, h, device=cuda_device, generator=gen) * 2
+    er = torch.randn(n, h, device=cuda_device, generator=gen) * 2
+    m_other = torch.full((n, h), tgd.NEG, device=cuda_device)
+    m_other[::5] = 3.0
+    launches = [k.launches for k in (tgd.win_fused, tgd.win_der, tgd.win_dsend)]
+    num, den, m = tgd.win_fused(band, el, er, m_other, feat, 0.2, spec)
+    num_p, den_p, m_p = tgd.win_fused_plain(band, el, er, m_other, feat, 0.2, spec)
+    assert torch.equal(m, m_p)
+    _assert_close(num, num_p, **TOL_DENSE)
+    _assert_close(den, den_p, **TOL_DENSE)
+    gnum = torch.randn(n, h * d, device=cuda_device, generator=gen).to(dtype)
+    gden = torch.randn(n, h, device=cuda_device, generator=gen)
+    args = (el, er, m_p, feat, gnum, gden, 0.2, spec)
+    _assert_close(tgd.win_der(band, *args), tgd.win_der_plain(band, *args), **TOL_DENSE_T)
+    d_el, d_feat = tgd.win_dsend(bwd, *args)
+    d_el_p, d_feat_p = tgd.win_dsend_plain(bwd, *args)
+    _assert_close(d_el, d_el_p, **TOL_DENSE_T)
+    _assert_close(d_feat, d_feat_p, **TOL_DENSE)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (tgd.win_fused, tgd.win_der, tgd.win_dsend)] == [
+        v + 1 for v in launches]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("drop", [False, True])
+def test_dense_gat_function_matches_plain(cuda_device, dtype, drop):
+    """`gat_dense_agg` on K7–K9 and K1 against the same Function on the
+    plain versions: num, den and the gradients of feat, el and er."""
+    from deep_gcns_torch_tpu_torch.ops import gat_dense as tgd
+
+    g = _dense_graph(cuda_device)
+    n, h, d = g.num_nodes_padded, 3, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    feat = torch.randn(n, h, d, device=cuda_device, generator=gen)
+    el = torch.randn(n, h, device=cuda_device, generator=gen)
+    er = torch.randn(n, h, device=cuda_device, generator=gen)
+    co_n = torch.randn(n, h, d, device=cuda_device, generator=gen)
+    co_d = torch.randn(n, h, device=cuda_device, generator=gen)
+    res = []
+    for fn in (tgd.gat_dense_agg, tgd.gat_dense_agg_plain):
+        f, l, r = (t.clone().requires_grad_(True) for t in (feat, el, er))
+        num, den = fn(f, l, r, None, None, None, g.band, _dense_drop(drop), 0.2, dtype)
+        ((num * co_n).sum() + (den * co_d).sum()).backward()
+        res.append((num.detach(), den.detach(), f.grad, l.grad, r.grad))
+    for name, a, b in zip(("num", "den", "d_feat", "d_el", "d_er"), *res):
+        _assert_close(a, b, **TOL_DENSE_FN[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [dict(use_attn_dst=True), dict(stabilizer="per_receiver")])
+def test_small_rev_gat_dense_card_matches_cpu(cuda_device, variant):
+    """A 4-layer RevGAT on the band's dense route (destination scores, or the
+    per-receiver stabilizer) through K7–K9 and K1 on the card against the
+    same weights through the plain versions on the CPU, float32."""
+    from deep_gcns_torch_tpu_torch.models import RevGAT, RevGATConfig
+
+    g = _dense_graph(torch.device("cpu"), seed=6)
+    co = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (g.num_nodes_padded, 6)).astype(np.float32))
+    cfg = RevGATConfig(in_feats=24, n_classes=6, n_hidden=16, n_layers=4, n_heads=2, group=2,
+                       dropout=0.0, input_drop=0.0, edge_drop=0.3, **variant)
+    keys = ((5, -6), [(7, 8), (-9, 10)], (11, 12))
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = RevGAT(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+        model.train()
+        gd = g.to(dev)
+        logits = model(gd.x, gd, drop_keys=keys)
+        (logits * co.to(dev)).sum().backward()
+        outs.append((logits.detach().cpu(),
+                     {k: p.grad.detach().cpu() for k, p in model.named_parameters()}))
+    _assert_close(outs[0][0], outs[1][0], 1e-4, 1e-4)
+    g_max = max(float(v.abs().max()) for v in outs[1][1].values())
+    for k, want in outs[1][1].items():
+        _assert_close(outs[0][1][k], want, 1e-3, 1e-4, ref_max=g_max)
+
+
+@pytest.mark.cuda
+def test_pyg_gatconv_dense_card_matches_cpu(cuda_device):
+    """PyG's GATConv with explicit self edges on the dense route (the
+    analytic self term) on the card against the CPU, float32."""
+    from deep_gcns_torch_tpu_torch.convs.sparse import GATConv
+
+    rng = np.random.default_rng(8)
+    n = 3000
+    s = rng.integers(0, n, n * 6)
+    r = np.clip(s + rng.integers(-200, 201, n * 6), 0, n - 1)
+    ids = rng.choice(n, n // 3, replace=False)
+    s, r = np.concatenate([s, ids]), np.concatenate([r, ids])
+    g = attach_band(build_graph(rng.standard_normal((n, 24)).astype(np.float32), s, r,
+                                num_nodes=n), window=512)
+    co = torch.from_numpy(rng.standard_normal((g.num_nodes_padded, 32)).astype(np.float32))
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        conv = GATConv(24, 8, heads=4, generator=torch.Generator().manual_seed(0)).to(dev)
+        gd = g.to(dev)
+        x = gd.x.clone().requires_grad_(True)
+        out = conv(x, gd)
+        (out * co.to(dev)).sum().backward()
+        outs.append([out.detach().cpu(), x.grad.cpu()]
+                    + [p.grad.cpu() for p in conv.parameters()])
+    for a, b in zip(*outs):
+        _assert_close(a, b, 1e-4, 1e-4)

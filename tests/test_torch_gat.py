@@ -31,6 +31,7 @@ import deep_gcns_torch_tpu_torch.ops.band as tband
 from deep_gcns_torch_tpu_torch.convs.dgl_gat import DEN_TINY, SymGATConv, safe_div
 from deep_gcns_torch_tpu_torch.graph import attach_band, build_graph
 from deep_gcns_torch_tpu_torch.ops import gather as tgather
+from deep_gcns_torch_tpu_torch.ops import segment as tseg
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
 
 FUSED_GRAD = dict(rtol=5e-4, atol=1e-5)
@@ -190,13 +191,27 @@ def test_band_gat_agg_matches_jax(band_mode, drop):
 
 
 def test_band_gat_dense_route_raises(band_mode):
+    """The dense route's gate as JAX's; the route itself (forward against
+    JAX's XLA emulation) raises only for the self flavour with edge-drop,
+    which neither package composes."""
     rng = np.random.default_rng(4)
     _, gt, gj = _band_graphs(rng, hubby=False)
     assert tband.band_gat_dense_ok(gt) == jband.band_gat_dense_ok(gj) is True
     assert tband.band_gat_dense_ok(gt, 1.01) == jband.band_gat_dense_ok(gj, 1.01) is False
     assert not tband.band_gat_dense_ok(gt.replace(band=None))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tband.band_gat_dense_agg(None, None, None, gt.band)
+    n_pad, h, d = gt.num_nodes_padded, 2, 4
+    feat = rng.standard_normal((n_pad, h, d)).astype(np.float32)
+    el, er = (rng.standard_normal((n_pad, h)).astype(np.float32) for _ in range(2))
+    num, den = tband.band_gat_dense_agg(_t(feat), _t(el), _t(er), gt.band)
+    num_w, den_w = jband.band_gat_dense_agg(jnp.asarray(feat), jnp.asarray(el), jnp.asarray(er),
+                                            gj.band, interpret="xla")
+    np.testing.assert_allclose(num.numpy(), np.asarray(num_w), **BAND_FWD)
+    np.testing.assert_allclose(den.numpy(), np.asarray(den_w), **BAND_FWD)
+    drop = tband.DropSpec(k0=1, k1=2, thresh=tband.drop_thresh(0.3))
+    with pytest.raises(ValueError, match="edge-drop"):
+        tband.band_gat_dense_agg(_t(feat), _t(el), _t(er), gt.band, drop=drop,
+                                 self_score=_t(el), self_feat=_t(feat),
+                                 self_count=torch.zeros(n_pad))
 
 
 def _gather_graphs(rng, n=200, e=1500):
@@ -291,13 +306,22 @@ def _conv_params(conv_j, key, port: SymGATConv):
     ("band", dict(use_symmetric_norm=True, residual=True, drop=True)),
     ("segment", dict(use_symmetric_norm=True, residual=True, drop=True)),
     ("segment", dict(use_attn_dst=True, residual=True)),
+    ("band", dict(use_attn_dst=True)),
+    ("band", dict(use_attn_dst=True, use_symmetric_norm=True, residual=True, drop=True)),
+    ("band", dict(stabilizer="per_receiver", use_symmetric_norm=True, residual=True,
+                  drop=True)),
+    ("csc", dict(stabilizer="per_receiver", drop=True)),
 ])
 def test_symgat_conv_matches_jax(band_mode, route, kw):
     """SymGATConv's output and every gradient (weights and input) against
     the JAX conv on the same graph: the port's CSC route (K5/K6's plain
     versions) against JAX's CPU route, the segment softmax; the band routes
-    against each other; the segment routes against each other (the port's
-    graph without CSC). Edge-drop from an explicit hash key."""
+    against each other (destination scores and the per-receiver stabilizer
+    on the dense route, K7–K9's plain versions, against JAX's XLA
+    emulation); the segment routes against each other (the port's graph
+    without CSC, and the per-receiver stabilizer without a band, which both
+    packages run as the segment softmax on the CPU). Edge-drop from an
+    explicit hash key."""
     kw = dict(kw)
     drop = kw.pop("drop", False)
     rng = np.random.default_rng(7)
@@ -342,30 +366,37 @@ def test_symgat_conv_matches_jax(band_mode, route, kw):
 
 
 def test_symgat_routes_launch_their_kernels_plain_on_cpu(monkeypatch):
-    """The conv picks its route by the graph alone: the band when one is
-    attached, K5/K6 with CSR and CSC, the segment softmax otherwise; the
-    dense route and the per-receiver stabilizer raise."""
+    """The conv picks its route by the graph and its scores alone: sender-only
+    scores take the band when one is attached, K5/K6 with CSR and CSC, the
+    segment softmax otherwise; destination scores and the per-receiver
+    stabilizer take the dense route on a band and the segment softmax
+    without one (never a global shift)."""
     import deep_gcns_torch_tpu_torch.convs.dgl_gat as tconv
 
     rng = np.random.default_rng(8)
     x, gt, _ = _band_graphs(rng, n=256)
     calls = []
-    for name in ("band_gat_agg", "gat_softmax_spmm", "gather_src_auto"):
+    for name in ("band_gat_dense_agg", "band_gat_agg", "gat_softmax_spmm", "gather_src_auto"):
         real = getattr(tconv, name)
         monkeypatch.setattr(tconv, name,
                             lambda *a, _n=name, _r=real, **k: calls.append(_n) or _r(*a, **k))
-    conv = SymGATConv(32, 4, num_heads=2, use_attn_dst=False)
     xt = torch.zeros(gt.num_nodes_padded, 32)
-    for g in (gt, gt.replace(band=None), gt.replace(band=None, csc_col_ptr=None)):
-        conv(xt, g)
-    assert calls == ["band_gat_agg", "gat_softmax_spmm", "gather_src_auto"]
+    graphs = (gt, gt.replace(band=None), gt.replace(band=None, csc_col_ptr=None))
+    for kw, want in ((dict(use_attn_dst=False),
+                      ["band_gat_agg", "gat_softmax_spmm", "gather_src_auto"]),
+                     (dict(use_attn_dst=True),
+                      ["band_gat_dense_agg", "gather_src_auto", "gather_src_auto"]),
+                     (dict(use_attn_dst=False, stabilizer="per_receiver"),
+                      ["band_gat_dense_agg", "gather_src_auto", "gather_src_auto"])):
+        calls.clear()
+        conv = SymGATConv(32, 4, num_heads=2, **kw)
+        for g in graphs:
+            conv(xt, g)
+        assert calls == want, kw
     with pytest.raises(ValueError, match="drop_key"):
         SymGATConv(32, 4, num_heads=2, use_attn_dst=False, edge_drop=0.3)(xt, gt, train=True)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        SymGATConv(32, 4, num_heads=2, use_attn_dst=True)(xt, gt)
-    with pytest.raises(NotImplementedError, match="per_receiver"):
-        SymGATConv(32, 4, num_heads=2, use_attn_dst=False, stabilizer="per_receiver")(
-            xt, gt.replace(band=None))
+    with pytest.raises(ValueError, match="stabilizer"):
+        SymGATConv(32, 4, num_heads=2, stabilizer="global")
 
 
 @pytest.mark.parametrize("route", ["band", "csc"])
@@ -386,3 +417,179 @@ def test_empty_receivers_get_zero(route):
     assert not out[128:].any()
     out.sum().backward()
     assert torch.isfinite(xt.grad).all()
+
+
+@pytest.mark.parametrize("spread", [90.0, 150.0])
+def test_wide_score_spread_envelope(band_mode, spread):
+    """tests/test_band_gat.py's envelope: one hub sender scores far above the
+    crowd. The global-shift band route zeroes the receivers that do not see
+    it (with finite gradients, the DEN_TINY guard), while the dense route
+    with er ≡ 0 (the per-receiver stabilizer) stays exact: forward and
+    gradients against the port's segment softmax and against JAX's dense
+    route."""
+    rng = np.random.default_rng(10)
+    n, deg = 512, 6
+    s = rng.integers(0, n, n * deg)
+    r = np.clip(s + rng.integers(-80, 81, n * deg), 0, n - 1)
+    s[:8] = 0
+    r[:8] = np.arange(8)
+    x = rng.standard_normal((n, 32)).astype(np.float32)
+    gt = attach_band(build_graph(x, s, r, num_nodes=n), window=256, hubs=None)
+    gj = jax_attach_band(jax_build_graph(x, s, r, num_nodes=n), window=256, hubs=None)
+    npd, h, d = gt.num_nodes_padded, 2, 16
+    feat = rng.standard_normal((npd, h, d)).astype(np.float32)
+    el = rng.standard_normal((npd, h)).astype(np.float32)
+    el[0] = spread
+    co = rng.standard_normal((npd, h, d)).astype(np.float32)
+
+    def dense(el_, f_):
+        return safe_div(*tband.band_gat_dense_agg(f_, el_, torch.zeros_like(el_), gt.band))
+
+    def global_route(el_, f_):
+        return safe_div(*tband.band_gat_agg(f_, el_, gt.band))
+
+    def segment(el_, f_):
+        send = torch.clamp(gt.senders.long(), max=npd - 1)
+        score = torch.nn.functional.leaky_relu(el_[send], 0.2)
+        alpha = tseg.segment_softmax(score, gt.receivers, npd, mask=gt.edge_mask)
+        return tseg.segment_sum(f_[send] * alpha[..., None], gt.receivers, npd,
+                                mask=gt.edge_mask)
+
+    def run(fn):
+        e_, f_ = _t(el).requires_grad_(True), _t(feat).requires_grad_(True)
+        out = fn(e_, f_)
+        (out * _t(co)).sum().backward()
+        return out.detach(), e_.grad, f_.grad
+
+    out_d, out_g, out_s = run(dense), run(global_route), run(segment)
+    for a, b in zip(out_d, out_s):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3, atol=2e-4)
+    zeroed = ((out_g[0].abs().sum((1, 2)) == 0) & (out_s[0].abs().sum((1, 2)) > 1e-3))
+    assert int(zeroed.sum()) > 0
+    assert all(bool(torch.isfinite(t).all()) for t in out_g[1:])
+
+    def jdense(el_, f_):
+        num, den = jband.band_gat_dense_agg(f_, el_, jnp.zeros_like(el_), gj.band, 0.2,
+                                            interpret="xla")
+        return jax_safe_div(num, den)
+
+    want, vjp = jax.vjp(jdense, jnp.asarray(el), jnp.asarray(feat))
+    for a, b in zip(out_d, (want,) + vjp(jnp.asarray(co))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-3, atol=2e-4)
+
+
+def _pyg_graphs(rng, n=512, hubby=False, self_edges=True):
+    """tests/test_band_gat.py's PyG graphs: locality-banded edges, explicit
+    self edges for a third of the nodes, on both sides, with their bands."""
+    if hubby:
+        w = (1.0 / (1.0 + np.arange(n, dtype=np.float64))) ** 0.9
+        rng.shuffle(w)
+        s = rng.choice(n, n * 6, p=w / w.sum())
+    else:
+        s = rng.integers(0, n, n * 5)
+    r = np.clip(s + rng.integers(-80, 81, s.shape[0]), 0, n - 1)
+    if self_edges:
+        ids = rng.choice(n, n // 3, replace=False)
+        s, r = np.concatenate([s, ids]), np.concatenate([r, ids])
+    x = rng.standard_normal((n, 32)).astype(np.float32)
+    hubs = 64 if hubby else None
+    return (x, attach_band(build_graph(x, s, r, num_nodes=n), window=256, hubs=hubs),
+            jax_attach_band(jax_build_graph(x, s, r, num_nodes=n), window=256, hubs=hubs))
+
+
+@pytest.mark.parametrize("band", [False, True])
+@pytest.mark.parametrize("self_loops,hubby,act,norm", [
+    (True, False, "relu", None),
+    (True, True, "relu", None),
+    (False, True, None, None),
+    (True, False, "leakyrelu", "batch"),
+])
+def test_pyg_gatconv_matches_jax(band_mode, band, self_loops, hubby, act, norm):
+    """PyG's GATConv (destination and sender halves of one attention vector,
+    neighbours and one analytic self term, or the edge list as it is)
+    against the JAX conv: the dense route (K7–K9's plain versions, with the
+    self_count cancellation of explicit self edges) against JAX's XLA
+    emulation, and the per-edge segment route against JAX's; output, input
+    gradient and every parameter's gradient, with the weights carried by
+    `gat_conv_entries`."""
+    from deep_gcns_torch_tpu.convs.sparse import GATConv as JaxGATConv
+    from deep_gcns_torch_tpu_torch.convs.sparse import GATConv
+    from deep_gcns_torch_tpu_torch.utils.import_jax import gat_conv_entries
+
+    rng = np.random.default_rng(11)
+    x, gt, gj = _pyg_graphs(rng, hubby=hubby)
+    if not band:
+        gt, gj = gt.replace(band=None), gj.replace(band=None)
+    h, d = 2, 16
+    conv_j = JaxGATConv(32, d, heads=h, act=act, norm=norm, self_loops=self_loops)
+    params, state = conv_j.init(jax.random.PRNGKey(0))
+    conv_t = GATConv(32, d, heads=h, act=act, norm=norm, self_loops=self_loops)
+    sd = {}
+    gat_conv_entries(sd, "", jax.tree_util.tree_map(np.asarray, params))
+    sd = {k[1:]: v for k, v in sd.items()}
+    if norm is not None:
+        sd.update({"unlinear.1.weight": _t(params["norm"]["scale"]),
+                   "unlinear.1.bias": _t(params["norm"]["bias"]),
+                   "unlinear.1.running_mean": _t(state["norm"]["mean"]),
+                   "unlinear.1.running_var": _t(state["norm"]["var"]),
+                   "unlinear.1.num_batches_tracked": torch.tensor(0)})
+    conv_t.load_state_dict(sd)
+    conv_t.train()
+    xp = np.zeros((gt.num_nodes_padded, 32), np.float32)
+    xp[:x.shape[0]] = x
+    co = rng.standard_normal((gt.num_nodes_padded, h * d)).astype(np.float32)
+
+    def loss(p, x_):
+        out, _ = conv_j.apply(p, state, x_, gj, train=True)
+        return jnp.sum(out * co), out
+
+    (_, want), (gp, gx) = jax.value_and_grad(loss, (0, 1), has_aux=True)(params, jnp.asarray(xp))
+    xt = _t(xp).requires_grad_(True)
+    out = conv_t(xt, gt)
+    (out * _t(co)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **CONV)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), **CONV)
+    grads = dict(conv_t.named_parameters())
+    np.testing.assert_allclose(grads["gconv.weight"].grad.numpy(), np.asarray(gp["w"]), **CONV)
+    np.testing.assert_allclose(grads["gconv.att"].grad.numpy()[0], np.asarray(gp["att"]),
+                               **CONV)
+    np.testing.assert_allclose(grads["gconv.bias"].grad.numpy(), np.asarray(gp["b"]), **CONV)
+    if norm is not None:
+        np.testing.assert_allclose(grads["unlinear.1.weight"].grad.numpy(),
+                                   np.asarray(gp["norm"]["scale"]), **CONV)
+
+
+@pytest.mark.parametrize("band", [False, True])
+def test_pyg_gatconv_reference_golden(band):
+    """tests/goldens/ref_gat.npz (PyG-1.x GATConv of the reference, 4 heads
+    of 4, ReLU): its state dict loads as it is, and the output, the input
+    gradient and the parameter gradients match on the segment route and on
+    the dense route of the same graph's band (tolerances of
+    tests/test_reference_goldens.py)."""
+    import os
+
+    from deep_gcns_torch_tpu_torch.convs.sparse import GATConv
+
+    z = np.load(os.path.join(os.path.dirname(__file__), "goldens", "ref_gat.npz"))
+    ei, x = z["edge_index"], z["x"]
+    g = build_graph(x, ei[0], ei[1], num_nodes=x.shape[0])
+    if band:
+        g = attach_band(g, window=128, hubs=None)
+        assert tband.band_gat_dense_ok(g)
+    conv = GATConv(16, 4, heads=4, act="relu", norm=None)
+    conv.load_state_dict({k[3:]: _t(z[k]) for k in z.files if k.startswith("sd.")})
+    xt = g.x.clone().requires_grad_(True)
+    out = conv(xt, g)
+    (out[:x.shape[0]] * _t(z["co"])).sum().backward()
+    tol = dict(rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(out[:x.shape[0]].detach().numpy(), z["out"], **tol)
+    np.testing.assert_allclose(xt.grad[:x.shape[0]].numpy(), z["gx"], **tol)
+    for name, p in conv.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), z["gd." + name], err_msg=name, **tol)
+
+
+def test_pyg_gatconv_refuses_prelu():
+    from deep_gcns_torch_tpu_torch.convs.sparse import GATConv
+
+    with pytest.raises(NotImplementedError, match="prelu"):
+        GATConv(8, 4, heads=2, act="prelu")

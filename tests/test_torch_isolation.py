@@ -13,7 +13,7 @@ MODULES = ["deep_gcns_torch_tpu_torch", "deep_gcns_torch_tpu_torch.device",
            "deep_gcns_torch_tpu_torch.data.synthetic", "deep_gcns_torch_tpu_torch.nn.core",
            "deep_gcns_torch_tpu_torch.native", "deep_gcns_torch_tpu_torch.data.reorder",
            "deep_gcns_torch_tpu_torch.ops.segment", "deep_gcns_torch_tpu_torch.ops.spmm_cuda",
-           "deep_gcns_torch_tpu_torch.ops.band",
+           "deep_gcns_torch_tpu_torch.ops.band", "deep_gcns_torch_tpu_torch.ops.gat_dense",
            "deep_gcns_torch_tpu_torch.convs.sparse",
            "deep_gcns_torch_tpu_torch.models.deeper_gcn",
            "deep_gcns_torch_tpu_torch.utils.loss", "deep_gcns_torch_tpu_torch.utils.optim",

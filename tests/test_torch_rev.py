@@ -203,11 +203,74 @@ def test_weight_carry_covers_every_entry(kw):
 def test_stateful_group_functions_are_refused():
     with pytest.raises(ValueError):
         GroupAdditiveCoupling([GENBlock(8, 8, norm="batch") for _ in range(2)])
-    for block in (GCNBlock, SAGEBlock, GATBlock):
+    for block in (GCNBlock, SAGEBlock):
         with pytest.raises(NotImplementedError):
             block(8, 8)
     with pytest.raises(NotImplementedError):
-        RevGCN(RevGCNConfig(conv="gat", num_layers=2))
+        RevGCN(RevGCNConfig(conv="sage", num_layers=2))
+    GroupAdditiveCoupling([GATBlock(8, 8, heads=2) for _ in range(2)])
+
+
+@pytest.fixture
+def band_mode():
+    import deep_gcns_torch_tpu.ops.band as jband
+
+    jband._TEST_MODE = True
+    yield
+    jband._TEST_MODE = False
+
+
+@pytest.mark.parametrize("band", [False, True])
+def test_revgcn_gat_matches_jax(band_mode, band):
+    """RevGCN with GAT group functions (`GATBlock`: layer norm → relu → PyG
+    GATConv without self loops, 2 heads averaged) against JAX's: logits and
+    every gradient through the weight carry, on the per-edge route and on a
+    band's dense route (K7–K9's plain versions against JAX's XLA
+    emulation)."""
+    from deep_gcns_torch_tpu.graph import attach_band as jax_attach_band
+    from deep_gcns_torch_tpu_torch.graph import attach_band
+
+    rng = np.random.default_rng(9)
+    n = 512
+    w = (1.0 / (1.0 + np.arange(n, dtype=np.float64))) ** 0.9
+    rng.shuffle(w)
+    s = rng.choice(n, n * 6, p=w / w.sum())
+    r = np.clip(s + rng.integers(-100, 101, n * 6), 0, n - 1)
+    gt = build_graph(None, s, r, num_nodes=n)
+    gj = jax_build_graph(None, s, r, num_nodes=n)
+    if band:
+        gt = attach_band(gt, window=256, hubs=64)
+        gj = jax_attach_band(gj, window=256, hubs=64)
+    kw = dict(in_channels=8, node_feat_dim=8, hidden_channels=16, num_tasks=7, num_layers=3,
+              group=2, conv="gat", heads=2, dropout=0.0)
+    x = rng.standard_normal((gt.num_nodes_padded, 8)).astype(np.float32)
+    nf = rng.standard_normal((gt.num_nodes_padded, 8)).astype(np.float32)
+    co = rng.standard_normal((gt.num_nodes_padded, 7)).astype(np.float32)
+    co[n:] = 0.0
+    jcfg = JaxRevGCNConfig(**kw)
+    jmodel = JaxRevGCN(jcfg)
+    params, state = jmodel.init(jax.random.PRNGKey(0))
+
+    def loss_j(p):
+        out, _ = jmodel.apply(p, state, jnp.asarray(x), gj, node_feats=jnp.asarray(nf),
+                              train=True, rng=jax.random.PRNGKey(1))
+        return jnp.sum(out * co), out
+
+    (_, want), gp = jax.value_and_grad(loss_j, has_aux=True)(params)
+    model = RevGCN(RevGCNConfig(**kw))
+    assert isinstance(model.gcns[0].Fms[1], GATBlock) and model.edge_encoder is None
+    model.load_state_dict(rev_gcn_state_dict_from_jax(_jax_tree(params), jcfg))
+    model.train()
+    out = model(torch.from_numpy(x), gt, node_feats=torch.from_numpy(nf))
+    (out * torch.from_numpy(co)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **TOL)
+    want_g = rev_gcn_state_dict_from_jax(_jax_tree(gp), jcfg)
+    named = dict(model.named_parameters())
+    assert set(named) == set(want_g)
+    g_max = max(float(np.abs(v.numpy()).max()) for v in want_g.values())
+    for k, p in named.items():
+        np.testing.assert_allclose(p.grad.numpy(), want_g[k].numpy(), err_msg=k,
+                                   rtol=1e-3, atol=1e-5 * g_max)
 
 
 def test_shared_dropout_mask():

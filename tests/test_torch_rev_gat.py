@@ -126,11 +126,26 @@ def test_revgat_matches_jax(band_mode, route, drop):
     and, with ``drop``, edge-drop from JAX's own keys: the port's CSC route
     against JAX's CPU route (the segment softmax), the band routes against
     each other."""
+    _check_revgat_against_jax(route, drop)
+
+
+@pytest.mark.parametrize("variant,drop", [(dict(use_attn_dst=True), False),
+                                          (dict(use_attn_dst=True), True),
+                                          (dict(stabilizer="per_receiver"), True)])
+def test_revgat_dense_matches_jax(band_mode, variant, drop):
+    """RevGAT with destination scores, and with sender-only scores under the
+    per-receiver stabilizer, on the band's dense route (K7–K9's plain
+    versions) against JAX's on its XLA emulation: loss, logits and every
+    gradient, with JAX's own drop keys."""
+    _check_revgat_against_jax("band", drop, **variant)
+
+
+def _check_revgat_against_jax(route, drop, **extra):
     rng = np.random.default_rng(1)
     gt, gj = _graphs(rng)
     if route == "csc":
         gt, gj = gt.replace(band=None), gj.replace(band=None)
-    kw = _cfg(0.4 if drop else 0.0)
+    kw = dict(_cfg(0.4 if drop else 0.0), **extra)
     jcfg = JaxRevGATConfig(**kw)
     jmodel = JaxRevGAT(jcfg)
     params, _ = jmodel.init(jax.random.PRNGKey(0))
