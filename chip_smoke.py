@@ -107,7 +107,37 @@ every check; nothing is caught):
    scores with `--gat_stabilizer per_receiver`: one warm-up and one step,
    and both steps over the band route's `auto` step;
 29. timing of K7, K8 and K9 in bf16 at the three head shapes with the
-   step's hash drop, beside their plain versions and bounds.
+   step's hash drop, beside their plain versions and bounds;
+30. block-sparse graph: tests/test_blocksparse.py's banded graph at the TPU
+   prototype's shape (N=169,343, degree 15, bandwidth 256, seed 0) and its
+   tiles for A and Aᵀ, with their fill, tile counts and host build seconds;
+31. K10 against its plain version: forward and transpose tiles, f32 and
+   bf16, C=128 and C=40, directly and through `block_spmm`'s backward, and
+   receiver blocks with no edge, which must come out exact 0;
+32. K10's drive and timing: `block_spmm` forward and backward once (2
+   launches), then K10 in bf16 at C=128 beside its plain version,
+   `torch.sparse.mm` of the same adjacency, K1 on the same edges and its
+   bound (no route of the JAX package calls K10);
+33. checkpoint path, arxiv: `apps/ogbn_arxiv.main` as ResGEN-28 (bf16) on
+   169,343 synthetic nodes for 2 epochs with `--save_ckpt`, resumed with
+   `--pretrained_model` to epoch 4, and `apps/ogbn_arxiv_test.main` on the
+   checkpoint, whose accuracies must equal the training run's at the saved
+   epoch (28 K2 launches);
+34. checkpoint path, RevGAT: `apps/ogbn_arxiv_dgl` teacher with
+   `--save_ckpt`, then `--mode student --teacher_ckpt` (20,000 nodes, 2
+   epochs each);
+35. checkpoint path, proteins: `apps/ogbn_proteins_rev` for one epoch with
+   `--save_ckpt` (asynchronous rolling checkpoint and `ckpt_best`), then
+   `apps/ogbn_proteins_test` on it (ROC-AUC within 1e-3 of the app's);
+36. remat: ResGEN-28 on the main graph with `remat` and
+   `checkpoint_prologue` against the same weights without them: the warm-up
+   loss bit for bit and every gradient within TOL_BWD_BF16, then one timed
+   step each with its peak (lower with remat) and launches (K2 2L-1 with
+   remat, L without).
+
+Every time and memory figure of phases 30-36 is printed beside the card's
+name and power limit. A failed comparison saves its tensors (K2's with its
+inputs) under `chiprun_out/check_failures/` for replay.
 
 The line before the last is a JSON object listing the kernels; the last line
 is `{"ok": true, "device": {...}}`. `--rehearse-cpu` runs every phase on the
@@ -121,6 +151,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -166,6 +197,12 @@ TOL_EE_LEARN_T_BF16 = dict(rtol=2.0 ** -5, atol_rel=2.0 ** -7)
 TOL_GAT_EL_BF16 = dict(rtol=2.0 ** -5, atol_rel=2.0 ** -7)
 # the O(1)-memory check's allowance beside the optimizer state
 MEMORY_SLACK_BYTES = 256 * 2 ** 20
+# `nvidia-smi`'s name and power limit of the card, beside every time and
+# memory figure of the later phases
+CARD = "cpu (rehearsal)"
+# the apps' experiment directories of the checkpoint phases (git-ignored,
+# removed at the end)
+RUNS = os.path.join(ROOT, "chiprun_out", "smoke_runs")
 
 
 def log(*a):
@@ -179,14 +216,21 @@ def mark(phase):
     log(f"[time] {phase} done at {time.time() - T_START:.1f}s")
 
 
+# where a failed comparison leaves its tensors (git-ignored), for replay
+FAIL_DIR = os.path.join(ROOT, "chiprun_out", "check_failures")
+
+
 class Checks:
-    """Prints every comparison; `raise_if_failed` ends a phase that had a miss."""
+    """Prints every comparison; `raise_if_failed` ends a phase that had a miss.
+    A failed `close` saves what it compared (and the ``inputs`` it was given)
+    under `FAIL_DIR`, so that the miss can be replayed."""
 
     def __init__(self, phase):
         self.phase, self.failed = phase, []
 
-    def close(self, name, got, want, rtol, atol_rel, ref_max=None):
+    def close(self, name, got, want, rtol, atol_rel, ref_max=None, inputs=None):
         """``ref_max`` (default max|want|) scales the absolute floor."""
+        raw = (got, want)
         got, want = got.detach().float(), want.detach().float()
         err = (got - want).abs()
         if ref_max is None:
@@ -200,7 +244,22 @@ class Checks:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             self.failed.append(name)
+            self.save(name, *raw, inputs=inputs, limits=dict(rtol=rtol, atol_rel=atol_rel,
+                                                             ref_max=ref_max))
         return max_err
+
+    def save(self, name, got, want, inputs=None, limits=None):
+        os.makedirs(FAIL_DIR, exist_ok=True)
+        safe = "".join(ch if ch.isalnum() or ch in "-_." else "_" for ch in name)
+        path = os.path.join(FAIL_DIR, f"{self.phase}-{safe}.pt")
+
+        def cpu(v):
+            return v.detach().cpu() if isinstance(v, torch.Tensor) else v
+
+        torch.save({"phase": self.phase, "name": name, "got": cpu(got), "want": cpu(want),
+                    "limits": limits, "inputs": {k: cpu(v) for k, v in (inputs or {}).items()},
+                    "torch": torch.__version__, "threads": torch.get_num_threads()}, path)
+        log(f"[check] {name}: compared tensors saved to {path}")
 
     def equal(self, name, got, want):
         """Bit for bit (``==``, so 0.0 and -0.0 agree)."""
@@ -237,7 +296,8 @@ def phase_device(dev):
     nvcc = _build.nvcc_path()
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True, check=True)
     log(f"[device] nvcc: {ver.stdout.strip().splitlines()[-1]}")
-    name_limit = smi("name,power.limit")
+    global CARD
+    name_limit = CARD = smi("name,power.limit")
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {name_limit}")
     t0 = time.time()
@@ -271,8 +331,9 @@ def phase_kernels(g):
         cmax = tsp.fused_cmax(x, t, 1e-7)
         out, den = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7)
         out_p, den_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7)
-        e2 = max(chk.close(f"K2 out {tag}", out, out_p, **tol),
-                 chk.close(f"K2 den {tag}", den, den_p, **tol))
+        k2_in = dict(x=x, senders=g.senders, row_ptr=g.row_ptr, t=t, cmax=cmax, eps=1e-7)
+        e2 = max(chk.close(f"K2 out {tag}", out, out_p, inputs=k2_in, **tol),
+                 chk.close(f"K2 den {tag}", den, den_p, inputs=k2_in, **tol))
         msgs = torch.randn(g.num_edges_padded, 128, device=dev, generator=gen).to(dtype)
         e1a = chk.close(f"K1 plain form {tag}", tsp.csr_seg_sum(msgs, g.row_ptr),
                         tsp.csr_seg_sum_plain(msgs, g.row_ptr), **tol)
@@ -348,7 +409,8 @@ def _counted():
             "K2 ee": (tsp.softmax_agg, "launches_ee"), "K3": (tband.band_call, "launches"),
             "K4": (tsp.softmax_bwd_csc, "launches"), "K5": (tsp.gat_fwd, "launches"),
             "K6": (tsp.gat_bwd_csc, "launches"), "K7": (tgd.win_fused, "launches"),
-            "K8": (tgd.win_der, "launches"), "K9": (tgd.win_dsend, "launches")}
+            "K8": (tgd.win_der, "launches"), "K9": (tgd.win_dsend, "launches"),
+            "K10": (tbs.block_spmm, "launches")}
 
 
 def reset_launches():
@@ -1546,6 +1608,288 @@ def phase_dense_timing(g, errs, launches, iters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 6: K10 (the block-sparse SpMM), the checkpoint path, remat
+# ---------------------------------------------------------------------------
+
+def bsp_graph(n, dev):
+    """tests/test_blocksparse.py:20-23's banded graph at the TPU prototype's
+    shape (ROOFLINE.md:353): degree 15, bandwidth 256, seed 0; its tiles for
+    A and Aᵀ, built on the host."""
+    rng = np.random.default_rng(0)
+    s = rng.integers(0, n, n * 15)
+    r = np.clip(s + rng.integers(-256, 257, n * 15), 0, n - 1)
+    n_pad = -(-n // 256) * 256  # the graph builder's node padding: 169,472 rows
+    t0 = time.time()
+    tiles, tiles_t = tbs.build_block_tiles(s, r, n_pad)
+    build_s = time.time() - t0
+    log(f"[bsp-graph] N={n} N_pad={n_pad} E={len(s)}; host build of both directions "
+        f"{build_s:.2f}s; fill {tiles.fill:.4f} / {tiles_t.fill:.4f}; tiles "
+        f"{tiles.n_tiles} / {tiles_t.n_tiles}")
+    return dict(s=s, r=r, n_pad=n_pad, tiles=tiles.to(dev), tiles_t=tiles_t.to(dev))
+
+
+def phase_bsp_kernels(bg, dev):
+    """K10 against its plain version: forward (A) and transpose (Aᵀ) tiles,
+    f32 and bf16, C=128 and C=40 (not a multiple of 128), directly and
+    through the Function's backward; and a graph whose first and last
+    receiver blocks have no edge, which must come out exact 0."""
+    chk = Checks("bsp kernels")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_pad, tiles, tiles_t = bg["n_pad"], bg["tiles"], bg["tiles_t"]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for c in (128, 40):
+            x = torch.randn(n_pad, c, device=dev, generator=gen).to(dtype)
+            co = torch.randn(n_pad, c, device=dev, generator=gen).to(dtype)
+            e = max(chk.close(f"K10 forward {tag} C={c}", tbs.bsp_call(x, tiles),
+                              tbs.bsp_call_plain(x, tiles), **tol),
+                    chk.close(f"K10 transpose {tag} C={c}", tbs.bsp_call(co, tiles_t),
+                              tbs.bsp_call_plain(co, tiles_t), **tol))
+            res = []
+            for fn in (tbs.block_spmm, tbs.block_spmm_plain):
+                xx = x.clone().requires_grad_(True)
+                out = fn(xx, tiles, tiles_t)
+                out.backward(co)
+                res.append((out.detach(), xx.grad))
+            e = max(e, chk.close(f"block_spmm out {tag} C={c}", res[0][0], res[1][0], **tol),
+                    chk.close(f"block_spmm dx {tag} C={c}", res[0][1], res[1][1], **tol))
+            if c == 128:
+                errs[tag] = e
+            del x, co, res
+    rng = np.random.default_rng(1)
+    n = 40 * tbs.BN
+    s = rng.integers(0, n, n * 12)
+    r = np.clip(s + rng.integers(-300, 301, n * 12), tbs.BN, n - tbs.BN - 1)
+    et, et_t = (t.to(dev) for t in tbs.build_block_tiles(s, r, n))
+    x = torch.randn(n, 128, device=dev, generator=gen).to(torch.bfloat16)
+    out = tbs.bsp_call(x, et)
+    chk.close("K10 with empty receiver blocks bf16", out, tbs.bsp_call_plain(x, et), **TOL_BF16)
+    zero = torch.zeros(tbs.BN, 128, dtype=torch.bfloat16, device=dev)
+    chk.equal("K10 empty receiver block 0 is exact 0", out[:tbs.BN], zero)
+    chk.equal("K10 empty last receiver block is exact 0", out[-tbs.BN:], zero)
+    sync(dev)
+    chk.raise_if_failed()
+    return errs
+
+
+def phase_bsp_timing(bg, errs, iters):
+    """K10's drive (the module's entry point `block_spmm`, forward and
+    backward once, counts set to 0 just before), then its time in bf16 at
+    C=128 beside its plain version, `torch.sparse.mm` of the same adjacency
+    and K1 (gathered form) on the same edges, and its bound."""
+    dev = bg["tiles"].offs.device
+    chk = Checks("bsp timing")
+    n_pad, tiles, tiles_t, c = bg["n_pad"], bg["tiles"], bg["tiles_t"], 128
+    s, r = bg["s"], bg["r"]
+    e = len(s)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(n_pad, c, device=dev, generator=gen).to(torch.bfloat16)
+    reset_launches()
+    xx = x.clone().requires_grad_(True)
+    tbs.block_spmm(xx, tiles, tiles_t).backward(x)
+    sync(dev)
+    launches = read_launches()
+    want = dict(no_launches(), K10=2 if dev.type == "cuda" else 0)
+    log(f"[bsp] block_spmm forward and backward once: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"bsp: kernel launches {launches} != expected {want}")
+    k10_ms = time_fn(lambda: tbs.bsp_call(x, tiles), dev, iters)
+    plain_ms = time_fn(lambda: tbs.bsp_call_plain(x, tiles), dev, 3)
+    # yardsticks (never called by the port): A as one CSR matrix A[r, s] = #edges
+    # s→r for torch.sparse.mm (float32 on the CPU, which has no bf16 sparse
+    # product), and K1's gathered form over the receiver-sorted senders
+    xy = x if dev.type == "cuda" else x.float()
+    coo = torch.sparse_coo_tensor(torch.from_numpy(np.stack([r, s])).to(dev),
+                                  torch.ones(e, device=dev), (n_pad, n_pad),
+                                  check_invariants=True).coalesce()
+    csr = coo.to_sparse_csr()
+    a = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                csr.values().to(xy.dtype), (n_pad, n_pad),
+                                check_invariants=True)
+    lib_ms = time_fn(lambda: torch.sparse.mm(a, xy), dev, iters)
+    order = np.argsort(r, kind="stable")
+    idx = torch.from_numpy(s[order].astype(np.int32)).to(dev)
+    ptr = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(np.bincount(r, minlength=n_pad))]).astype(np.int32)).to(dev)
+    k1_ms = time_fn(lambda: tsp.csr_seg_sum(x, ptr, idx), dev, iters)
+    out = tbs.bsp_call(x, tiles)
+    chk.close("library yardstick sparse.mm vs K10", torch.sparse.mm(a, xy), out, **TOL_LIBRARY)
+    chk.close("K1 on the same edges vs K10", tsp.csr_seg_sum(x, ptr, idx), out, **TOL_BF16)
+    chk.raise_if_failed()
+    nt = tiles.n_tiles
+    # x read once and out written once (bf16); the offsets (uint8, two rows a
+    # tile), tile_sb and tile_start as stored; one f32 add per (edge, channel)
+    bytes_moved = 2 * n_pad * c * 2 + nt * 2 * tbs.T + 4 * nt + 4 * (tiles.n_blocks + 1)
+    b = bound(bytes_moved, e * c)
+    log(f"[bsp] K10 {k10_ms:.4f} ms, plain {plain_ms:.3f} ms, torch.sparse.mm "
+        f"{lib_ms:.4f} ms, K1 on the same edges {k1_ms:.4f} ms; bound {b[0]:.4f} ms "
+        f"({b[1]}, {bytes_moved / 1e6:.1f} MB); fill {tiles.fill:.4f}, {nt} tiles; "
+        f"card: {CARD}")
+    return {"name": "K10 block_spmm", "route": "cuda", "source": f"{PKG}/csrc/blocksparse.cu",
+            "replaces": "deep_gcns_torch_tpu/ops/blocksparse.py:123",
+            "launches": launches["K10"], "max_abs_err": errs["bf16"], "ms": k10_ms,
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms}
+
+
+def phase_ckpt_arxiv(dev, rehearse):
+    """The checkpoint path through the apps at ResGEN-28's full width
+    (`bench.py:54-61`, bf16) on the synthetic ogbn-arxiv stand-in: train 2
+    epochs with `--save_ckpt`, resume from the saved epoch to epoch 4, and
+    score the checkpoint with `apps/ogbn_arxiv_test`, whose accuracies must
+    equal those the training run printed at that epoch, with K2 launched."""
+    layers = 3 if rehearse else 28
+    base = ["--synthetic", "--synthetic_nodes", "2000" if rehearse else "169343",
+            "--num_layers", str(layers), "--compute_dtype", "bfloat16", "--device", dev.type]
+    t0 = time.time()
+    first = ogbn_arxiv.main(base + ["--epochs", "2", "--save_ckpt", "--exp_root", RUNS])
+    t1 = time.time()
+    ckpt = first["ckpt"]
+    with open(ckpt + ".json") as f:
+        meta = json.load(f)
+    k = meta["epoch"]
+    best = max(v["valid"] for v in first["evals"].values())
+    if meta["best_value"] != best or not os.path.exists(ckpt + "_best.pth"):
+        raise AssertionError(f"ckpt: saved {meta}, best valid {best}")
+    resumed = ogbn_arxiv.main(base + ["--epochs", "4", "--pretrained_model", ckpt])
+    t2 = time.time()
+    if len(resumed["losses"]) != 4 - k or not all(map(math.isfinite, resumed["losses"])):
+        raise AssertionError(f"ckpt: resumed from epoch {k}: losses {resumed['losses']}")
+    reset_launches()
+    scored = ogbn_arxiv_test.main(base + ["--pretrained_model", ckpt])
+    launches = read_launches()
+    t3 = time.time()
+    log(f"[ckpt-arxiv] saved at epoch {k} ({meta}); training accuracies {first['evals'][k]}, "
+        f"test script {scored['accs']}; resumed losses {resumed['losses']}; launches of "
+        f"the test script {launches}; train {t1 - t0:.1f}s, resume {t2 - t1:.1f}s, "
+        f"score {t3 - t2:.1f}s (host clock, data built each time); card: {CARD}")
+    if scored["accs"] != first["evals"][k]:
+        raise AssertionError(f"ckpt: the test script's accuracies {scored['accs']} != "
+                             f"{first['evals'][k]} at the saved epoch")
+    if dev.type == "cuda" and launches["K2"] != layers:
+        raise AssertionError(f"ckpt: the test script's predict launched {launches}")
+
+
+def phase_ckpt_revgat(dev, rehearse):
+    """RevGAT's teacher with `--save_ckpt`, then a student distilled from
+    its checkpoint (`--mode student --teacher_ckpt`), 2 epochs each, small."""
+    argv = ["--synthetic", "--synthetic_nodes", "1000" if rehearse else "20000",
+            "--epochs", "2", "--compute_dtype", "bfloat16", "--device", dev.type,
+            "--exp_root", RUNS]
+    t0 = time.time()
+    teacher = ogbn_arxiv_dgl.main(argv + ["--save_ckpt"])
+    reset_launches()
+    student = ogbn_arxiv_dgl.main(argv + ["--mode", "student", "--teacher_ckpt",
+                                          teacher["ckpt"]])
+    launches = read_launches()
+    log(f"[ckpt-revgat] teacher {teacher}; student {student}; student launches {launches}; "
+        f"{time.time() - t0:.1f}s")
+    if not os.path.exists(teacher["ckpt"] + ".pth") or not math.isfinite(student["loss"]):
+        raise AssertionError(f"ckpt-revgat: teacher {teacher}, student {student}")
+    if dev.type == "cuda" and (launches["K5"] == 0 or launches["K6"] == 0):
+        raise AssertionError(f"ckpt-revgat: K5/K6 did not run: {launches}")
+
+
+def phase_ckpt_proteins(dev, rehearse):
+    """The RevGCN proteins app for one epoch with `--save_ckpt` (the
+    asynchronous rolling checkpoint and `ckpt_best`), then
+    `apps/ogbn_proteins_test` on the rolling checkpoint with the training
+    run's evaluation partition: its ROC-AUCs agree with the app's."""
+    argv = ["--synthetic", "--synthetic_nodes", "3000" if rehearse else "20000",
+            "--synthetic_degree", "8" if rehearse else "60", "--cluster_number", "10",
+            "--num_layers", "3" if rehearse else "14", "--eval_parts", "5",
+            "--compute_dtype", "bfloat16", "--device", dev.type]
+    t0 = time.time()
+    res = ogbn_proteins_rev.main(argv + ["--epochs", "1", "--save_ckpt", "--exp_root", RUNS])
+    kept = sorted(os.listdir(os.path.join(res["exp"], "ckpt")))
+    t1 = time.time()
+    reset_launches()
+    out = ogbn_proteins_test.main(argv + ["--num_evals", "1", "--pretrained_model",
+                                          os.path.join(res["exp"], "ckpt", "0", "ckpt")])
+    launches = read_launches()
+    peak = out["peak_bytes"]
+    log(f"[ckpt-proteins] app {res['results']} (kept {kept}, {t1 - t0:.1f}s); test script "
+        f"{out['aucs']}, epoch {out['meta']['epoch']}, peak "
+        f"{'not measured' if peak is None else f'{peak / 2**30:.3f} GB'}, "
+        f"{time.time() - t1:.1f}s; launches {launches}; card: {CARD}")
+    # the same partition and weights; only the edge padding of the clusters
+    # differs (the app pads to its training bucket), which may move bf16
+    # roundings of the cluster-wide shift, not the ranking beyond 1e-3
+    if kept != ["0"] or not os.path.exists(os.path.join(res["exp"], "ckpt_best.pth")) or any(
+            abs(out["aucs"][k] - v) > 1e-3 for k, v in res["results"].items()):
+        raise AssertionError(f"ckpt-proteins: kept {kept}, app {res['results']}, "
+                             f"test script {out['aucs']}")
+    if dev.type == "cuda" and launches["K2 ee"] == 0:
+        raise AssertionError(f"ckpt-proteins: K2 with ee did not run: {launches}")
+
+
+def phase_remat(g, labels, layers):
+    """ResGEN-28 on the main graph with `remat` and `checkpoint_prologue`
+    against the same weights without them, the same dropout generator seed:
+    one warm-up step each (the loss bit for bit, every gradient within
+    TOL_BWD_BF16), then one timed step each with its peak and launches (the
+    re-forward runs K2 once more for each of layers 1..L-1)."""
+    dev = g.senders.device
+    chk = Checks("remat")
+    lab = torch.zeros(g.num_nodes_padded, dtype=torch.long)
+    lab[:g.n_node] = torch.from_numpy(np.asarray(labels))
+    lab = lab.to(dev)
+    runs = {}
+    for name, knobs in (("plain", {}), ("remat", dict(remat=True, checkpoint_prologue=True))):
+        cfg = DeeperGCNConfig(in_channels=128, hidden_channels=128, num_tasks=40,
+                              num_layers=layers, block="res+", aggr="softmax_sg", t=0.1,
+                              norm="batch", mlp_layers=1, dropout=0.5,
+                              compute_dtype="bfloat16", **knobs)
+        model = DeeperGCN(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+        runs[name] = (model, make_optimizer("adam", model.parameters(), 1e-2),
+                      torch.Generator(device=dev).manual_seed(1))
+    warm = {}
+    for name, (model, opt, gen) in runs.items():
+        loss = float(ogbn_arxiv.train_step(model, opt, g, lab, g.node_mask, gen))
+        warm[name] = (loss, {k: p.grad.detach().clone() for k, p in model.named_parameters()})
+    chk.equal("remat warm-up loss bit for bit", torch.tensor(warm["remat"][0]),
+              torch.tensor(warm["plain"][0]))
+    err = max(chk.close(f"remat grad {k}", warm["remat"][1][k], want, **TOL_BWD_BF16)
+              for k, want in warm["plain"][1].items())
+    del warm
+    info = {}
+    for name, (model, opt, gen) in runs.items():
+        # the peak of this step alone; the allocator keeps its cache, so that
+        # neither step pays for fresh device allocations
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = ogbn_arxiv.train_step(model, opt, g, lab, g.node_mask, gen)
+        sync(dev)
+        info[name] = {"step_ms": (time.perf_counter() - t0) * 1e3, "loss": float(loss),
+                      "launches": read_launches(),
+                      "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                                     if dev.type == "cuda" else None)}
+    log(f"[remat] {json.dumps(info)}; largest gradient error {err:.3e}; card: {CARD}")
+    if dev.type == "cuda":
+        p, r = info["plain"], info["remat"]
+        log(f"[remat] step {r['step_ms']:.3f} ms with remat against {p['step_ms']:.3f} ms "
+            f"(ratio {r['step_ms'] / p['step_ms']:.4f}); peak {r['peak_bytes'] / 2**30:.3f} "
+            f"against {p['peak_bytes'] / 2**30:.3f} GiB; card: {CARD}")
+    chk.raise_if_failed()
+    want = {"plain": no_launches(), "remat": no_launches()}
+    if dev.type == "cuda":
+        want["plain"].update(K1=layers, K2=layers)
+        want["remat"].update(K1=layers, K2=2 * layers - 1)
+        if not info["remat"]["peak_bytes"] < info["plain"]["peak_bytes"]:
+            raise AssertionError(f"remat: peak {info['remat']['peak_bytes']} not below "
+                                 f"{info['plain']['peak_bytes']}")
+    for name in info:
+        if info[name]["launches"] != want[name]:
+            raise AssertionError(f"remat: {name} launches {info[name]['launches']} != "
+                                 f"{want[name]}")
+    return info
+
+
 def main(argv):
     rehearse = "--rehearse-cpu" in argv
     if not rehearse and not torch.cuda.is_available():
@@ -1557,6 +1901,7 @@ def main(argv):
     info = phase_device(dev)
     mark("device")
     g, labels = main_graph(n, dev)
+    g_main, labels_main = g, labels  # the remat phase runs on it at the end
     errs = phase_kernels(g)
     mark("kernels")
     phase_agreement(dev)
@@ -1653,6 +1998,27 @@ def main(argv):
         f"package measured 1.82 on a TPU v5e, information only)")
     mark("dense paths")
     rows += phase_dense_timing(ggat, errs_d, dense_info["launches"], iters)
+    del ggat
+    free_memory(dev)
+    log(f"[done] dense-route phases in {time.time() - t_all:.1f}s")
+
+    bg = bsp_graph(n, dev)
+    errs_10 = phase_bsp_kernels(bg, dev)
+    mark("bsp kernels")
+    rows.append(phase_bsp_timing(bg, errs_10, iters))
+    del bg
+    mark("bsp timing")
+    shutil.rmtree(RUNS, ignore_errors=True)
+    phase_ckpt_arxiv(dev, rehearse)
+    mark("checkpoint path, arxiv")
+    phase_ckpt_revgat(dev, rehearse)
+    mark("checkpoint path, revgat")
+    phase_ckpt_proteins(dev, rehearse)
+    shutil.rmtree(RUNS, ignore_errors=True)
+    mark("checkpoint path, proteins")
+    free_memory(dev)
+    phase_remat(g_main, labels_main, layers)
+    mark("remat")
     log(f"[done] all phases in {time.time() - t_all:.1f}s")
     if rehearse:
         print(json.dumps({"kernels": rows}))
@@ -1676,8 +2042,9 @@ if __name__ == "__main__":
     import torch
 
     from deep_gcns_torch_tpu_torch import native
-    from deep_gcns_torch_tpu_torch.apps import (ogbn_arxiv, ogbn_arxiv_dgl, ogbn_proteins,
-                                                ogbn_proteins_rev)
+    from deep_gcns_torch_tpu_torch.apps import (ogbn_arxiv, ogbn_arxiv_dgl, ogbn_arxiv_test,
+                                                ogbn_proteins, ogbn_proteins_rev,
+                                                ogbn_proteins_test)
     from deep_gcns_torch_tpu_torch.convs.sparse import GATConv
     from deep_gcns_torch_tpu_torch.data.reorder import cluster_order, permute_graph
     from deep_gcns_torch_tpu_torch.data.synthetic import (powerlaw_community_edges,
@@ -1688,6 +2055,7 @@ if __name__ == "__main__":
                                                   RevGATConfig, RevGCN, RevGCNConfig)
     from deep_gcns_torch_tpu_torch.ops import _build
     from deep_gcns_torch_tpu_torch.ops import band as tband
+    from deep_gcns_torch_tpu_torch.ops import blocksparse as tbs
     from deep_gcns_torch_tpu_torch.ops import gat_dense as tgd
     from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
     from deep_gcns_torch_tpu_torch.utils.optim import linear_schedule, make_optimizer

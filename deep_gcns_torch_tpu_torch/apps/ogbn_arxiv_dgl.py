@@ -17,29 +17,39 @@ times. With a band attached (``--reorder cluster --band auto``) the GAT
 aggregation takes the band route, otherwise the CSC route (K5/K6). With a
 band, destination scores (``--use_attn_dst``) and the exact per-receiver
 stabilizer (``--gat_stabilizer per_receiver``) take the dense route (K7–K9);
-``--band_hubs off`` builds the band without hub structures.
+``--band_hubs off`` builds the band without hub structures. Without
+``--synthetic`` the graph is ogbn-arxiv from the local cache (as
+`apps/ogbn_arxiv.py` loads it).
 
-The synthetic SBM task is the only data source; the student mode (it needs
-checkpoints) and real OGB loading raise `NotImplementedError`.
+Checkpoints (`main.py:125-128, 146-153, 181-183, 208-213` of the JAX app):
+with ``--save_ckpt`` a run saves `{exp_root}/revgat_{mode}-{exp_name}-…/ckpt`
+at every new best validation accuracy (the JAX teacher saves without the
+flag too). ``--mode student --teacher_ckpt PREFIX`` loads a teacher of the
+same shape, takes its evaluation logits (with label reuse and refinement,
+as `predict` computes them) once, and trains a fresh student on
+``alpha`` · kd_loss(student, teacher, ``temp``) + (1 − ``alpha``) · cross
+entropy, both on the supervised rows.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..data.synthetic import sbm_arxiv_like
 from ..device import resolve_device
 from ..graph import Graph
 from ..models import RevGAT, RevGATConfig
-from ..utils.loss import cross_entropy
+from ..utils.ckpt import load_ckpt, save_ckpt
+from ..utils.logger import create_exp_dir
+from ..utils.loss import cross_entropy, kd_loss
 from ..utils.metrics import accuracy
 from ..utils.optim import linear_schedule, make_optimizer
-from .ogbn_arxiv import reorder_and_band
+from .ogbn_arxiv import load_data
 
 
 def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -51,8 +61,13 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--lr", type=float, default=0.002)
     p.add_argument("--dropout", type=float, default=0.75)
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic SBM stand-in (the only data source of this slice)")
+                   help="synthetic SBM stand-in for ogbn-arxiv")
     p.add_argument("--synthetic_nodes", type=int, default=4096)
+    p.add_argument("--data_root", type=str, default="data/")
+    p.add_argument("--exp_root", type=str, default="runs/")
+    p.add_argument("--exp_name", type=str, default="exp")
+    p.add_argument("--save_ckpt", action="store_true",
+                   help="save a checkpoint at every new best validation accuracy")
     p.add_argument("--n_layers", type=int, default=5)
     p.add_argument("--n_hidden", type=int, default=256)
     p.add_argument("--n_heads", type=int, default=3)
@@ -73,6 +88,10 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--num_classes", type=int, default=40)
     p.add_argument("--warmup_epochs", type=int, default=50)
     p.add_argument("--mode", type=str, default="teacher", choices=["teacher", "student"])
+    p.add_argument("--teacher_ckpt", type=str, default="",
+                   help="the teacher's checkpoint prefix (student mode)")
+    p.add_argument("--alpha", type=float, default=0.95, help="weight of the distillation loss")
+    p.add_argument("--temp", type=float, default=0.7, help="distillation temperature")
     p.add_argument("--reorder", type=str, default="none", choices=["none", "rcm", "cluster"])
     p.add_argument("--band", type=str, default="off", choices=["off", "auto"])
     p.add_argument("--band_hubs", type=str, default="auto", choices=["auto", "off"],
@@ -105,12 +124,19 @@ def make_features(x_base: torch.Tensor, onehot: Optional[torch.Tensor],
 def train_step(model: RevGAT, opt: torch.optim.Optimizer,
                sched: torch.optim.lr_scheduler.LRScheduler, g: Graph, feat: torch.Tensor,
                labels: torch.Tensor, sup_mask: torch.Tensor,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
-    """One full-batch step with the loss on the ``sup_mask`` rows; returns
-    the loss (still on the device)."""
+               generator: Optional[torch.Generator],
+               teacher_logits: Optional[torch.Tensor] = None, alpha: float = 0.95,
+               temp: float = 0.7) -> torch.Tensor:
+    """One full-batch step with the loss on the ``sup_mask`` rows (with
+    ``teacher_logits``, the distillation mix); returns the loss (still on
+    the device)."""
     model.train()
     opt.zero_grad(set_to_none=True)
-    loss = cross_entropy(model(feat, g, generator), labels, sup_mask)
+    logits = model(feat, g, generator)
+    loss = cross_entropy(logits, labels, sup_mask)
+    if teacher_logits is not None:
+        loss = (alpha * kd_loss(logits, teacher_logits, temp, mask=sup_mask)
+                + (1 - alpha) * loss)
     loss.backward()
     opt.step()
     sched.step()
@@ -133,29 +159,24 @@ def predict(model: RevGAT, g: Graph, x_base: torch.Tensor, onehot: Optional[torc
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Train; returns the last printed loss, the best validation and its
+    test accuracy, and the checkpoint prefix (None without ``--save_ckpt``)."""
     args = get_args(argv)
-    if args.mode == "student":
-        raise NotImplementedError("--mode student needs teacher checkpoints, which come "
-                                  "with a later slice")
-    if not args.synthetic:
-        raise NotImplementedError("OGB dataset loading is not ported yet; pass --synthetic")
+    if args.mode == "student" and not args.teacher_ckpt:
+        raise ValueError("--mode student needs --teacher_ckpt")
     dev = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
-    n, k = args.synthetic_nodes, args.num_classes
-    g, labels = sbm_arxiv_like(rng, n=n, num_classes=k, c=128, avg_degree=12)
-    perm = rng.permutation(n)
-    splits = {"train": perm[: int(0.6 * n)], "valid": perm[int(0.6 * n): int(0.8 * n)],
-              "test": perm[int(0.8 * n):]}
-    g, labels, splits = reorder_and_band(args, g, labels, splits)
+    g, labels, splits, in_feats = load_data(args, rng)
+    n, k = g.n_node, args.num_classes
     g = g.to(dev)
     n_pad = g.num_nodes_padded
     lab = torch.zeros(n_pad, dtype=torch.long)
-    lab[:n] = torch.from_numpy(np.asarray(labels))
+    lab[:n] = torch.from_numpy(labels)
     lab = lab.to(dev)
     onehot = torch.nn.functional.one_hot(lab, k).float() if args.use_labels else None
     x_base = g.x
 
-    model = build_model(args, x_base.shape[1], torch.Generator().manual_seed(args.seed)).to(dev)
+    model = build_model(args, in_feats, torch.Generator().manual_seed(args.seed)).to(dev)
     opt = make_optimizer("rmsprop", model.parameters(), 1.0)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, linear_schedule(args.lr / 50, args.lr, args.warmup_epochs))
@@ -165,6 +186,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     eval_mask = torch.zeros(n_pad, dtype=torch.bool)
     eval_mask[torch.from_numpy(train_idx)] = True
     eval_mask = eval_mask.to(dev)
+    teacher_logits = None
+    if args.mode == "student":
+        teacher = build_model(args, in_feats).to(dev)
+        load_ckpt(args.teacher_ckpt, model=teacher)
+        teacher_logits = predict(teacher, g, x_base, onehot, eval_mask, args.n_label_iters)
+        del teacher
+    ckpt_path = None
+    if args.save_ckpt:
+        ckpt_path = os.path.join(
+            create_exp_dir(args.exp_root, f"revgat_{args.mode}-{args.exp_name}"), "ckpt")
     best_valid = best_test = -1.0
     loss, t0 = float("nan"), time.time()
     for epoch in range(args.epochs):
@@ -177,19 +208,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         sm[torch.from_numpy(train_idx[~sel])] = True
         lm, sm = lm.to(dev), sm.to(dev)
         feat = make_features(x_base, onehot, lm)
-        loss_t = train_step(model, opt, sched, g, feat, lab, sm, drop_gen)
+        loss_t = train_step(model, opt, sched, g, feat, lab, sm, drop_gen, teacher_logits,
+                            args.alpha, args.temp)
         if epoch % 5 == 0 or epoch == args.epochs - 1:
             pred = predict(model, g, x_base, onehot, eval_mask,
                            args.n_label_iters).argmax(-1).cpu().numpy()
-            accs = {name: accuracy(pred[v], np.asarray(labels)[v])
-                    for name, v in splits.items()}
+            accs = {name: accuracy(pred[v], labels[v]) for name, v in splits.items()}
             loss = float(loss_t)
             print(f"epoch {epoch} loss {loss:.4f} train {accs['train']:.4f} "
                   f"valid {accs['valid']:.4f} test {accs['test']:.4f} "
                   f"({time.time() - t0:.2f}s)", flush=True)
             if accs["valid"] > best_valid:
                 best_valid, best_test = accs["valid"], accs["test"]
-    return {"loss": loss, "best_valid": best_valid, "best_test": best_test}
+                if ckpt_path:
+                    save_ckpt(ckpt_path, model=model, epoch=epoch, best_value=best_valid)
+    return {"loss": loss, "best_valid": best_valid, "best_test": best_test, "ckpt": ckpt_path}
 
 
 if __name__ == "__main__":

@@ -38,7 +38,8 @@ def build_model(args, generator: Optional[torch.Generator] = None) -> DeeperGCN:
         norm=args.norm, mlp_layers=args.mlp_layers, dropout=args.dropout,
         edge_mode="per_layer" if args.conv_encode_edge else "one_time", edge_feat_dim=8,
         use_one_hot_encoding=args.use_one_hot_encoding, node_feat_dim=8,
-        final_dropout=False, compute_dtype=args.compute_dtype), generator=generator)
+        final_dropout=False, compute_dtype=args.compute_dtype, remat=args.remat),
+        generator=generator)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:

@@ -5,26 +5,35 @@ into clusters padded to one fixed bucket, cluster-wise training with the
 global-norm clip chained before Adam, and averaged multi-partition
 evaluation with ROC-AUC (`examples/ogb_eff/ogbn_proteins/main.py:158-173`).
 
-The data is the JAX app's synthetic generator, made from ``--seed``; loading
-the real ogbn-proteins waits until its files are in the repository. Not
-ported: ``--spatial`` (the parallel layer, a later slice) raises, and
-checkpoint saving is left out.
+The data is the JAX app's synthetic generator, made from ``--seed``, or
+ogbn-proteins from the local cache `{data_root}/ogbn_proteins.npz`
+(`data/ogb.py`). With ``--save_ckpt`` (`examples/proteins_common.py:150-196`)
+each evaluation enqueues an asynchronous rolling checkpoint
+(`utils/ckpt_async.py`, the last two kept, the best pinned) in
+`{exp}/ckpt/{epoch}/`, and a new best validation ROC-AUC also writes
+`{exp}/ckpt_best` at once (the JAX app writes `ckpt_best` without the flag
+too). `apps/ogbn_proteins_test.py` scores a checkpoint. Not ported:
+``--spatial`` (the parallel layer, a later slice) raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from ..data.ogb import extract_node_features_from_edges
+from ..data.ogb import extract_node_features_from_edges, load_ogb_node
 from ..data.partition import (generate_sub_graphs, locality_partition_graph,
                               random_partition_graph, scatter_predictions)
 from ..device import resolve_device
 from ..graph import Graph
+from ..utils.ckpt import save_ckpt
+from ..utils.ckpt_async import AsyncCheckpointer
+from ..utils.logger import create_exp_dir
 from ..utils.loss import bce_with_logits
 from ..utils.metrics import roc_auc
 from ..utils.optim import clip_grad_global_norm_, make_optimizer
@@ -43,7 +52,17 @@ def base_parser(description: str, *, num_layers: int, hidden: int, epochs: int,
     p.add_argument("--lr", type=float, default=lr)
     p.add_argument("--dropout", type=float, default=0.1)
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic proteins-shaped data (the only data source for now)")
+                   help="synthetic proteins-shaped data instead of the ogbn-proteins cache")
+    p.add_argument("--data_root", type=str, default="data/",
+                   help="directory of the ogbn_proteins.npz cache")
+    p.add_argument("--exp_root", type=str, default="runs/")
+    p.add_argument("--exp_name", type=str, default="exp")
+    p.add_argument("--save_ckpt", action="store_true",
+                   help="asynchronous rolling checkpoints at each evaluation, and the best")
+    p.add_argument("--pretrained_model", type=str, default="",
+                   help="checkpoint prefix to score (the test script)")
+    p.add_argument("--remat", action="store_true",
+                   help="DeeperGCN: recompute each layer in the backward")
     p.add_argument("--synthetic_nodes", type=int, default=4096)
     p.add_argument("--synthetic_degree", type=int, default=30)
     p.add_argument("--num_layers", type=int, default=num_layers)
@@ -81,9 +100,18 @@ def load_proteins(args, rng: np.random.Generator) -> dict:
     """The JAX app's synthetic ogbn-proteins stand-in (`proteins_common.py:16-34`),
     draw for draw: uniform edges, 8-dim edge features, species one-hot, node
     features aggregated from the edges, labels that a linear map of them
-    decides, and a 65/15/20 split."""
+    decides, and a 65/15/20 split. Without ``--synthetic``, ogbn-proteins
+    from the local cache: species one-hot as x, node features aggregated
+    from the edges (`examples/proteins_common.py:35-46`)."""
     if not args.synthetic:
-        raise NotImplementedError("loading ogbn-proteins is not ported yet; pass --synthetic")
+        ds = load_ogb_node("ogbn-proteins", args.data_root)
+        n = ds.labels.shape[0]
+        return dict(senders=ds.senders, receivers=ds.receivers, edge_attr=ds.edge_attr,
+                    species=ds.x,
+                    node_feats=extract_node_features_from_edges(ds.senders, ds.receivers,
+                                                                ds.edge_attr, n),
+                    labels=ds.labels.astype(np.float32), splits=ds.splits,
+                    num_nodes=len(ds.x))
     n = args.synthetic_nodes
     e = n * args.synthetic_degree
     senders = rng.integers(0, n, e)
@@ -158,16 +186,8 @@ def run_proteins(args, build_model: Callable, name: str) -> dict:
             node_pad=node_pad, edge_pad=edge_pad)
 
     def evaluate() -> dict:
-        pred_sum = np.zeros(labels.shape, np.float32)
-        for e in range(args.num_evals):
-            parts = random_partition_graph(np.random.default_rng(1000 + e), n,
-                                           args.eval_parts)
-            graphs, node_lists, feats = make_clusters(parts, args.eval_parts)
-            preds = [predict(model, g.to(dev), torch.from_numpy(f[0]).to(dev),
-                             torch.from_numpy(f[1]).to(dev)).float().cpu().numpy()
-                     for g, f in zip(graphs, feats)]
-            pred_sum += scatter_predictions(preds, node_lists, n)
-        pred = pred_sum / args.num_evals
+        pred = multi_view_predict(model, data, dev, args.eval_parts, args.num_evals,
+                                  make_clusters)
         return {k: roc_auc(pred[idx], labels[idx]) for k, idx in data["splits"].items()}
 
     def partition(rng_):
@@ -176,6 +196,10 @@ def run_proteins(args, build_model: Callable, name: str) -> dict:
                                             args.cluster_number)
         return random_partition_graph(rng_, n, args.cluster_number)
 
+    exp = ckpt = None
+    if args.save_ckpt:
+        exp = create_exp_dir(args.exp_root, f"{name}-{args.exp_name}")
+        ckpt = AsyncCheckpointer(os.path.join(exp, "ckpt"), max_to_keep=2)
     best_valid, results, partition_s, ep_loss = -1.0, {}, [], float("nan")
     t0 = time.time()
     for epoch in range(args.epochs):
@@ -191,9 +215,35 @@ def run_proteins(args, build_model: Callable, name: str) -> dict:
         ep_loss = float(torch.stack(losses).mean())
         if epoch % args.eval_every == 0 or epoch == args.epochs - 1:
             results = evaluate()
+            if exp is not None and results["valid"] > best_valid:
+                save_ckpt(os.path.join(exp, "ckpt_best"), model=model, epoch=epoch,
+                          best_value=results["valid"])
             best_valid = max(best_valid, results["valid"])
             print(f"[{name}] epoch {epoch} loss {ep_loss:.4f} train {results['train']:.4f} "
                   f"valid {results['valid']:.4f} test {results['test']:.4f} "
                   f"(partition {partition_s[-1]:.2f}s, {time.time() - t0:.1f}s)", flush=True)
+            if ckpt is not None:
+                ckpt.save(epoch, model=model, optimizer=opt, metrics={"valid": results["valid"]},
+                          meta={"epoch": epoch, "best_value": best_valid})
+    if ckpt is not None:
+        ckpt.close()
     return {"loss": ep_loss, "best_valid": best_valid, "results": results,
-            "partition_s": partition_s}
+            "partition_s": partition_s, "exp": exp}
+
+
+def multi_view_predict(model: torch.nn.Module, data: dict, dev: torch.device, num_parts: int,
+                       num_evals: int, clusters: Callable) -> np.ndarray:
+    """Predictions [N, T] averaged over ``num_evals`` random partitions into
+    ``num_parts`` clusters (`examples/ogb_eff/ogbn_proteins/main.py:158-173`);
+    view e partitions with the seed 1000 + e. ``clusters(parts, k)`` cuts the
+    graph into (graphs, node lists, [species, node features, …])."""
+    n = data["num_nodes"]
+    pred_sum = np.zeros(data["labels"].shape, np.float32)
+    for e in range(num_evals):
+        parts = random_partition_graph(np.random.default_rng(1000 + e), n, num_parts)
+        graphs, node_lists, feats = clusters(parts, num_parts)
+        preds = [predict(model, g.to(dev), torch.from_numpy(f[0]).to(dev),
+                         torch.from_numpy(f[1]).to(dev)).float().cpu().numpy()
+                 for g, f in zip(graphs, feats)]
+        pred_sum += scatter_predictions(preds, node_lists, n)
+    return pred_sum / num_evals

@@ -20,9 +20,18 @@ the card, so that the fused route's backward (K4) gets its sender-ordered
 copy. The proteins one-hot encoder (``use_one_hot_encoding``) concatenates
 the node features with Linear(species one-hot).
 
+Memory knobs (`deeper_gcn.py:62-76, 235, 271, 309, 325` there), both on
+`nn.core.checkpoint_replay` (`torch.utils.checkpoint`, non-reentrant; the
+recompute replays the dropout generator and leaves BatchNorm's running
+statistics alone): ``remat`` recomputes each layer body after the first in
+the backward; ``checkpoint_prologue`` recomputes, at train time, each
+norm → relu → dropout prologue (res+) or epilogue (res, plain) instead of
+keeping its masks. The port's default for ``checkpoint_prologue`` is False
+(JAX's is True): the math is the same, and the port's chip numbers were
+taken without it.
+
 Not ported yet (the constructor raises on them): the bond edge modes, the
-atom encoder, the virtual node, graph pooling, and the memory knobs `remat`
-and `checkpoint_prologue`.
+atom encoder, the virtual node and graph pooling.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ from torch import nn
 
 from ..convs.sparse import GENConv
 from ..graph import Graph
-from ..nn.core import Linear, dropout, make_norm
+from ..nn.core import Linear, checkpoint_replay, dropout, make_norm
 
 
 @dataclass(frozen=True)
@@ -75,8 +84,8 @@ class DeeperGCNConfig:
 
 
 # (field, value the port supports) — anything else is a later slice's work
-_SUPPORTED = (("node_encoder", "linear"), ("graph_pooling", ""), ("remat", False),
-              ("add_virtual_node", False), ("checkpoint_prologue", False))
+_SUPPORTED = (("node_encoder", "linear"), ("graph_pooling", ""),
+              ("add_virtual_node", False))
 EDGE_MODES = ("none", "per_layer", "one_time")
 
 
@@ -131,6 +140,14 @@ class DeeperGCN(nn.Module):
         def drop(h):
             return dropout(h, c.dropout, train=train, generator=generator)
 
+        def ckpt(on: bool, fn, *args):
+            """``fn(*args)``, recomputed in the backward when ``on``."""
+            if on and torch.is_grad_enabled():
+                return checkpoint_replay(fn, generator, *args)
+            return fn(*args)
+
+        ckpt_pro = train and c.checkpoint_prologue
+
         if c.use_one_hot_encoding:
             if node_feats is None:
                 raise ValueError("use_one_hot_encoding needs node_feats")
@@ -147,16 +164,29 @@ class DeeperGCN(nn.Module):
             h = self.gcns[0](h, g, **ee)
             if carry is not None:
                 h = h.to(carry)
+
+            def prologue(h, i):
+                return drop(torch.relu(self.norms[i - 1](h, mask)))
+
+            def body(h, i):
+                h2 = ckpt(ckpt_pro, prologue, h, i)
+                return h + self.gcns[i](h2, g, **ee).to(h.dtype)
+
             for i in range(1, c.num_layers):
-                h2 = drop(torch.relu(self.norms[i - 1](h, mask)))
-                h = h + self.gcns[i](h2, g, **ee).to(h.dtype)
+                h = ckpt(c.remat, body, h, i)
             h = self.norms[c.num_layers - 1](h, mask)
             if c.final_relu:
                 h = torch.relu(h)
             if c.final_dropout:
                 h = drop(h)
         else:
+            def epilogue(h1, h, i):
+                h3 = torch.relu(self.norms[i](h1, mask))
+                return drop(h3 + h if c.block == "res" else h3)
+
+            def body(h, i):
+                return ckpt(ckpt_pro, epilogue, self.gcns[i](h, g, **ee), h, i)
+
             for i in range(c.num_layers):
-                h3 = torch.relu(self.norms[i](self.gcns[i](h, g, **ee), mask))
-                h = drop(h3 + h if c.block == "res" else h3)
+                h = ckpt(c.remat, body, h, i)
         return self.node_pred_linear(h)

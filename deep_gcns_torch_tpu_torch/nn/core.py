@@ -16,12 +16,29 @@ Two departures from `torch.nn`, both inherited from the JAX package:
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+import threading
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
+
+_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def _frozen_running_stats():
+    """Inside, `BatchNorm` in training mode normalises with the batch's
+    statistics but leaves its running statistics as they are."""
+    prev = getattr(_STATS, "frozen", False)
+    _STATS.frozen = True
+    try:
+        yield
+    finally:
+        _STATS.frozen = prev
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
@@ -117,15 +134,19 @@ class BatchNorm(nn.Module):
                 mu = x.mean(0)
                 ex2 = (x * x).mean(0)
             var = torch.clamp_min(ex2 - mu * mu, 0.0)
-            with torch.no_grad():
-                unbiased = var * cnt / torch.clamp_min(cnt - 1.0, 1.0)
-                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mu)
-                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
-                self.num_batches_tracked.add_(1)
+            if not getattr(_STATS, "frozen", False):
+                self._update_running(mu, var, cnt)
         else:
             mu, var = self.running_mean, self.running_var
         y = (x - mu) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+    @torch.no_grad()
+    def _update_running(self, mu, var, cnt):
+        unbiased = var * cnt / torch.clamp_min(cnt - 1.0, 1.0)
+        self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mu)
+        self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        self.num_batches_tracked.add_(1)
 
 
 class LayerNorm(nn.Module):
@@ -185,6 +206,34 @@ def dropout(x: torch.Tensor, rate: float, *, train: bool,
     keep = torch.rand(x.shape, device=x.device, generator=generator) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
+
+
+def checkpoint_replay(fn: Callable, generator: Optional[torch.Generator], *args):
+    """`torch.utils.checkpoint` of ``fn(*args)`` (non-reentrant): the
+    backward recomputes ``fn`` instead of keeping its activations. The
+    recompute draws the same dropout masks as the forward (it starts from
+    the state that ``generator`` had before the forward and leaves the
+    generator as it found it: checkpoint itself restores only the global
+    RNGs) and leaves BatchNorm's running statistics alone (the forward
+    updated them once)."""
+    start = generator.get_state() if generator is not None else None
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a)
+        after = generator.get_state() if generator is not None else None
+        if generator is not None:
+            generator.set_state(start)
+        try:
+            with _frozen_running_stats():
+                return fn(*a)
+        finally:
+            if generator is not None:
+                generator.set_state(after)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def shared_dropout_mask(shape, rate: float, generator: Optional[torch.Generator],

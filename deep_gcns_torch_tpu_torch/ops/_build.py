@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("seg_sum", "softmax_agg", "band", "softmax_bwd_csc", "gat_fwd", "gat_bwd_csc",
-           "win_fused", "win_der", "win_dsend")
+           "win_fused", "win_der", "win_dsend", "blocksparse")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -54,6 +54,7 @@ _SIGNATURES = {
     **{src: {f"dgc_{src}_{t}": [_P] * n_ptr + [_I] * 5 + [_F, _U, _U, _I, _I, _I, _P]
              for t in ("f32", "bf16")}
        for src, n_ptr in (("win_fused", 11), ("win_der", 11), ("win_dsend", 12))},
+    "blocksparse": {name: [_P] * 5 + [_I, _I, _P] for name in ("dgc_bsp_f32", "dgc_bsp_bf16")},
 }
 
 _lock = threading.Lock()

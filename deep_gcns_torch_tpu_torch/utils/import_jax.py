@@ -64,14 +64,23 @@ def _learned(cfg) -> Dict[str, bool]:
             "y": cfg.learn_y and cfg.aggr in ("softmax_sum", "power_sum")}
 
 
+def _entry(seq, i: int) -> dict:
+    """Entry i of a list of per-layer trees, or of a dict keyed by int (a
+    tree read back from a file, where leafless entries are missing)."""
+    if isinstance(seq, dict):
+        return seq.get(i, {})
+    return seq[i] if i < len(seq) else {}
+
+
 def _genconv(out, pre: str, gp: dict, gs: dict, cfg, norm: str, idx):
     """One GENConv's entries under ``pre`` from the JAX conv params stacked
     on leading axes, picked at ``idx`` (a layer, or a (layer, group) pair)."""
+    gs_mlp = gs.get("mlp", {})
     for i, e in enumerate(_mlp_seq(cfg.mlp_layers, norm)):
         _linear(out, f"{pre}.mlp.{e['lin']}", gp["mlp"][i]["lin"], idx)
         if "norm" in e:
             _norm(out, f"{pre}.mlp.{e['norm']}", gp["mlp"][i]["norm"],
-                  gs["mlp"][i].get("norm", {}), norm, idx)
+                  _entry(gs_mlp, i).get("norm", {}), norm, idx)
     for name, on in _learned(cfg).items():
         if on:
             out[f"{pre}.{name}"] = _t(np.asarray(gp[name])[idx])

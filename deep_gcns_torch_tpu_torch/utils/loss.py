@@ -1,6 +1,5 @@
-"""Losses (counterpart of `deep_gcns_torch_tpu/utils/loss.py:22-29, 46-70`:
-`cross_entropy`, `bce_with_logits` and `kd_loss`; the other losses of the
-JAX package come with later slices)."""
+"""Losses (counterpart of `deep_gcns_torch_tpu/utils/loss.py:22-70`:
+`cross_entropy`, `smooth_cross_entropy`, `bce_with_logits` and `kd_loss`)."""
 
 from __future__ import annotations
 
@@ -18,6 +17,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return nll.mean()
     m = mask.to(nll.dtype)
     return (nll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+
+
+def smooth_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         smoothing: float = 0.2,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross entropy against the smoothed target one-hot·(1 − ε) + ε/K
+    (`utils/loss.py:32-43`, reference SmoothCrossEntropy)."""
+    k = logits.shape[-1]
+    logp = torch.log_softmax(logits, dim=-1)
+    target = torch.nn.functional.one_hot(labels.long(), k).to(logp.dtype)
+    target = target * (1.0 - smoothing) + smoothing / k
+    loss = -(target * logp).sum(-1)
+    if mask is None:
+        return loss.mean()
+    m = mask.to(loss.dtype)
+    return (loss * m).sum() / torch.clamp_min(m.sum(), 1.0)
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,

@@ -14,9 +14,11 @@ def test_app_trains_on_cpu(capsys):
     assert "epoch 1 loss" in capsys.readouterr().out
 
 
-def test_app_needs_synthetic():
-    with pytest.raises(NotImplementedError):
-        ogbn_arxiv.main(["--device", "cpu", "--epochs", "1"])
+def test_app_needs_synthetic(tmp_path):
+    """Without --synthetic the app reads the OGB cache; with none there it
+    raises the JAX loader's FileNotFoundError (there is no download)."""
+    with pytest.raises(FileNotFoundError, match="--synthetic"):
+        ogbn_arxiv.main(["--device", "cpu", "--epochs", "1", "--data_root", str(tmp_path)])
 
 
 @pytest.mark.parametrize("reorder", ["cluster", "rcm"])
@@ -84,7 +86,11 @@ def test_revgat_app_dense_route_on_cpu(capsys, monkeypatch, extra):
     assert len(calls) == 2 * (4 + 2) + 2 * 2 * 4
 
 
-@pytest.mark.parametrize("argv", [["--synthetic", "--mode", "student"], []])
-def test_revgat_app_raises_for_what_is_not_ported(argv):
-    with pytest.raises(NotImplementedError):
-        ogbn_arxiv_dgl.main(argv + ["--device", "cpu", "--epochs", "1"])
+@pytest.mark.parametrize("argv,exc", [(["--synthetic", "--mode", "student"], ValueError),
+                                      ([], FileNotFoundError)])
+def test_revgat_app_raises_for_what_is_not_ported(tmp_path, argv, exc):
+    """Student mode needs --teacher_ckpt; without --synthetic and without
+    the OGB cache the loader raises."""
+    with pytest.raises(exc):
+        ogbn_arxiv_dgl.main(argv + ["--device", "cpu", "--epochs", "1",
+                                    "--data_root", str(tmp_path)])

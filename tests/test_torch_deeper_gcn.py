@@ -111,9 +111,9 @@ def test_deepergcn2_reference_golden():
 
 def test_unported_options_raise():
     base = dict(in_channels=4, hidden_channels=8, num_tasks=2, num_layers=2)
-    for opt in (dict(edge_mode="bond"), dict(edge_mode="one_time_bond"), dict(remat=True),
-                dict(checkpoint_prologue=True), dict(add_virtual_node=True),
-                dict(graph_pooling="mean"), dict(node_encoder="atom")):
+    for opt in (dict(edge_mode="bond"), dict(edge_mode="one_time_bond"),
+                dict(add_virtual_node=True), dict(graph_pooling="mean"),
+                dict(node_encoder="atom")):
         with pytest.raises(NotImplementedError):
             DeeperGCN(DeeperGCNConfig(**base, **opt))
 

@@ -30,7 +30,13 @@ MODULES = ["deep_gcns_torch_tpu_torch", "deep_gcns_torch_tpu_torch.device",
            "deep_gcns_torch_tpu_torch.ops.gather", "deep_gcns_torch_tpu_torch.convs",
            "deep_gcns_torch_tpu_torch.convs.dgl_gat", "deep_gcns_torch_tpu_torch.models",
            "deep_gcns_torch_tpu_torch.models.rev_gat",
-           "deep_gcns_torch_tpu_torch.apps.ogbn_arxiv_dgl"]
+           "deep_gcns_torch_tpu_torch.apps.ogbn_arxiv_dgl",
+           "deep_gcns_torch_tpu_torch.ops.blocksparse", "deep_gcns_torch_tpu_torch.utils.ckpt",
+           "deep_gcns_torch_tpu_torch.utils.ckpt_async",
+           "deep_gcns_torch_tpu_torch.utils.import_torch",
+           "deep_gcns_torch_tpu_torch.utils.logger", "deep_gcns_torch_tpu_torch.utils.profiling",
+           "deep_gcns_torch_tpu_torch.apps.ogbn_arxiv_test",
+           "deep_gcns_torch_tpu_torch.apps.ogbn_proteins_test"]
 
 
 def test_import_leaves_jax_out():

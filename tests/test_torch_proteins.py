@@ -177,8 +177,8 @@ def test_apps_train_on_cpu(app, capsys):
     assert "valid" in capsys.readouterr().out
 
 
-def test_apps_refuse_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ogbn_proteins.main(["--device", "cpu", "--epochs", "1"])
+def test_apps_refuse_what_is_not_ported(tmp_path):
+    with pytest.raises(FileNotFoundError, match="--synthetic"):  # no OGB cache there
+        ogbn_proteins.main(["--device", "cpu", "--epochs", "1", "--data_root", str(tmp_path)])
     with pytest.raises(NotImplementedError):
         ogbn_proteins_rev.main(TINY + ["--spatial", "2"])
