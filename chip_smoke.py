@@ -13,7 +13,10 @@ every check; nothing is caught):
 2. kernels: K1 (plain and gathered form) and K2 in float32 and bfloat16, and
    the fused aggregation's autograd backward, against the plain versions at
    the main path's shapes (ogbn-arxiv size: N=169,343, 14 random in-edges per
-   node plus self-loops, C=128);
+   node plus self-loops, C=128); K2 launched twice, bit for bit; K2's corner
+   cases on a 3,000-node graph with a hub row of 5,000 edges and 100 rows
+   with no edge, at C=40, 64, 128 and 41, f32 and bf16 (empty rows exact 0,
+   two launches bit for bit);
 3. agreement: a small DeeperGCN on the card (kernels) against the same
    weights on the CPU (plain versions): logits and gradients;
 4. main path, gather route: ResGEN-28 (res+, softmax_sg t=0.1, batch norm,
@@ -25,7 +28,9 @@ every check; nothing is caught):
    device time by kernel and the device's busy share of the window;
 6. timing: CUDA-event times of K1 (gathered form, as the backward calls it)
    and K2 at the main shapes, beside their plain versions, a library yardstick
-   for K1 and the least time the card could take for the same work;
+   for K1 and the least time the card could take for the same work (for K2
+   the larger of its bytes, its float32 operations and its accurate expf
+   calls on the special-function units);
 7. band graph: the realistic power-law community graph (N=169,343, average
    degree 15, `cluster_order` with clusters of 16,384, `attach_band` with
    window and hubs "auto"), built on the host by the native library (which
@@ -50,7 +55,8 @@ every check; nothing is caught):
 14. edge kernels: K2 with edge embeddings and K4 (with and without dt) in
    float32 and bfloat16 at C=40 (a RevGCN group) and C=64 (DyResGEN), and
    the fused Function with edge embeddings forward and backward
-   (softmax_sg and learn_t), against the plain versions;
+   (softmax_sg and learn_t), against the plain versions; K2 with `ee`
+   launched twice, bit for bit, and on phase 2's corner graph;
 15. edge agreement: a small RevGCN and a small DyResGEN on the card against
    the same weights on the CPU: logits and every gradient;
 16. main path, RevGCN at L=101 then L=1001 (80 channels, group 2, bf16)
@@ -69,7 +75,7 @@ every check; nothing is caught):
    ogbn-proteins (132,534 nodes, degree 60, 10 clusters, 14 layers, 5
    evaluation parts, bf16), with its host partition seconds;
 19. timing of K2 with `ee` and K4 in bf16 at C=40 on the cluster graph,
-   beside their plain versions and bounds;
+   beside their plain versions and bounds (K2's as in phase 6);
 20. RevGAT graph: `bench.py:420-428`'s power-law community graph (N=169,343,
    degree 8, alpha 0.6) made symmetric, with self-loops, cluster order at
    16,384 and its band ("auto");
@@ -112,12 +118,15 @@ every check; nothing is caught):
    prototype's shape (N=169,343, degree 15, bandwidth 256, seed 0) and its
    tiles for A and Aᵀ, with their fill, tile counts and host build seconds;
 31. K10 against its plain version: forward and transpose tiles, f32 and
-   bf16, C=128 and C=40, directly and through `block_spmm`'s backward, and
-   receiver blocks with no edge, which must come out exact 0;
+   bf16, C=128, 40 and 3, directly (two launches bit for bit) and through
+   `block_spmm`'s backward; receiver blocks with no edge, which must come
+   out exact 0; and one (r, s) edge 300 times in a tile beside others and
+   one 520 times, exact against the plain version on integer-valued x;
 32. K10's drive and timing: `block_spmm` forward and backward once (2
    launches), then K10 in bf16 at C=128 beside its plain version,
    `torch.sparse.mm` of the same adjacency, K1 on the same edges and its
-   bound (no route of the JAX package calls K10);
+   bound, with K10's ratios to the three (no route of the JAX package
+   calls K10);
 33. checkpoint path, arxiv: `apps/ogbn_arxiv.main` as ResGEN-28 (bf16) on
    169,343 synthetic nodes for 2 epochs with `--save_ckpt`, resumed with
    `--pretrained_model` to epoch 4, and `apps/ogbn_arxiv_test.main` on the
@@ -143,6 +152,14 @@ The line before the last is a JSON object listing the kernels; the last line
 is `{"ok": true, "device": {...}}`. `--rehearse-cpu` runs every phase on the
 CPU at a tiny size through the plain versions, for checking the script
 without a card; it prints no device result.
+
+`--kernel-times` runs phase 1 and then only times K2 (C=128, and with `ee`
+at C=40 and 64) and K10 (C=128) in float32 and bfloat16 at the shapes of
+phases 6, 19 and 32, printing one JSON line and no device result. It uses
+the package beside the script, so two commits compare on one card by
+copying this script into a checkout of each (`git archive <commit>` into a
+git-ignored directory) and running the copies in turns: parent, change,
+change, parent.
 """
 
 from __future__ import annotations
@@ -162,6 +179,9 @@ PKG = "deep_gcns_torch_tpu_torch"
 # published peaks of one H100 SXM (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# accurate expf takes one ex2 on the special-function units, 16 a clock per
+# SM: 132 SMs at 1.98 GHz
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 # tolerances, kernel against plain version: |a - b| <= rtol*|b| + atol_rel*max|b|.
 # Each per-edge term is bit for bit the same in kernel and plain version; only
@@ -334,6 +354,10 @@ def phase_kernels(g):
         k2_in = dict(x=x, senders=g.senders, row_ptr=g.row_ptr, t=t, cmax=cmax, eps=1e-7)
         e2 = max(chk.close(f"K2 out {tag}", out, out_p, inputs=k2_in, **tol),
                  chk.close(f"K2 den {tag}", den, den_p, inputs=k2_in, **tol))
+        out2, den2 = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7)
+        chk.equal(f"K2 {tag} two launches bit for bit (out)", out2, out)
+        chk.equal(f"K2 {tag} two launches bit for bit (den)", den2, den)
+        del out2, den2
         msgs = torch.randn(g.num_edges_padded, 128, device=dev, generator=gen).to(dtype)
         e1a = chk.close(f"K1 plain form {tag}", tsp.csr_seg_sum(msgs, g.row_ptr),
                         tsp.csr_seg_sum_plain(msgs, g.row_ptr), **tol)
@@ -359,9 +383,52 @@ def phase_kernels(g):
                 chk.close(f"{name} dt", res[0][2], res[1][2], **TOL_DT[tag])
             del res
         errs[tag] = {"K1": max(e1a, e1b), "K2": e2}
+    k2_corner_checks(chk, k2_corner_graph(dev), False, gen)
     sync(dev)
     chk.raise_if_failed()
     return errs
+
+
+def k2_corner_graph(dev):
+    """K2's corner cases in one graph: 3,000 nodes, 30,000 random edges with
+    8-dim edge features, a hub row of 5,000 in-edges (row 11) and 100 rows
+    with no edge (the last nodes receive none)."""
+    rng = np.random.default_rng(13)
+    n, e = 3000, 30_000
+    s, r = rng.integers(0, n, e), rng.integers(0, n - 100, e)
+    r[:5000] = 11
+    return build_graph(None, s, r, edge_attr=rng.random((e, 8)).astype(np.float32),
+                       num_nodes=n).to(dev)
+
+
+def k2_corner_checks(chk, g, with_ee, gen):
+    """K2 (with ``ee`` or without) against its plain version on
+    `k2_corner_graph` at C = 40, 64 and 128 (3, 2 and 1 lane groups) and 41
+    (the scalar form), float32 and bf16: the hub row within the tolerance,
+    the rows with no edge exact 0, two launches bit for bit the same."""
+    dev = g.senders.device
+    t = torch.tensor([0.7], device=dev)
+    empty = (g.row_ptr[1:] == g.row_ptr[:-1]).nonzero()[:, 0]
+    name = "K2 ee" if with_ee else "K2"
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for c in (40, 64, 128, 41):
+            x, ee, _ = edge_inputs(g, c, dtype, gen)
+            ee = ee if with_ee else None
+            cmax = tsp.fused_cmax(x, t, 1e-7, ee)
+            out, den = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+            out_p, den_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+            k2_in = dict(x=x, ee=ee, senders=g.senders, row_ptr=g.row_ptr, t=t, cmax=cmax,
+                         eps=1e-7)
+            chk.close(f"{name} corner graph out C={c} {tag}", out, out_p, inputs=k2_in, **tol)
+            chk.close(f"{name} corner graph den C={c} {tag}", den, den_p, inputs=k2_in, **tol)
+            zero = torch.zeros(len(empty), c, dtype=dtype, device=dev)
+            chk.equal(f"{name} rows with no edge exact 0 C={c} {tag} (out)", out[empty], zero)
+            chk.equal(f"{name} rows with no edge exact 0 C={c} {tag} (den)", den[empty], zero)
+            out2, den2 = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+            chk.equal(f"{name} two launches bit for bit C={c} {tag} (out)", out2, out)
+            chk.equal(f"{name} two launches bit for bit C={c} {tag} (den)", den2, den)
 
 
 def phase_agreement(dev):
@@ -552,8 +619,12 @@ def time_fn(fn, dev, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def bound(bytes_moved, flops):
-    b_ms, f_ms = bytes_moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+def bound(bytes_moved, flops, exps=0):
+    """The least time for the work: bytes over the memory rate, or float32
+    operations over their rate, or accurate `expf` calls over the
+    special-function units' rate, whichever is larger."""
+    b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    f_ms = max(flops / F32_FLOP_PER_S, exps / SFU_EXP_PER_S) * 1e3
     return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
 
 
@@ -597,7 +668,7 @@ def phase_timing(g, errs, launches, iters):
     # K2: x read once, out and den written once (bf16), senders, row_ptr, cmax
     # and t; per (edge, channel): max, add, mul, sub, exp, mul, 2 roundings,
     # 2 adds
-    k2_bound = bound(n_pad * c * 2 + idx_b + 4 * c + 4 + 2 * n_pad * c * 2, 10 * e * c)
+    k2_bound = bound(n_pad * c * 2 + idx_b + 4 * c + 4 + 2 * n_pad * c * 2, 10 * e * c, e * c)
     rows = [
         {"name": "K1 seg_sum_csr", "route": "cuda",
          "source": f"{PKG}/csrc/seg_sum.cu",
@@ -615,6 +686,9 @@ def phase_timing(g, errs, launches, iters):
     log("[timing] K2 has no single PyTorch call that computes it: library_ms is null")
     log(f"[timing] max errors f32 {errs['f32']} bf16 {errs['bf16']}; "
         f"exp count per K2 call {e * c}")
+    log(f"[timing] K2 {k2_ms:.4f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]}: the larger "
+        f"of bytes, float32 operations and {e * c} accurate expf on the special-function "
+        f"units); card: {CARD}")
     return rows
 
 
@@ -805,6 +879,10 @@ def phase_edge_kernels(g):
             out_p, den_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
             e2 = max(e2, chk.close(f"K2 ee out C={c} {tag}", out, out_p, **tol),
                      chk.close(f"K2 ee den C={c} {tag}", den, den_p, **tol))
+            out2, den2 = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+            chk.equal(f"K2 ee C={c} {tag} two launches bit for bit (out)", out2, out)
+            chk.equal(f"K2 ee C={c} {tag} two launches bit for bit (den)", den2, den)
+            del out2, den2
             q = torch.randn(n_pad, c, device=dev, generator=gen).to(dtype)
             for gw in (False, True):
                 qo = torch.cat([q, out_p], 1).contiguous() if gw else q
@@ -839,6 +917,7 @@ def phase_edge_kernels(g):
                     chk.close(f"{name} dt", res[0][3], res[1][3], **TOL_DT[tag])
                 del res
         errs[tag] = {"K2 ee": e2, "K4": e4}
+    k2_corner_checks(chk, k2_corner_graph(dev), True, gen)
     sync(dev)
     chk.raise_if_failed()
     return errs
@@ -1059,7 +1138,7 @@ def phase_edge_timing(g, errs, launches, iters):
     # K2 with ee: x and ee read once, out and den written once (bf16), the
     # senders, row_ptr, cmax and t; per (edge, channel): add, max, add, mul,
     # sub, exp, mul, 2 roundings, 2 adds
-    k2_bound = bound(n_pad * c * 2 + e * c * 2 + idx_b + 2 * n_pad * c * 2, 11 * e * c)
+    k2_bound = bound(n_pad * c * 2 + e * c * 2 + idx_b + 2 * n_pad * c * 2, 11 * e * c, e * c)
     # K4: x, ee_csc and qo read once, dx and dee (all E_pad rows) written
     # once; per (edge, channel): add, max, add, mul, sub, exp, mul, select,
     # rounding, add
@@ -1075,7 +1154,8 @@ def phase_edge_timing(g, errs, launches, iters):
                      "replaces": line, "launches": launches[key],
                      "max_abs_err": errs["bf16"][key], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
-        log(f"[edge-timing] {name} C={c}: {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        log(f"[edge-timing] {name} C={c}: {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); "
+            f"card: {CARD}")
     log("[edge-timing] no single PyTorch call computes K2 with ee or K4: library_ms is null")
     return rows
 
@@ -1641,10 +1721,13 @@ def phase_bsp_kernels(bg, dev):
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
         tag = "f32" if dtype == torch.float32 else "bf16"
-        for c in (128, 40):
+        for c in (128, 40, 3):
             x = torch.randn(n_pad, c, device=dev, generator=gen).to(dtype)
             co = torch.randn(n_pad, c, device=dev, generator=gen).to(dtype)
-            e = max(chk.close(f"K10 forward {tag} C={c}", tbs.bsp_call(x, tiles),
+            out = tbs.bsp_call(x, tiles)
+            chk.equal(f"K10 forward {tag} C={c} two launches bit for bit", tbs.bsp_call(x, tiles),
+                      out)
+            e = max(chk.close(f"K10 forward {tag} C={c}", out,
                               tbs.bsp_call_plain(x, tiles), **tol),
                     chk.close(f"K10 transpose {tag} C={c}", tbs.bsp_call(co, tiles_t),
                               tbs.bsp_call_plain(co, tiles_t), **tol))
@@ -1658,7 +1741,7 @@ def phase_bsp_kernels(bg, dev):
                     chk.close(f"block_spmm dx {tag} C={c}", res[0][1], res[1][1], **tol))
             if c == 128:
                 errs[tag] = e
-            del x, co, res
+            del x, co, res, out
     rng = np.random.default_rng(1)
     n = 40 * tbs.BN
     s = rng.integers(0, n, n * 12)
@@ -1670,6 +1753,20 @@ def phase_bsp_kernels(bg, dev):
     zero = torch.zeros(tbs.BN, 128, dtype=torch.bfloat16, device=dev)
     chk.equal("K10 empty receiver block 0 is exact 0", out[:tbs.BN], zero)
     chk.equal("K10 empty last receiver block is exact 0", out[-tbs.BN:], zero)
+    # cells that bf16 cannot hold as one count: one (r, s) edge 300 times in a
+    # tile beside others, and one 520 times (a full tile of 512, then more);
+    # integer-valued x keeps every float32 sum exact, so kernel and plain
+    # version must agree bit for bit
+    s = np.concatenate([s, np.full(300, 3 * tbs.BN + 7), np.full(520, 9 * tbs.BN + 100)])
+    r = np.concatenate([r, np.full(300, 2 * tbs.BN + 5), np.full(520, 9 * tbs.BN + 1)])
+    mt, mt_t = (t.to(dev) for t in tbs.build_block_tiles(s, r, n))
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for c in (128, 40, 3):
+            xi = torch.randint(-8, 9, (n, c), device=dev, generator=gen).to(dtype)
+            for direction, tl in (("forward", mt), ("transpose", mt_t)):
+                chk.equal(f"K10 300- and 520-fold cells {direction} {tag} C={c} exact",
+                          tbs.bsp_call(xi, tl), tbs.bsp_call_plain(xi, tl))
     sync(dev)
     chk.raise_if_failed()
     return errs
@@ -1728,6 +1825,11 @@ def phase_bsp_timing(bg, errs, iters):
         f"{lib_ms:.4f} ms, K1 on the same edges {k1_ms:.4f} ms; bound {b[0]:.4f} ms "
         f"({b[1]}, {bytes_moved / 1e6:.1f} MB); fill {tiles.fill:.4f}, {nt} tiles; "
         f"card: {CARD}")
+    log(f"[bsp] K10 / torch.sparse.mm {k10_ms / lib_ms:.4f}, K10 / K1 {k10_ms / k1_ms:.4f}, "
+        f"K10 / bound {k10_ms / b[0]:.2f}; the dense tile products "
+        f"{2 * tbs.BN * tbs.SB * c * nt / 1e9:.1f} GFLOP take "
+        f"{2 * tbs.BN * tbs.SB * c * nt / BF16_TENSOR_FLOP_PER_S * 1e3:.4f} ms at the bf16 "
+        f"tensor-core peak; card: {CARD}")
     return {"name": "K10 block_spmm", "route": "cuda", "source": f"{PKG}/csrc/blocksparse.cu",
             "replaces": "deep_gcns_torch_tpu/ops/blocksparse.py:123",
             "launches": launches["K10"], "max_abs_err": errs["bf16"], "ms": k10_ms,
@@ -1890,6 +1992,38 @@ def phase_remat(g, labels, layers):
     return info
 
 
+def phase_kernel_times(dev, n, cluster, iters):
+    """`--kernel-times`: `time_fn`'s times of K2 at C=128 on the main graph,
+    K2 with `ee` at C=40 and 64 on the cluster graph and K10 at C=128 on the
+    block-sparse graph, each in float32 and bfloat16, as one JSON line beside
+    the card's name and power limit. No check and no model runs."""
+    res = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g, _ = main_graph(n, dev)
+    t = torch.tensor([0.1], device=dev)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x = g.x.to(dtype).contiguous()
+        cmax = tsp.fused_cmax(x, t, 1e-7)
+        res[f"K2 C=128 {tag}"] = time_fn(
+            lambda: tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7), dev, iters)
+    del g, x
+    g, _ = cluster_graph(*cluster, dev)
+    t = torch.tensor([1.0], device=dev)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for c in (40, 64):
+            x, ee, _ = edge_inputs(g, c, dtype, gen)
+            cmax = tsp.fused_cmax(x, t, 1e-7, ee)
+            res[f"K2 ee C={c} {tag}"] = time_fn(
+                lambda: tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee), dev,
+                iters)
+    del g, x, ee
+    bg = bsp_graph(n, dev)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x = torch.randn(bg["n_pad"], 128, device=dev, generator=gen).to(dtype)
+        res[f"K10 C=128 {tag}"] = time_fn(lambda: tbs.bsp_call(x, bg["tiles"]), dev, iters)
+    log(json.dumps({"root": ROOT, "card": CARD, "kernel_ms": res}))
+
+
 def main(argv):
     rehearse = "--rehearse-cpu" in argv
     if not rehearse and not torch.cuda.is_available():
@@ -1900,6 +2034,9 @@ def main(argv):
     t_all = time.time()
     info = phase_device(dev)
     mark("device")
+    if "--kernel-times" in argv:
+        phase_kernel_times(dev, n, (800, 10) if rehearse else (13_000, 60), iters)
+        return 0
     g, labels = main_graph(n, dev)
     g_main, labels_main = g, labels  # the remat phase runs on it at the end
     errs = phase_kernels(g)

@@ -17,29 +17,61 @@
 //
 // Replaces the TPU kernel `_softmax_agg_kernel` (spmm_pallas.py:322, called
 // at :372), which streamed pre-gathered x[senders] tiles (an XLA gather at
-// :699) through a one-hot MXU matmul.  Here the gather is fused: each warp
-// owns one receiver row, lanes span the channels, and every edge's sender row
-// is read straight from x.  With edge embeddings (the `has_ee` branch,
-// spmm_pallas.py:323-344) `ee` is in receiver (CSR) order, so a row's
-// embeddings are one contiguous stretch of [row_ptr[n], row_ptr[n+1]) rows
-// and the lanes read them coalesced, beside the gathered sender rows.
+// :699) through a one-hot MXU matmul.  Here the gather is fused: a warp owns
+// one receiver row and every edge's sender row is read straight from x.
+// With edge embeddings (the `has_ee` branch, spmm_pallas.py:323-344) `ee` is
+// in receiver (CSR) order, so a row's embeddings are one contiguous stretch
+// of [row_ptr[n], row_ptr[n+1]) rows, read beside the gathered sender rows.
 //
-// What bounds it on the H100: at the main shape (2.54M edges, C=128, bf16)
-// the bytes are one gathered row per edge plus the node tables (plus one
-// streamed ee row per edge with embeddings), and the operations are one exp
-// per (edge, channel) on the special-function units; chip_smoke.py prints
-// which bound is larger for the run.  The design issues four independent
-// sender-row loads per step to keep several in flight and uses accurate expf
-// (the plain version's exp) rather than __expf.  Note that x (43 MB in bf16
-// at the main shape) fits the 50 MB L2, so most of the per-edge row reads
-// hit L2 rather than HBM.
+// What bounds it on the H100 (SXM, 700 W): the bytes are one gathered row
+// per edge plus the node tables (plus one streamed ee row per edge with
+// embeddings); the operations are ~10 float32 operations and one accurate
+// expf, which takes the special-function units, per (edge, channel).  The
+// latter bounds C=128 (chip_smoke.py prints the bound).  x (43 MB in bf16 at
+// ResGEN-28's shape, 2 MB at a RevGCN group's) fits the 50 MB L2, so most
+// gathered rows come from L2, and what sets the time is how many of them a
+// warp keeps in flight: each edge is a dependent senders[e] -> x[s] chain.
+// Lanes laid across the channels alone, 4 to a lane, leave 22 of 32 lanes
+// idle at C=40 and walk a ~60-edge row in 15 dependent steps.
+//
+// The design: lane groups over edges.  The warp's lanes split into G groups
+// of w = ceil(C / VEC) lanes, G = 32 / w, with VEC = 4 (16-byte float32 or
+// 8-byte bf16 loads) where the rows allow them, else VEC = 1 (a scalar
+// form).  Group g walks the edges e = start + g, g + G, ... with four edges
+// in flight a lane, and the G partial (num, den) pairs of each channel are
+// added at the end in the fixed order g = 0 .. G-1 through warp shuffles, so
+// the result is deterministic.  In bf16 C=40 gives w=10, G=3 (30 lanes busy,
+// 12 edges in flight a warp, against 10 lanes and 4 edges with one group),
+// C=64 w=16, G=2; C=128 and wider keep one group (w=32, G=1) and walk the
+// channels in chunks of 32·VEC.  float32 always takes one group, whose walk
+// adds each channel's terms in edge order: the plain version's sequential
+// sums.  A float32 sum over a long row of near-equal terms (a hub whose
+// messages sit at relu's floor) carries an order-dependent bias well above
+// 1e-5 relative, so the groups' interleaved order would move the float32
+// result off the plain version's by more than their agreement allows; in
+// bf16 the sums round to 8 bits at the end and the order does not show.  A
+// grouped float32 form that added every term in edge order through
+// shuffles measured 1.15x (C=40) and 1.39x (C=64) slower on the H100 than
+// this one group.  Eight bf16 values a lane (16-byte loads,
+// G=6 at C=40, G=2 at C=128) measured slower on the H100 at all three
+// widths: twice the registers a lane cost more occupancy than the wider
+// loads saved.  At C=128 the kernel is bound by instruction throughput
+// (~25 per (edge, channel), most of them the accurate expf and the two
+// roundings the contract fixes), so groups cannot help there.  Consecutive
+// edges' ee rows are contiguous, so the groups read one coalesced stretch a
+// step.  The wrapper (ops/spmm_cuda.py::k2_lane_groups) chooses w and G.
 #include "common.cuh"
 
 namespace dgc {
 
-template <typename T, int VEC>
-__device__ __forceinline__ void accumulate(const float* xv, const float* cm, float t,
-                                           float eps, float* num, float* den) {
+// one edge's terms round_T(w * m) and round_T(w), per channel.  PAIRED
+// rounds bf16 two values at a time (one packing conversion a pair, the same
+// round-to-nearest-even as one at a time): fewer instructions, which the
+// one-group form (C=128, bound by instruction throughput) gains from and
+// the grouped forms measured slower with
+template <typename T, int VEC, bool PAIRED>
+__device__ __forceinline__ void edge_terms(const float* xv, const float* cm, float t, float eps,
+                                           float* tn, float* td) {
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
     const float m = fmaxf(xv[k], 0.f) + eps;
@@ -47,8 +79,37 @@ __device__ __forceinline__ void accumulate(const float* xv, const float* cm, flo
     // so each term is bit for bit the plain version's and only the order of
     // the sums differs
     const float w = expf(__fsub_rn(__fmul_rn(m, t), cm[k]));
-    num[k] += round_to<T>(w * m);
-    den[k] += round_to<T>(w);
+    tn[k] = __fmul_rn(w, m);  // rounded as the plain version rounds it: no fma into the sum
+    td[k] = w;
+  }
+  if constexpr (PAIRED && sizeof(T) == 2 && VEC % 2 == 0) {
+#pragma unroll
+    for (int k = 0; k < VEC; k += 2) {
+      const float2 a = __bfloat1622float2(__floats2bfloat162_rn(tn[k], tn[k + 1]));
+      const float2 b = __bfloat1622float2(__floats2bfloat162_rn(td[k], td[k + 1]));
+      tn[k] = a.x;
+      tn[k + 1] = a.y;
+      td[k] = b.x;
+      td[k + 1] = b.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      tn[k] = round_to<T>(tn[k]);
+      td[k] = round_to<T>(td[k]);
+    }
+  }
+}
+
+template <typename T, int VEC, bool PAIRED>
+__device__ __forceinline__ void accumulate(const float* xv, const float* cm, float t,
+                                           float eps, float* num, float* den) {
+  float tn[VEC], td[VEC];
+  edge_terms<T, VEC, PAIRED>(xv, cm, t, eps, tn, td);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    num[k] += tn[k];
+    den[k] += td[k];
   }
 }
 
@@ -65,73 +126,120 @@ __device__ __forceinline__ void load_message(const T* __restrict__ x, const T* _
   }
 }
 
-template <typename T, int VEC, bool EE>
+// MULTI is false when the row takes one group (w = 32, G = 1): the layout is
+// then known at compile time and the kernel is the plain lanes-over-channels
+// walk, whose edge order is the sequential one.
+template <typename T, int VEC, bool EE, bool MULTI>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 softmax_agg_kernel(const T* __restrict__ x, const T* __restrict__ ee,
                    const int* __restrict__ senders, const int* __restrict__ row_ptr,
                    const float* __restrict__ t_ptr, const float* __restrict__ cmax,
                    T* __restrict__ out, T* __restrict__ den_out, int n_rows, int C,
-                   float eps) {
+                   int w_arg, int G_arg, float eps) {
+  constexpr int U = 4;  // edges in flight a lane
+  const int w = MULTI ? w_arg : 32;
+  const int G = MULTI ? G_arg : 1;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
+  if (row >= n_rows) return;  // the whole warp: the shuffles below see 32 lanes
+  const int g = lane / w;
+  const int j = lane - g * w;
   const int start = row_ptr[row];
   const int end = row_ptr[row + 1];
   const float t = *t_ptr;
-  for (int c0 = lane * VEC; c0 < C; c0 += 32 * VEC) {
+  for (int base = 0; base < C; base += w * VEC) {
+    const int c0 = base + j * VEC;
+    const bool on = g < G && c0 < C;
     float cm[VEC], num[VEC], den[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      cm[k] = cmax[c0 + k];
+      cm[k] = on ? cmax[c0 + k] : 0.f;
       num[k] = 0.f;
       den[k] = 0.f;
     }
-    int e = start;
-    for (; e + 4 <= end; e += 4) {
-      float v[4][VEC];
+    if (on) {
+      int e = start + g;
+      for (; e + (U - 1) * G < end; e += U * G) {
+        float v[U][VEC];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        load_message<T, VEC, EE>(x, ee, senders[e + u], e + u, C, c0, v[u]);
+        for (int u = 0; u < U; ++u)
+          load_message<T, VEC, EE>(x, ee, senders[e + u * G], e + u * G, C, c0, v[u]);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) accumulate<T, VEC>(v[u], cm, t, eps, num, den);
+        for (int u = 0; u < U; ++u) accumulate<T, VEC, !MULTI>(v[u], cm, t, eps, num, den);
+      }
+      for (; e < end; e += G) {
+        float v[VEC];
+        load_message<T, VEC, EE>(x, ee, senders[e], e, C, c0, v);
+        accumulate<T, VEC, !MULTI>(v, cm, t, eps, num, den);
+      }
     }
-    for (; e < end; ++e) {
-      float v[VEC];
-      load_message<T, VEC, EE>(x, ee, senders[e], e, C, c0, v);
-      accumulate<T, VEC>(v, cm, t, eps, num, den);
-    }
-    float o[VEC];
+    // the groups' partial sums, added in the order g = 0, 1, ..., G-1
+    float pn[VEC], pd[VEC];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) o[k] = den[k] > 0.f ? num[k] / den[k] : 0.f;
-    Rows<T, VEC>::store(out + (long long)row * C + c0, o);
-    Rows<T, VEC>::store(den_out + (long long)row * C + c0, den);
+    for (int k = 0; k < VEC; ++k) {
+      pn[k] = num[k];
+      pd[k] = den[k];
+    }
+    for (int h = 1; h < G; ++h) {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        num[k] += __shfl_sync(0xffffffffu, pn[k], h * w + j);
+        den[k] += __shfl_sync(0xffffffffu, pd[k], h * w + j);
+      }
+    }
+    if (on && g == 0) {
+      float o[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) o[k] = den[k] > 0.f ? num[k] / den[k] : 0.f;
+      Rows<T, VEC>::store(out + (long long)row * C + c0, o);
+      Rows<T, VEC>::store(den_out + (long long)row * C + c0, den);
+    }
   }
 }
 
 template <typename T, int VEC, bool EE>
 void launch_one(const void* x, const void* ee, const void* senders, const void* row_ptr,
                 const void* t, const void* cmax, void* out, void* den, int n_rows, int C,
-                float eps, cudaStream_t s) {
+                int w, int G, float eps, cudaStream_t s) {
   const dim3 grid(blocks_for_rows(n_rows)), block(kWarpsPerBlock * 32);
-  softmax_agg_kernel<T, VEC, EE><<<grid, block, 0, s>>>(
+  auto kernel = softmax_agg_kernel<T, VEC, EE, false>;
+  if constexpr (sizeof(T) == 2) {  // lane groups: bf16 only (see the head of this file)
+    if (G > 1) kernel = softmax_agg_kernel<T, VEC, EE, true>;
+  }
+  kernel<<<grid, block, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(ee), static_cast<const int*>(senders),
       static_cast<const int*>(row_ptr), static_cast<const float*>(t),
       static_cast<const float*>(cmax), static_cast<T*>(out), static_cast<T*>(den), n_rows,
-      C, eps);
+      C, w, G, eps);
 }
 
+template <typename T, int VEC>
+void launch_vec(const void* x, const void* ee, const void* senders, const void* row_ptr,
+                const void* t, const void* cmax, void* out, void* den, int n_rows, int C,
+                int w, int G, float eps, cudaStream_t s) {
+  if (ee)
+    launch_one<T, VEC, true>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps, s);
+  else
+    launch_one<T, VEC, false>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps,
+                              s);
+}
+
+// vec: 4 or 1, as the wrapper found the rows aligned; w and G: the lane
+// groups (w * G <= 32, w * VEC >= C unless w == 32; float32 takes G = 1)
 template <typename T>
 int launch_softmax_agg(const void* x, const void* ee, const void* senders,
                        const void* row_ptr, const void* t, const void* cmax, void* out,
-                       void* den, int n_rows, int C, float eps, int vec, void* stream) {
+                       void* den, int n_rows, int C, int w, int G, float eps, int vec,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    if (ee) launch_one<T, 4, true>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, eps, s);
-    else launch_one<T, 4, false>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, eps, s);
-  } else {
-    if (ee) launch_one<T, 1, true>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, eps, s);
-    else launch_one<T, 1, false>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, eps, s);
-  }
+  if (w < 1 || w > 32 || G < 1 || w * G > 32 || (sizeof(T) == 4 && G != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == 4)
+    launch_vec<T, 4>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps, s);
+  else if (vec == 1)
+    launch_vec<T, 1>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -139,19 +247,20 @@ int launch_softmax_agg(const void* x, const void* ee, const void* senders,
 
 // Plain C interface for ctypes.  `ee` may be null (no edge embeddings); it
 // has x's type and [E_pad, C] rows in receiver order.  Returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a lane
+// layout or vec the kernel does not take.
 extern "C" int dgc_softmax_agg_f32(const void* x, const void* ee, const void* senders,
                                    const void* row_ptr, const void* t, const void* cmax,
-                                   void* out, void* den, int n_rows, int C, float eps,
-                                   int vec, void* stream) {
+                                   void* out, void* den, int n_rows, int C, int w, int G,
+                                   float eps, int vec, void* stream) {
   return dgc::launch_softmax_agg<float>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows,
-                                        C, eps, vec, stream);
+                                        C, w, G, eps, vec, stream);
 }
 
 extern "C" int dgc_softmax_agg_bf16(const void* x, const void* ee, const void* senders,
                                     const void* row_ptr, const void* t, const void* cmax,
-                                    void* out, void* den, int n_rows, int C, float eps,
-                                    int vec, void* stream) {
+                                    void* out, void* den, int n_rows, int C, int w, int G,
+                                    float eps, int vec, void* stream) {
   return dgc::launch_softmax_agg<__nv_bfloat16>(x, ee, senders, row_ptr, t, cmax, out, den,
-                                                n_rows, C, eps, vec, stream);
+                                                n_rows, C, w, G, eps, vec, stream);
 }

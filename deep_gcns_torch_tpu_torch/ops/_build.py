@@ -38,7 +38,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "seg_sum": {name: [_P, _P, _P, _P, _I, _I, _I, _P]
                 for name in ("dgc_seg_sum_f32", "dgc_seg_sum_bf16")},
-    "softmax_agg": {name: [_P] * 8 + [_I, _I, _F, _I, _P]
+    # x, ee, senders, row_ptr, t, cmax, out, den; n_rows, C, w, G; eps, vec, stream
+    "softmax_agg": {name: [_P] * 8 + [_I] * 4 + [_F, _I, _P]
                     for name in ("dgc_softmax_agg_f32", "dgc_softmax_agg_bf16")},
     "softmax_bwd_csc": {name: [_P] * 10 + [_I, _I, _L, _F, _I, _I, _P]
                         for name in ("dgc_softmax_bwd_csc_f32", "dgc_softmax_bwd_csc_bf16")},

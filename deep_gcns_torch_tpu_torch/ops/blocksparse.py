@@ -16,8 +16,13 @@ Device side: `block_spmm(x, tiles, tiles_t)` is one autograd Function. Its
 forward runs K10 (`csrc/blocksparse.cu`) on ``tiles``, its backward K10 on
 ``tiles_t`` (dx = Aᵀ g). A CPU tensor takes the plain version, a CUDA tensor
 launches the kernel or raises; `block_spmm.launches` counts the launches.
-Any channel count works (the TPU kernel's `c % 128 == 0` is lane layout);
-the node count must be a multiple of 128.
+K10 rebuilds each tile as a dense [128, 128] block of edge counts in shared
+memory and multiplies it with the sender block on the tensor cores (float32
+x as three bf16 parts): the products are exact, and their float32
+accumulation follows the tensor cores' adder, so its sums differ from the
+plain version's `index_add_` in order and in rounding, within the tests'
+float32 tolerance. Any channel count works (the TPU kernel's
+`c % 128 == 0` is lane layout); the node count must be a multiple of 128.
 
 No route of the JAX package calls this module; it is ported as a module and
 a kernel.
@@ -144,8 +149,6 @@ def _check(tiles: BlockTiles, x: torch.Tensor):
         if a.device != x.device or a.dtype != dtype or not a.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on {x.device}, "
                              f"got {a.dtype} on {a.device}")
-    if tiles.offs.data_ptr() % 16:
-        raise ValueError("offs must be 16-byte aligned")
 
 
 def bsp_call(x: torch.Tensor, tiles: BlockTiles) -> torch.Tensor:

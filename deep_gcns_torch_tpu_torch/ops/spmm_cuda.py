@@ -61,6 +61,19 @@ def _vec(c: int, *tensors: torch.Tensor) -> int:
     return 4 if c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
 
 
+def k2_lane_groups(c: int, vec: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
+    """(w, G): K2 splits a warp's 32 lanes into G groups of w lanes, each
+    group walking every G-th edge of the row with w·vec channels; a row wider
+    than 32·vec takes w = 32, G = 1 and walks its channels in chunks. float32
+    takes one group, whose walk adds the terms in edge order as the plain
+    version does (a hub row's float32 sum depends on that order by more than
+    their 1e-5 agreement)."""
+    if dtype == torch.float32:
+        return 32, 1
+    w = min(32, -(-c // vec))
+    return w, 32 // w
+
+
 def _raise_on(rc: int, what: str):
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
@@ -209,11 +222,12 @@ def softmax_agg(x: torch.Tensor, senders: torch.Tensor, row_ptr: torch.Tensor,
     if n_rows == 0 or c == 0:
         return out, den
     t = t.contiguous()
-    vec_of = (x, out, den, cmax) if ee is None else (x, out, den, cmax, ee)
+    vec = _vec(c, *((x, out, den) if ee is None else (x, out, den, ee)))
+    w, groups = k2_lane_groups(c, vec, x.dtype)
     fn = getattr(library("softmax_agg"), f"dgc_softmax_agg_{_SUFFIX[x.dtype]}")
     rc = fn(x.data_ptr(), None if ee is None else ee.data_ptr(), senders.data_ptr(),
             row_ptr.data_ptr(), t.data_ptr(), cmax.data_ptr(), out.data_ptr(),
-            den.data_ptr(), n_rows, c, float(eps), _vec(c, *vec_of),
+            den.data_ptr(), n_rows, c, w, groups, float(eps), vec,
             torch.cuda.current_stream(x.device).cuda_stream)
     if ee is None:
         softmax_agg.launches += 1

@@ -164,3 +164,29 @@ def test_plain_twin_and_bf16_round_once():
 def test_n_pad_must_be_a_block_multiple():
     with pytest.raises(ValueError):
         tbs.build_block_tiles(np.zeros(1, np.int64), np.zeros(1, np.int64), 200)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_multi_edge_cells_above_256_match_jax(dtype):
+    """One (r, s) edge 300 times in a tile beside others, and one 520 times
+    (a full tile of 512 copies, then 8 more): counts that bf16 cannot hold
+    as one value, which the card's tensor-core form splits. The plain
+    version against JAX's `_bsp_spmm_call` in interpret mode; integer-valued
+    x keeps every float32 sum exact, so the two agree bit for bit."""
+    rng = np.random.default_rng(8)
+    n = 4 * jbs.SB
+    s, r = banded_graph(rng, n, 6, 150)
+    s = np.concatenate([s, np.full(300, jbs.SB + 7), np.full(520, 3 * jbs.SB + 100)])
+    r = np.concatenate([r, np.full(300, 5), np.full(520, 2 * jbs.SB + 1)])
+    x = rng.integers(-8, 9, (n, 128)).astype(np.float32)
+    jt, jtt = jbs.build_block_tiles(s, r, n)
+    tt, ttt = tbs.build_block_tiles(s, r, n)
+    _assert_tiles_equal(jt, tt)
+    _assert_tiles_equal(jtt, ttt)
+    assert tt.n_tiles > len(np.unique((r // jbs.BN) * (n // jbs.SB) + s // jbs.SB))
+    xt = torch.from_numpy(x).to(torch.bfloat16 if dtype is jnp.bfloat16 else torch.float32)
+    for j, t in ((jt, tt), (jtt, ttt)):
+        want = np.asarray(jbs._bsp_spmm_call(jnp.asarray(x, dtype), j, True), np.float32)
+        got = tbs.bsp_call_plain(xt, t).float().numpy()
+        np.testing.assert_array_equal(got, want)
+    assert np.abs(want).max() > 256

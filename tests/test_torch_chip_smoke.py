@@ -3,7 +3,10 @@ compared, and the inputs it was given, so that a miss of the CPU rehearsal
 or of the card can be replayed."""
 
 import importlib.util
+import json
 import os
+import subprocess
+import sys
 
 import torch
 
@@ -38,3 +41,22 @@ def test_failed_close_saves_what_it_compared(monkeypatch, tmp_path):
     # a passing check writes nothing
     chk.close("K2 den f32", want, want, **mod.TOL_F32)
     assert os.listdir(tmp_path / "check_failures") == ["kernels-K2_out_f32.pt"]
+
+
+def test_kernel_times_mode_prints_one_time_per_kernel_form():
+    """`--kernel-times` (rehearsed on the CPU) ends in one JSON line with a
+    positive time for K2, K2 with `ee` at C=40 and 64, and K10, each in
+    float32 and bfloat16, and prints no device result."""
+    import json
+    import subprocess
+    import sys
+
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rehearse-cpu",
+                          "--kernel-times"], capture_output=True, text=True, timeout=300,
+                         check=True)
+    last = json.loads(run.stdout.strip().splitlines()[-1])
+    want = {f"{k} {d}" for k in ("K2 C=128", "K2 ee C=40", "K2 ee C=64", "K10 C=128")
+            for d in ("f32", "bf16")}
+    assert set(last["kernel_ms"]) == want
+    assert all(v > 0 for v in last["kernel_ms"].values())
+    assert '"ok"' not in run.stdout

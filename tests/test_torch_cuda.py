@@ -654,3 +654,99 @@ def test_block_spmm_matches_plain(cuda_device, dtype, c):
     assert bool((res[0][0][:tbs.BN] == 0).all())
     _assert_close(res[0][0], res[1][0], **tol)
     _assert_close(res[0][1], res[1][1], **tol)
+
+
+def _bsp_corner_graph(n_blocks=40, seed=11):
+    """A banded graph whose first and last receiver blocks have no edge, with
+    one (r, s) edge 300 times in a tile beside others (a count above bf16's
+    exact 256) and one 520 times (a full tile of 512 copies, then 8 more)."""
+    from deep_gcns_torch_tpu_torch.ops import blocksparse as tbs
+
+    rng = np.random.default_rng(seed)
+    n = n_blocks * tbs.BN
+    s = rng.integers(0, n, n * 12)
+    r = np.clip(s + rng.integers(-300, 301, n * 12), tbs.BN, n - tbs.BN - 1)
+    s = np.concatenate([s, np.full(300, 3 * tbs.BN + 7), np.full(520, 9 * tbs.BN + 100)])
+    r = np.concatenate([r, np.full(300, 2 * tbs.BN + 5), np.full(520, 9 * tbs.BN + 1)])
+    return n, s, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [128, 40, 3])
+def test_block_spmm_corner_cases(cuda_device, dtype, c):
+    """K10's tensor-core form on its corner cases: the 300-fold and 520-fold
+    cells exact against the plain version (integer-valued x, so every float32
+    sum is exact and both round the same value once), random x within the
+    tolerance, the empty first and last receiver blocks exact 0, and two
+    launches bit for bit the same."""
+    from deep_gcns_torch_tpu_torch.ops import blocksparse as tbs
+
+    n, s, r = _bsp_corner_graph()
+    tiles, tiles_t = (t.to(cuda_device) for t in tbs.build_block_tiles(s, r, n))
+    counts = np.unique(r * n + s, return_counts=True)[1]
+    assert counts.max() >= 520 and ((counts >= 300) & (counts < 512)).any()
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    xi = torch.randint(-8, 9, (n, c), device=cuda_device, generator=gen).to(dtype)
+    for tl in (tiles, tiles_t):
+        got = tbs.bsp_call(xi, tl)
+        assert torch.equal(got, tbs.bsp_call_plain(xi, tl))
+    x = torch.randn(n, c, device=cuda_device, generator=gen).to(dtype)
+    out = tbs.bsp_call(x, tiles)
+    _assert_close(out, tbs.bsp_call_plain(x, tiles), **TOL[dtype])
+    _assert_close(tbs.bsp_call(x, tiles_t), tbs.bsp_call_plain(x, tiles_t), **TOL[dtype])
+    assert bool((out[:tbs.BN] == 0).all()) and bool((out[-tbs.BN:] == 0).all())
+    assert torch.equal(out, tbs.bsp_call(x, tiles))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_block_spmm_wide_rows_chunk(cuda_device):
+    """C > 128 runs in chunks of 128 channels across thread blocks."""
+    from deep_gcns_torch_tpu_torch.ops import blocksparse as tbs
+
+    n, s, r = _bsp_corner_graph(n_blocks=12, seed=12)
+    tiles, _ = (t.to(cuda_device) for t in tbs.build_block_tiles(s, r, n))
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(n, 200, device=cuda_device, generator=gen).to(dtype)
+        _assert_close(tbs.bsp_call(x, tiles), tbs.bsp_call_plain(x, tiles), **TOL[dtype])
+
+
+def _k2_corner_graph(dev, seed=13, n=3000, e=30000, hub=5000):
+    """Random edges with 8-dim edge features, a hub row of ``hub`` in-edges
+    (row 11) and rows with no edge (the last 100 nodes receive none)."""
+    rng = np.random.default_rng(seed)
+    s, r = rng.integers(0, n, e), rng.integers(0, n - 100, e)
+    r[:hub] = 11
+    ea = rng.random((e, 8)).astype(np.float32)
+    return build_graph(None, s, r, edge_attr=ea, num_nodes=n).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [40, 64, 128, 41])
+@pytest.mark.parametrize("with_ee", [False, True])
+def test_softmax_agg_lane_groups(cuda_device, dtype, c, with_ee):
+    """K2's lane groups against the plain version, with and without edge
+    embeddings: C=40, 64 and 128 (3, 2 and 1 lane groups in bf16, one in
+    float32), C=41 (the scalar form), a hub row of 5,000 edges, rows with no
+    edge (out and den exact 0), and two launches bit for bit the same."""
+    g = _k2_corner_graph(cuda_device)
+    x, ee, _ = _edge_inputs(g, c, dtype, seed=4)
+    ee = ee if with_ee else None
+    t = torch.tensor([0.7], device=cuda_device)
+    cmax = tsp.fused_cmax(x, t, 1e-7, ee)
+    before = (tsp.softmax_agg.launches, tsp.softmax_agg.launches_ee)
+    out, den = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+    out_p, den_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+    _assert_close(out, out_p, **TOL[dtype])
+    _assert_close(den, den_p, **TOL[dtype])
+    empty = (g.row_ptr[1:] == g.row_ptr[:-1]).nonzero()[:, 0]
+    assert empty.numel() >= 100
+    assert not out[empty].any() and not den[empty].any()
+    out2, den2 = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+    assert torch.equal(out, out2) and torch.equal(den, den2)
+    torch.cuda.synchronize()
+    after = (tsp.softmax_agg.launches, tsp.softmax_agg.launches_ee)
+    assert (after[0] - before[0], after[1] - before[1]) == ((0, 2) if with_ee else (2, 0))

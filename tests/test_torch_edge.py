@@ -266,3 +266,100 @@ def test_deeper_gcn_edge_modes_match_jax(edge_mode, block):
     for k, p in named.items():
         np.testing.assert_allclose(p.grad.numpy(), want_g[k].numpy(), err_msg=k, rtol=1e-3,
                                    atol=1e-5 * g_max)
+
+
+@pytest.mark.parametrize("c, vec, want", [(40, 4, (10, 3)), (64, 4, (16, 2)), (128, 4, (32, 1)),
+                                          (256, 4, (32, 1)), (41, 1, (32, 1)), (3, 1, (3, 10)),
+                                          (30, 1, (30, 1))])
+def test_k2_lane_groups(c, vec, want):
+    """K2's lane layout: G groups of w lanes, w·vec channels a group, w·G ≤ 32;
+    a row wider than 32·vec takes one group and walks its channels in chunks."""
+    w, groups = tsp.k2_lane_groups(c, vec)
+    assert (w, groups) == want
+    assert w * groups <= 32 and (w * vec >= c or w == 32)
+
+
+@pytest.mark.parametrize("c, vec", [(40, 4), (64, 4), (128, 4), (41, 1)])
+def test_k2_float32_takes_one_group(c, vec):
+    """float32 K2 keeps one group of 32 lanes at every width, so that its
+    sums run in edge order (test_float32_hub_row_sums_keep_edge_order)."""
+    assert tsp.k2_lane_groups(c, vec, torch.float32) == (32, 1)
+    assert tsp.k2_lane_groups(c, vec, torch.bfloat16) == tsp.k2_lane_groups(c, vec)
+
+
+def _hub_graphs(seed, n=300, e=2000, hub=600, c=128):
+    """_graphs' shape with a hub row (row 7, ``hub`` in-edges) and 20 rows
+    that receive no edge."""
+    rng = np.random.default_rng(seed)
+    s, r = rng.integers(0, n, e), rng.integers(0, n - 20, e)
+    r[:hub] = 7
+    x = rng.standard_normal((n, c)).astype(np.float32)
+    ea = rng.standard_normal((e, 8)).astype(np.float32)
+    kw = dict(edge_attr=ea, num_nodes=n, node_pad=384, edge_pad=2560)
+    return jax_build_graph(x, s, r, **kw), build_graph(x, s, r, **kw)
+
+
+@pytest.mark.parametrize("with_ee", [False, True])
+@pytest.mark.parametrize("c", [128, 40])
+def test_softmax_agg_hub_and_empty_rows_match_pallas(with_ee, c):
+    """K2's plain version (with and without edge embeddings) against the
+    Pallas kernel in interpret mode on a graph with a hub row of 600 edges
+    and rows with no edge, which come out exact 0; C=40 against JAX's
+    lane-padding wrapper."""
+    gj, gt = _hub_graphs(5, c=c)
+    rng = np.random.default_rng(6)
+    x = np.asarray(gj.x, np.float32)
+    ee = ee_csc = None
+    if with_ee:
+        w = (rng.standard_normal((8, c)) * 0.3).astype(np.float32)
+        ee, ee_csc = np.asarray(gj.edge_attr) @ w, np.asarray(gj.edge_attr_csc) @ w
+    want = sp.fused_softmax_gather_agg_auto(
+        jnp.asarray(x), *_jax_args(gj), jnp.float32(0.8),
+        None if ee is None else jnp.asarray(ee), None if ee is None else jnp.asarray(ee_csc),
+        1e-7, False, True)
+    tt = torch.tensor([0.8])
+    xt = torch.from_numpy(x)
+    et = None if ee is None else torch.from_numpy(ee)
+    out, den = tsp.softmax_agg(xt, gt.senders, gt.row_ptr, tt, tsp.fused_cmax(xt, tt, 1e-7, et),
+                               1e-7, et)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **FWD)
+    empty = (gt.row_ptr[1:] == gt.row_ptr[:-1]).nonzero()[:, 0]
+    assert empty.numel() >= 20
+    assert not out[empty].any() and not den[empty].any()
+    assert int(gt.row_ptr[8] - gt.row_ptr[7]) >= 600
+
+
+def test_float32_hub_row_sums_keep_edge_order():
+    """Why K2's float32 form adds its terms in edge order: on a hub row whose
+    messages mostly sit at relu's floor, the terms are near-equal and a
+    sequential float32 sum carries an order-dependent bias, so the same
+    terms summed by interleaved lane groups (3 groups, partial sums added
+    in group order) move the result by more than float32's 1e-5 agreement.
+    The plain version's den is the sequential sum in edge order, bit for
+    bit."""
+    rng = np.random.default_rng(0)
+    e, c, hub = 8000, 40, 3
+    s = rng.integers(0, 64, e)
+    r = np.full(e, hub)
+    g = build_graph(None, s, r, num_nodes=64)
+    x = torch.from_numpy(rng.standard_normal((g.num_nodes_padded, c)).astype(np.float32))
+    ee = torch.from_numpy((rng.standard_normal((g.num_edges_padded, c)) * 0.8)
+                          .astype(np.float32))
+    t = torch.tensor([0.9])
+    cmax = tsp.fused_cmax(x, t, 1e-7, ee)
+    _, den = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+    lo, hi = int(g.row_ptr[hub]), int(g.row_ptr[hub + 1])
+    m = torch.relu(x[g.senders[lo:hi].long()] + ee[lo:hi]) + 1e-7
+    w = torch.exp(m * t - cmax).numpy()
+    seq = np.zeros(c, np.float32)
+    for row in w:
+        seq = seq + row
+    np.testing.assert_array_equal(den[hub].numpy(), seq)
+    parts = []
+    for grp in range(3):
+        p = np.zeros(c, np.float32)
+        for row in w[grp::3]:
+            p = p + row
+        parts.append(p)
+    grouped = (parts[0] + parts[1]) + parts[2]
+    assert np.max(np.abs(grouped - seq) / seq) > 1e-5, np.max(np.abs(grouped - seq) / seq)
