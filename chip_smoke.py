@@ -15,8 +15,9 @@ every check; nothing is caught):
    the main path's shapes (ogbn-arxiv size: N=169,343, 14 random in-edges per
    node plus self-loops, C=128); K2 launched twice, bit for bit; K2's corner
    cases on a 3,000-node graph with a hub row of 5,000 edges and 100 rows
-   with no edge, at C=40, 64, 128 and 41, f32 and bf16 (empty rows exact 0,
-   two launches bit for bit);
+   with no edge (and, for K4 in phase 14, a hub sender of 4,000 edges and
+   100 senders with none), at C=40, 64, 128 and 41, f32 and bf16 (empty rows
+   exact 0, two launches bit for bit);
 3. agreement: a small DeeperGCN on the card (kernels) against the same
    weights on the CPU (plain versions): logits and gradients;
 4. main path, gather route: ResGEN-28 (res+, softmax_sg t=0.1, batch norm,
@@ -55,8 +56,10 @@ every check; nothing is caught):
 14. edge kernels: K2 with edge embeddings and K4 (with and without dt) in
    float32 and bfloat16 at C=40 (a RevGCN group) and C=64 (DyResGEN), and
    the fused Function with edge embeddings forward and backward
-   (softmax_sg and learn_t), against the plain versions; K2 with `ee`
-   launched twice, bit for bit, and on phase 2's corner graph;
+   (softmax_sg and learn_t), against the plain versions; K2 with `ee` and
+   K4 (dx, dee and dt) launched twice, bit for bit; both on phase 2's
+   corner graph (K4 at C=40, 64, 128 and 41, f32 and bf16, with and without
+   dt: senders with no edge exact 0 in dx, dee's padding rows exact 0);
 15. edge agreement: a small RevGCN and a small DyResGEN on the card against
    the same weights on the CPU: logits and every gradient;
 16. main path, RevGCN at L=101 then L=1001 (80 channels, group 2, bf16)
@@ -99,10 +102,13 @@ every check; nothing is caught):
 25. timing of K5 and K6 in bf16 at the three widths with the training
    step's hash keep, beside their plain versions, their bounds and the
    bound if every row gather came from HBM;
-26. dense kernels: K7 against its plain version (M bit for bit), K8 and K9
-   directly and through the dense Function's backward against the Function
-   on the plain versions, at the three head shapes, in f32 and bf16, with
-   and without the hash drop, on the RevGAT graph's band;
+26. dense kernels: K7 against its plain version (M bit for bit, two
+   launches bit for bit), K8 and K9 directly and through the dense
+   Function's backward against the Function on the plain versions, at the
+   three head shapes, in f32 and bf16, with and without the hash drop, on
+   the RevGAT graph's band; and K7 the same way on a 4,096-node band whose
+   rows reach and pass K7's list of kept positions (up to 700 window
+   positions a row, hub columns attached), done in chunks in the kernel;
 27. dense agreement: small RevGATs with destination scores and with the
    per-receiver stabilizer, and a small PyG GATConv with explicit self
    edges, on a band's dense route on the card against the CPU;
@@ -154,16 +160,23 @@ CPU at a tiny size through the plain versions, for checking the script
 without a card; it prints no device result.
 
 `--kernel-times` runs phase 1 and then only times K2 (C=128, and with `ee`
-at C=40 and 64) and K10 (C=128) in float32 and bfloat16 at the shapes of
-phases 6, 19 and 32, printing one JSON line and no device result. It uses
-the package beside the script, so two commits compare on one card by
-copying this script into a checkout of each (`git archive <commit>` into a
-git-ignored directory) and running the copies in turns: parent, change,
-change, parent.
+at C=40 and 64), K4 (without dt at C=40, with dt at C=64) and K10 (C=128)
+in float32 and bfloat16, and K7 in bfloat16 at 3x128, 3x256 and 1x40 and
+in float32 at 3x128, at the shapes and on the inputs of phases 6, 19, 29
+and 32, printing one JSON line and no device result. It uses the package
+beside the script, so two commits compare on one card by copying this
+script into a checkout of each (`git archive <commit>` into a git-ignored
+directory) and running the copies in turns: parent, change, change, parent.
+
+`--k7-forms` (card only) runs phase 1 and then times K7's forms, each a copy
+of `csrc/win_fused.cu` with one of the design's constants replaced
+(`K7_FORMS`), at phase 29's shapes, printing one JSON line and no device
+result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -390,13 +403,17 @@ def phase_kernels(g):
 
 
 def k2_corner_graph(dev):
-    """K2's corner cases in one graph: 3,000 nodes, 30,000 random edges with
-    8-dim edge features, a hub row of 5,000 in-edges (row 11) and 100 rows
-    with no edge (the last nodes receive none)."""
+    """K2's and K4's corner cases in one graph: 3,000 nodes, 30,000 random
+    edges with 8-dim edge features, a hub row of 5,000 in-edges (row 11) and
+    100 rows with no edge (the last nodes receive none); for K4, whose rows
+    are senders, a hub sender of 4,000 out-edges (node 17) and 100 senders
+    with no edge (the 100 nodes before the last 100 send none)."""
     rng = np.random.default_rng(13)
     n, e = 3000, 30_000
     s, r = rng.integers(0, n, e), rng.integers(0, n - 100, e)
     r[:5000] = 11
+    s[(s >= n - 200) & (s < n - 100)] = 17
+    s[5000:9000] = 17
     return build_graph(None, s, r, edge_attr=rng.random((e, 8)).astype(np.float32),
                        num_nodes=n).to(dev)
 
@@ -429,6 +446,47 @@ def k2_corner_checks(chk, g, with_ee, gen):
             out2, den2 = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
             chk.equal(f"{name} two launches bit for bit C={c} {tag} (out)", out2, out)
             chk.equal(f"{name} two launches bit for bit C={c} {tag} (den)", den2, den)
+
+
+def k4_corner_checks(chk, g, gen):
+    """K4 against its plain version on `k2_corner_graph` at C = 40, 64 and
+    128 (3, 2 and 1 lane groups in bf16, one in float32) and 41 (the scalar
+    form), float32 and bf16, with and without dt: the hub sender's 4,000
+    edges within the tolerance, the senders with no edge exact 0 in dx, the
+    padding rows of dee exact 0, two launches bit for bit the same."""
+    dev = g.senders.device
+    t = torch.tensor([0.7], device=dev)
+    ptr = g.csc_col_ptr
+    no_edge = (ptr[1:] == ptr[:-1]).nonzero()[:, 0]
+    hub = int((ptr[1:] - ptr[:-1]).argmax())
+    log(f"[edge kernels] K4 corner graph: sender {hub} has {int(ptr[hub + 1] - ptr[hub])} "
+        f"out-edges, {len(no_edge)} senders have none")
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for c in (40, 64, 128, 41):
+            x, ee, ee_csc = edge_inputs(g, c, dtype, gen)
+            cmax = tsp.fused_cmax(x, t, 1e-7, ee)
+            q = torch.randn(g.num_nodes_padded, c, device=dev, generator=gen).to(dtype)
+            out = torch.randn(g.num_nodes_padded, c, device=dev, generator=gen).to(dtype)
+            for gw in (False, True):
+                qo = torch.cat([q, out], 1).contiguous() if gw else q
+                args = (x, ee_csc, qo, ptr, g.csc_receivers, t, cmax, 1e-7, gw)
+                dx, dee, dt = tsp.softmax_bwd_csc(*args)
+                dx_p, dee_p, dt_p = tsp.softmax_bwd_csc_plain(*args)
+                name = f"K4 corner graph {'dt' if gw else 'no-dt'} C={c} {tag}"
+                chk.close(f"{name} dx", dx, dx_p, **tol)
+                chk.close(f"{name} dee", dee, dee_p, **tol)
+                chk.equal(f"{name} senders with no edge exact 0 (dx)", dx[no_edge],
+                          torch.zeros(len(no_edge), c, dtype=dtype, device=dev))
+                chk.equal(f"{name} dee padding rows exact 0", dee[g.n_edge:],
+                          torch.zeros_like(dee[g.n_edge:]))
+                dx2, dee2, dt2 = tsp.softmax_bwd_csc(*args)
+                chk.equal(f"{name} two launches bit for bit (dx)", dx2, dx)
+                chk.equal(f"{name} two launches bit for bit (dee)", dee2, dee)
+                if gw:
+                    chk.close(f"{name} dt", dt, dt_p, **TOL_DT["f32"])
+                    chk.equal(f"{name} two launches bit for bit (dt)", dt2, dt)
 
 
 def phase_agreement(dev):
@@ -893,9 +951,14 @@ def phase_edge_kernels(g):
                 e4 = max(e4, chk.close(f"{name} dx", dx, dx_p, **tol),
                          chk.close(f"{name} dee", dee, dee_p, **tol))
                 chk.close(f"{name} dee padding rows", dee[n_edge:], dee_p[n_edge:], 0.0, 0.0)
+                dx2, dee2, dt2 = tsp.softmax_bwd_csc(*args)
+                chk.equal(f"{name} two launches bit for bit (dx)", dx2, dx)
+                chk.equal(f"{name} two launches bit for bit (dee)", dee2, dee)
                 if gw:
                     # the same float32 terms summed in another order
                     chk.close(f"{name} dt", dt, dt_p, **TOL_DT["f32"])
+                    chk.equal(f"{name} two launches bit for bit (dt)", dt2, dt)
+                del dx2, dee2
             co = torch.randn(n_pad, c, device=dev, generator=gen)
             for gw in (False, True):
                 res = []
@@ -917,7 +980,9 @@ def phase_edge_kernels(g):
                     chk.close(f"{name} dt", res[0][3], res[1][3], **TOL_DT[tag])
                 del res
         errs[tag] = {"K2 ee": e2, "K4": e4}
-    k2_corner_checks(chk, k2_corner_graph(dev), True, gen)
+    corner = k2_corner_graph(dev)
+    k2_corner_checks(chk, corner, True, gen)
+    k4_corner_checks(chk, corner, gen)
     sync(dev)
     chk.raise_if_failed()
     return errs
@@ -1536,6 +1601,9 @@ def phase_dense_kernels(g):
                 chk.equal(f"K7 M {name}", m, m_p)
                 e7 = max(e7, chk.close(f"K7 num {name}", num, num_p, **TOL_DENSE),
                          chk.close(f"K7 den {name}", den, den_p, **TOL_DENSE))
+                for part, a, b in zip(("num", "den", "M"), tgd.win_fused(
+                        band, el, er, m_other, feat, 0.2, spec), (num, den, m)):
+                    chk.equal(f"K7 two launches bit for bit ({part}) {name}", a, b)
                 del num, den, m, num_p, den_p
                 args = (el, er, m_p, feat, gnum, gden, 0.2, spec)
                 e8 = max(e8, chk.close(f"K8 d_er {name}", tgd.win_der(band, *args),
@@ -1560,9 +1628,68 @@ def phase_dense_kernels(g):
                 del res, co_n, co_d
             del feat, el, er, gnum, gden
         errs[tag] = {"K7": e7, "K8": e8, "K9": e9}
+    k7_long_row_checks(chk, k7_long_row_band(dev))
     sync(dev)
     chk.raise_if_failed()
     return errs
+
+
+def k7_long_row_band(dev):
+    """A band whose rows reach K7's list and pass it: 4,096 locality-banded
+    nodes with power-law senders (window 768, no hub rows, so that no row
+    leaves the window) where
+    receiver 5 takes 700 senders of its window, 300 takes 400 and 700 exactly
+    256, with the hub columns of a second band (degree ≥ 64) attached, so
+    that a long row's chunks run on into its hub columns."""
+    rng = np.random.default_rng(21)
+    n, deg = 4096, 8
+    w = (1.0 / (1.0 + np.arange(n, dtype=np.float64))) ** 0.8  # power-law senders
+    rng.shuffle(w)
+    s = rng.choice(n, n * deg, p=w / w.sum())
+    r = np.clip(s + rng.integers(-200, 201, n * deg), 0, n - 1)
+    hubs = build_graph(None, s, r, num_nodes=n)
+    s = np.concatenate([s, np.arange(0, 700), np.arange(100, 500), np.arange(500, 756)])
+    r = np.concatenate([r, np.full(700, 5), np.full(400, 300), np.full(256, 700)])
+    g = attach_band(build_graph(None, s, r, num_nodes=n), window=768, hubs=None)
+    band = attach_band(hubs, window=768, hubs=64).band.fwd
+    fwd = dataclasses.replace(g.band.fwd, hub_ids=band.hub_ids, a_hub=band.a_hub)
+    return fwd.to(dev)
+
+
+def k7_long_row_checks(chk, band):
+    """K7 against its plain version on `k7_long_row_band`, at the three head
+    shapes, f32 and bf16, with and without the drop: M bit for bit, num and
+    den within TOL_DENSE, two launches bit for bit. Rows past the list are
+    done in chunks inside the kernel, never by the plain version."""
+    dev = band.a.device
+    gen = torch.Generator(device=dev).manual_seed(23)
+    n = band.a.shape[0]
+    kept = (band.a > 0).sum(1) + (band.a_hub > 0).sum(1)
+    for h, d in GAT_SHAPES:
+        size = tgd.k7_list_size(h)
+        log(f"[dense kernels] long-row band, {h}x{d}: list of {size}, "
+            f"{int((kept >= size).sum())} rows with at least as many positions "
+            f"(longest {int(kept.max())})")
+        if int(kept.max()) < 2 * size:
+            raise AssertionError("the long-row band does not pass K7's list")
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            feat = torch.randn(n, h * d, device=dev, generator=gen).to(dtype)
+            el = torch.randn(n, h, device=dev, generator=gen) * 2.0
+            er = torch.randn(n, h, device=dev, generator=gen) * 2.0
+            m_other = torch.full((n, h), tgd.NEG, device=dev)
+            m_other[::5] = 3.0
+            for drop in (False, True):
+                spec = dense_drop(drop)
+                name = f"long rows {h}x{d}{' drop' if drop else ''} {tag}"
+                num, den, m = tgd.win_fused(band, el, er, m_other, feat, 0.2, spec)
+                num_p, den_p, m_p = tgd.win_fused_plain(band, el, er, m_other, feat, 0.2, spec)
+                chk.equal(f"K7 M {name}", m, m_p)
+                chk.close(f"K7 num {name}", num, num_p, **TOL_DENSE)
+                chk.close(f"K7 den {name}", den, den_p, **TOL_DENSE)
+                for part, a, b in zip(("num", "den", "M"), tgd.win_fused(
+                        band, el, er, m_other, feat, 0.2, spec), (num, den, m)):
+                    chk.equal(f"K7 two launches bit for bit ({part}) {name}", a, b)
 
 
 def phase_dense_agreement(dev):
@@ -1993,10 +2120,13 @@ def phase_remat(g, labels, layers):
 
 
 def phase_kernel_times(dev, n, cluster, iters):
-    """`--kernel-times`: `time_fn`'s times of K2 at C=128 on the main graph,
-    K2 with `ee` at C=40 and 64 on the cluster graph and K10 at C=128 on the
-    block-sparse graph, each in float32 and bfloat16, as one JSON line beside
-    the card's name and power limit. No check and no model runs."""
+    """`--kernel-times`: `time_fn`'s times of K2 at C=128 on the main graph;
+    K2 with `ee` at C=40 and 64, K4 without dt at C=40 and with dt at C=64
+    on the cluster graph (phase 14's inputs); K7 at 3x128, 3x256 and 1x40
+    on the RevGAT graph's band with the step's hash drop (phase 29's inputs;
+    float32 at 3x128 only); K10 at C=128 on the block-sparse graph; each in
+    float32 and bfloat16 unless said, as one JSON line beside the card's
+    name and power limit. No check and no model runs."""
     res = {}
     gen = torch.Generator(device=dev).manual_seed(5)
     g, _ = main_graph(n, dev)
@@ -2011,17 +2141,114 @@ def phase_kernel_times(dev, n, cluster, iters):
     t = torch.tensor([1.0], device=dev)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for c in (40, 64):
-            x, ee, _ = edge_inputs(g, c, dtype, gen)
+            x, ee, ee_csc = edge_inputs(g, c, dtype, gen)
             cmax = tsp.fused_cmax(x, t, 1e-7, ee)
             res[f"K2 ee C={c} {tag}"] = time_fn(
                 lambda: tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee), dev,
                 iters)
-    del g, x, ee
+            q = torch.randn(g.num_nodes_padded, c, device=dev, generator=gen).to(dtype)
+            gw = c == 64
+            if gw:
+                out, _ = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+                q = torch.cat([q, out], 1).contiguous()
+            res[f"K4 {'dt ' if gw else ''}C={c} {tag}"] = time_fn(
+                lambda: tsp.softmax_bwd_csc(x, ee_csc, q, g.csc_col_ptr, g.csc_receivers, t,
+                                            cmax, 1e-7, gw), dev, iters)
+    del g, x, ee, ee_csc, q
+    g, _ = revgat_graph(n, dev)
+    band, spec = g.band.fwd, dense_drop(True)
+    for (h, d), dtype, tag in (((3, 128), torch.bfloat16, "bf16"),
+                               ((3, 256), torch.bfloat16, "bf16"),
+                               ((1, 40), torch.bfloat16, "bf16"),
+                               ((3, 128), torch.float32, "f32")):
+        feat, el, er = dense_inputs(g, h, d, dtype, gen)
+        m_other = dense_m_other(band, el, er, spec)
+        res[f"K7 {h}x{d} {tag}"] = time_fn(
+            lambda: tgd.win_fused(band, el, er, m_other, feat, 0.2, spec), dev, iters)
+    del g, band, feat, el, er, m_other
     bg = bsp_graph(n, dev)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         x = torch.randn(bg["n_pad"], 128, device=dev, generator=gen).to(dtype)
         res[f"K10 C=128 {tag}"] = time_fn(lambda: tbs.bsp_call(x, bg["tiles"]), dev, iters)
     log(json.dumps({"root": ROOT, "card": CARD, "kernel_ms": res}))
+
+
+# `--k7-forms`: K7's forms, each a copy of csrc/win_fused.cu with the
+# design's constants replaced (passes whose counts a lane loads at once,
+# blocks an SM keeps resident) and a list size; the first is the source as
+# it stands
+K7_FORMS = (("kept", {}, 256), ("1 pass a load", {"kScanBatch": 1}, 256),
+            ("4 passes a load", {"kScanBatch": 4}, 256), ("1 block", {"kMinBlocks": 1}, 256),
+            ("3 blocks", {"kMinBlocks": 3}, 256), ("5 blocks", {"kMinBlocks": 5}, 256),
+            ("5 blocks, list 128", {"kMinBlocks": 5}, 128),
+            ("6 blocks, list 128", {"kMinBlocks": 6}, 128),
+            ("8 blocks, list 128", {"kMinBlocks": 8}, 128))
+
+
+def phase_k7_forms(dev, n, iters):
+    """`--k7-forms` (card only): builds each of `K7_FORMS` with `nvcc` into
+    the git-ignored build directory, checks it against the plain version at
+    3x128 bf16 (M bit for bit, num within TOL_DENSE), and times it in turns
+    (the forms, then again in reverse order) on phase 29's inputs, as one
+    JSON line beside the card's name and power limit."""
+    import ctypes
+    import re
+
+    out = os.path.join(ROOT, PKG, "build", "k7_forms")
+    shutil.rmtree(out, ignore_errors=True)
+    procs = []
+    for i, (name, consts, _) in enumerate(K7_FORMS):
+        src = open(os.path.join(_build.CSRC, "win_fused.cu")).read()
+        for k, v in consts.items():
+            src, hits = re.subn(rf"constexpr int {k} = \d+;", f"constexpr int {k} = {v};", src)
+            if hits != 1:
+                raise AssertionError(f"{k} not found once in win_fused.cu")
+        os.makedirs(out, exist_ok=True)
+        cu, so = os.path.join(out, f"form{i}.cu"), os.path.join(out, f"form{i}.so")
+        with open(cu, "w") as f:
+            f.write(src)
+        cmd = [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-I", _build.CSRC, "-o", so, cu]
+        procs.append((so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    libs = []
+    for so, proc in procs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for {so}:\n{proc.stdout.read()}")
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in _build._SIGNATURES["win_fused"].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs.append(lib)
+    g, _ = revgat_graph(n, dev)
+    band, spec = g.band.fwd, dense_drop(True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shapes = (((3, 128), torch.bfloat16, "bf16"), ((3, 256), torch.bfloat16, "bf16"),
+              ((1, 40), torch.bfloat16, "bf16"), ((3, 128), torch.float32, "f32"))
+    inputs = {}
+    for (h, d), dtype, tag in shapes:
+        feat, el, er = dense_inputs(g, h, d, dtype, gen)
+        inputs[f"{h}x{d} {tag}"] = (feat, el, er, dense_m_other(band, el, er, spec))
+    chk = Checks("k7 forms")
+    res = {name: {k: [] for k in inputs} for name, _, _ in K7_FORMS}
+    order = list(range(len(K7_FORMS)))
+    try:
+        for i in order + order[::-1]:
+            name, _, size = K7_FORMS[i]
+            _build._libs["win_fused"], tgd.K7_MAX_LIST = libs[i], size
+            for key, (feat, el, er, m_other) in inputs.items():
+                if key == "3x128 bf16" and not res[name][key]:
+                    num, _, m = tgd.win_fused(band, el, er, m_other, feat, 0.2, spec)
+                    num_p, _, m_p = tgd.win_fused_plain(band, el, er, m_other, feat, 0.2, spec)
+                    chk.equal(f"K7 {name} M", m, m_p)
+                    chk.close(f"K7 {name} num", num, num_p, **TOL_DENSE)
+                res[name][key].append(time_fn(
+                    lambda: tgd.win_fused(band, el, er, m_other, feat, 0.2, spec), dev, iters))
+    finally:
+        _build._libs.pop("win_fused", None)
+        tgd.K7_MAX_LIST = K7_FORMS[0][2]
+    chk.raise_if_failed()
+    log(json.dumps({"card": CARD, "k7_forms_ms": res}))
 
 
 def main(argv):
@@ -2036,6 +2263,12 @@ def main(argv):
     mark("device")
     if "--kernel-times" in argv:
         phase_kernel_times(dev, n, (800, 10) if rehearse else (13_000, 60), iters)
+        return 0
+    if "--k7-forms" in argv:
+        if rehearse:
+            log("--k7-forms builds CUDA sources: it runs on the card only")
+            return 1
+        phase_k7_forms(dev, n, iters)
         return 0
     g, labels = main_graph(n, dev)
     g_main, labels_main = g, labels  # the remat phase runs on it at the end

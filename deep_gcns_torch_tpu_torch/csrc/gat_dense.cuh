@@ -2,8 +2,9 @@
 // destination-score GAT over the window band and its hub columns
 // (deep_gcns_torch_tpu/ops/gat_dense.py:966-1393).
 //
-// One warp owns one (row, head) pair of a band: a receiver row of the forward
-// band (K7, K8) or a sender row of the transpose band (K9).  The row's
+// In K8 and K9 one warp owns one (row, head) pair of a band: a receiver row
+// of the forward band (K8) or a sender row of the transpose band (K9); K7
+// gives a warp a whole receiver row and all its heads (win_fused.cu).  The row's
 // positions are its W window counts (int8 A[N_pad, W], row-major; node id
 // w_lo[row / 128] + column) and, when the kernel takes the band's hub columns,
 // its hub counts (bf16 a_hub[N_pad, H_hub]; node id hub_ids[k]).  A warp

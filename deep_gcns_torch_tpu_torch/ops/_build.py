@@ -41,7 +41,9 @@ _SIGNATURES = {
     # x, ee, senders, row_ptr, t, cmax, out, den; n_rows, C, w, G; eps, vec, stream
     "softmax_agg": {name: [_P] * 8 + [_I] * 4 + [_F, _I, _P]
                     for name in ("dgc_softmax_agg_f32", "dgc_softmax_agg_bf16")},
-    "softmax_bwd_csc": {name: [_P] * 10 + [_I, _I, _L, _F, _I, _I, _P]
+    # x, ee, qo, col_ptr, receivers, t, cmax, dx, dee, dt_part; n_rows, C,
+    # e_pad, w, G; eps, grad_weights, vec, stream
+    "softmax_bwd_csc": {name: [_P] * 10 + [_I, _I, _L, _I, _I, _F, _I, _I, _P]
                         for name in ("dgc_softmax_bwd_csc_f32", "dgc_softmax_bwd_csc_bf16")},
     "band": {name: [_P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _I, _P]
              for name in ("dgc_band_f32", "dgc_band_bf16")},
@@ -51,10 +53,11 @@ _SIGNATURES = {
                     for name in ("dgc_gat_bwd_csc_f32", "dgc_gat_bwd_csc_bf16")},
     # K7-K9: the band's 4 pointers, the [N, H] and [N, H*D] tables and the
     # outputs, then n_rows, W, n_hub, H, D, the slope, the drop key and
-    # threshold, vec, nch and the stream
-    **{src: {f"dgc_{src}_{t}": [_P] * n_ptr + [_I] * 5 + [_F, _U, _U, _I, _I, _I, _P]
-             for t in ("f32", "bf16")}
-       for src, n_ptr in (("win_fused", 11), ("win_der", 11), ("win_dsend", 12))},
+    # threshold, vec, nch (K7: and its list size) and the stream
+    **{src: {f"dgc_{src}_{t}": [_P] * n_ptr + [_I] * 5 + [_F, _U, _U, _I, _I] + [_I] * n_lay
+             + [_P] for t in ("f32", "bf16")}
+       for src, n_ptr, n_lay in (("win_fused", 11, 2), ("win_der", 11, 1),
+                                 ("win_dsend", 12, 1))},
     "blocksparse": {name: [_P] * 5 + [_I, _I, _P] for name in ("dgc_bsp_f32", "dgc_bsp_bf16")},
 }
 

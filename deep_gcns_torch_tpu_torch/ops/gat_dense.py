@@ -35,7 +35,10 @@ keep plane per structure and conv call, shared by the passes that read it.
 
 The TPU's transposed count tiles, its 128-lane containers and padded heads
 are layout, not contract: the kernels read the row-major ``a`` and
-``a_hub`` (bf16 on the card), one warp per (row, head).
+``a_hub`` (bf16 on the card). K8 and K9 give a warp to each (row, head);
+K7 gives a warp to each receiver row and all its heads, with a list of the
+row's kept positions in shared memory (`k7_list_size` entries; a longer row
+is done in list-sized chunks inside the kernel).
 """
 
 from __future__ import annotations
@@ -57,6 +60,13 @@ GAT_MAX_HUBS = 2048  # hub columns a kernel takes; more go through the PyTorch p
 HUB_BUDGET = 1 << 26
 # edges per block of the plain versions' [E, H, D] float32 intermediates
 _EDGE_BLOCK = 1 << 18
+# K7: shared memory a warp gives the list of its row's kept positions (ids,
+# counts and one weight a head per entry, and M and den per head), and the
+# most entries a list takes
+K7_LIST_BYTES = 6144
+K7_MAX_LIST = 256
+# K7's walk forms: `nch` groups of 32·vec columns a lane, by vec
+_K7_FORMS = {4: (1, 2, 3, 6), 1: (8,)}
 
 
 def _lrelu(z: torch.Tensor, ns: float) -> torch.Tensor:
@@ -190,12 +200,20 @@ def _check_tables(n: int, h: int, **tables: torch.Tensor):
                  f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def _head_layout(h: int, d: int, vec: int) -> Tuple[int]:
+    """(nch,) of K8 and K9, which walk one head's D columns: groups of
+    32·vec columns a lane."""
+    _require(d <= 256, f"a head of {d} columns is wider than K8 and K9 take (256)")
+    return ((1 if d <= 128 else 2) if vec == 4 else 8,)
+
+
 def _launch(name: str, band: Band, feat: torch.Tensor, rows: Tuple[torch.Tensor, ...],
             tables: Tuple[torch.Tensor, ...], outs: Tuple[torch.Tensor, ...], h: int,
-            neg_slope: float, drop: Optional[DropSpec]):
+            neg_slope: float, drop: Optional[DropSpec], layout=_head_layout):
     """Checks shared by K7–K9 and the launch of ``dgc_<name>_<dtype>``.
     ``rows``: the [N, H·D] tables in feat's dtype (feat first); ``tables``
-    the float32 [N, H] ones; ``outs`` the float32 outputs."""
+    the float32 [N, H] ones; ``outs`` the float32 outputs; ``layout(h, d,
+    vec)`` the kernel's walk form (K7: `k7_layout`)."""
     dev = feat.device
     n, hd = feat.shape
     for t in rows:
@@ -223,18 +241,37 @@ def _launch(name: str, band: Band, feat: torch.Tensor, rows: Tuple[torch.Tensor,
                  f"band.a_hub must be [{n}, H] with H a multiple of 8, got "
                  f"{tuple(a_hub.shape)}")
     d = hd // h
-    _require(d <= 256, f"a head of {d} columns is wider than K7–K9 take (256)")
     vec = _vec(d, *rows, *(o for o in outs if o.shape[1] == hd)) if hd % 4 == 0 else 1
-    nch = (1 if d <= 128 else 2) if vec == 4 else 8
+    form = layout(h, d, vec)
     k0, k1, thresh = (0, 0, -1) if drop is None else (
         int(drop.k0), int(drop.k1), int(drop.thresh))
     fn = getattr(library(name), f"dgc_{name}_{_SUFFIX[feat.dtype]}")
     rc = fn(a.data_ptr(), band.w_lo.data_ptr(), None if a_hub is None else a_hub.data_ptr(),
             None if hub_ids is None else hub_ids.data_ptr(), *(t.data_ptr() for t in tables),
             *(t.data_ptr() for t in rows), *(o.data_ptr() for o in outs), n, w, n_hub, h,
-            d, float(neg_slope), k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF, thresh, vec, nch,
+            d, float(neg_slope), k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF, thresh, vec, *form,
             torch.cuda.current_stream(dev).cuda_stream)
     return rc
+
+
+def k7_list_size(h: int) -> int:
+    """Entries of the list in which a warp of K7 keeps its row's kept
+    positions: as many multiples of 32 as `K7_LIST_BYTES` holds at 4 bytes
+    for the id, the count and each head's weight (beside M and den per head),
+    at least 32 and at most `K7_MAX_LIST`. A row with more kept positions is
+    done in chunks of this size inside the kernel."""
+    fit = (K7_LIST_BYTES - 8 * h) // (4 * (2 + h)) // 32 * 32
+    return max(32, min(K7_MAX_LIST, fit))
+
+
+def k7_layout(h: int, d: int, vec: int) -> Tuple[int, int]:
+    """(nch, list size) of K7 for H heads of D columns: nch groups of 32·vec
+    columns a lane's walk, the fewest of K7's forms that cover H·D (the
+    widest form walks a wider row in column chunks). The kernel refuses a
+    block whose hub ids and 8 lists exceed the card's shared memory."""
+    need = -(-(h * d) // (32 * vec))
+    forms = _K7_FORMS[vec]
+    return next((f for f in forms if f >= need), forms[-1]), k7_list_size(h)
 
 
 def win_fused(band: Band, el: torch.Tensor, er: torch.Tensor, m_other: torch.Tensor,
@@ -251,7 +288,7 @@ def win_fused(band: Band, el: torch.Tensor, er: torch.Tensor, m_other: torch.Ten
     den = torch.empty((n, h), dtype=torch.float32, device=feat.device)
     m = torch.empty((n, h), dtype=torch.float32, device=feat.device)
     rc = _launch("win_fused", band, feat, (feat,), (el, er, m_other), (num, den, m), h,
-                 neg_slope, drop)
+                 neg_slope, drop, k7_layout)
     win_fused.launches += 1
     _raise_on(rc, "K7 win_fused")
     return num, den, m

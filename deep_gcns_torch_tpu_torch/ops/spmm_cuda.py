@@ -74,6 +74,14 @@ def k2_lane_groups(c: int, vec: int, dtype: torch.dtype = torch.bfloat16) -> Tup
     return w, 32 // w
 
 
+def k4_lane_groups(c: int, vec: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
+    """(w, G) of K4: the same layout as K2's (G groups of w lanes over a
+    sender row's edges in bf16, one group in float32, where a hub sender's
+    row sums in edge order), chosen here so that a change to K2's layout
+    does not move K4's."""
+    return k2_lane_groups(c, vec, dtype)
+
+
 def _raise_on(rc: int, what: str):
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
@@ -324,11 +332,13 @@ def softmax_bwd_csc(x: torch.Tensor, ee_csc: torch.Tensor, qo: torch.Tensor,
     if n_rows == 0 or c == 0:
         return dx, dee.zero_(), None if dt_part is None else dt_part.sum()
     t = t.contiguous()
+    vec = _vec(c, x, ee_csc, qo, dx, dee, cmax)
+    w, groups = k4_lane_groups(c, vec, x.dtype)
     fn = getattr(library("softmax_bwd_csc"), f"dgc_softmax_bwd_csc_{_SUFFIX[x.dtype]}")
     rc = fn(x.data_ptr(), ee_csc.data_ptr(), qo.data_ptr(), col_ptr.data_ptr(),
             csc_receivers.data_ptr(), t.data_ptr(), cmax.data_ptr(), dx.data_ptr(),
             dee.data_ptr(), None if dt_part is None else dt_part.data_ptr(), n_rows, c,
-            e_pad, float(eps), int(grad_weights), _vec(c, x, ee_csc, qo, dx, dee, cmax),
+            e_pad, w, groups, float(eps), int(grad_weights), vec,
             torch.cuda.current_stream(x.device).cuda_stream)
     softmax_bwd_csc.launches += 1
     _raise_on(rc, "K4 softmax_bwd_csc")

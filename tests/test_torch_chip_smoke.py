@@ -45,8 +45,10 @@ def test_failed_close_saves_what_it_compared(monkeypatch, tmp_path):
 
 def test_kernel_times_mode_prints_one_time_per_kernel_form():
     """`--kernel-times` (rehearsed on the CPU) ends in one JSON line with a
-    positive time for K2, K2 with `ee` at C=40 and 64, and K10, each in
-    float32 and bfloat16, and prints no device result."""
+    positive time for K2, K2 with `ee` at C=40 and 64, K4 without dt at C=40
+    and with dt at C=64, and K10, each in float32 and bfloat16, and K7 at
+    3x128 (float32 and bfloat16), 3x256 and 1x40 (bfloat16), and prints no
+    device result."""
     import json
     import subprocess
     import sys
@@ -55,8 +57,9 @@ def test_kernel_times_mode_prints_one_time_per_kernel_form():
                           "--kernel-times"], capture_output=True, text=True, timeout=300,
                          check=True)
     last = json.loads(run.stdout.strip().splitlines()[-1])
-    want = {f"{k} {d}" for k in ("K2 C=128", "K2 ee C=40", "K2 ee C=64", "K10 C=128")
-            for d in ("f32", "bf16")}
+    want = {f"{k} {d}" for k in ("K2 C=128", "K2 ee C=40", "K2 ee C=64", "K4 C=40",
+                                 "K4 dt C=64", "K10 C=128") for d in ("f32", "bf16")}
+    want |= {"K7 3x128 bf16", "K7 3x256 bf16", "K7 1x40 bf16", "K7 3x128 f32"}
     assert set(last["kernel_ms"]) == want
     assert all(v > 0 for v in last["kernel_ms"].values())
     assert '"ok"' not in run.stdout

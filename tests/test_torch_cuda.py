@@ -750,3 +750,106 @@ def test_softmax_agg_lane_groups(cuda_device, dtype, c, with_ee):
     torch.cuda.synchronize()
     after = (tsp.softmax_agg.launches, tsp.softmax_agg.launches_ee)
     assert (after[0] - before[0], after[1] - before[1]) == ((0, 2) if with_ee else (2, 0))
+
+
+def _k4_corner_graph(dev, seed=17, n=3000, e=30000, hub=4000):
+    """Random edges with 8-dim edge features, a hub SENDER of ``hub``
+    out-edges (node 17, one row of K4's CSC walk) and senders with no edge
+    (the last 100 nodes send none)."""
+    rng = np.random.default_rng(seed)
+    s, r = rng.integers(0, n - 100, e), rng.integers(0, n, e)
+    s[:hub] = 17
+    ea = rng.random((e, 8)).astype(np.float32)
+    return build_graph(None, s, r, edge_attr=ea, num_nodes=n).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [40, 64, 128, 41])
+@pytest.mark.parametrize("grad_weights", [False, True])
+def test_softmax_bwd_csc_lane_groups(cuda_device, dtype, c, grad_weights):
+    """K4's lane groups against the plain version: C=40, 64 and 128 (3, 2
+    and 1 lane groups in bf16, one in float32), C=41 (the scalar form), a
+    hub sender of 4,000 edges, senders with no edge (dx exact 0), dee's
+    padding rows exact 0, and two launches bit for bit the same (dt too)."""
+    g = _k4_corner_graph(cuda_device)
+    x, ee, ee_csc = _edge_inputs(g, c, dtype, seed=5)
+    t = torch.tensor([0.7], device=cuda_device)
+    cmax = tsp.fused_cmax(x, t, 1e-7, ee)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    q = torch.randn(g.num_nodes_padded, c, device=cuda_device, generator=gen).to(dtype)
+    if grad_weights:
+        out = torch.randn(g.num_nodes_padded, c, device=cuda_device, generator=gen).to(dtype)
+        q = torch.cat([q, out], 1).contiguous()
+    args = (x, ee_csc, q, g.csc_col_ptr, g.csc_receivers, t, cmax, 1e-7, grad_weights)
+    before = tsp.softmax_bwd_csc.launches
+    dx, dee, dt = tsp.softmax_bwd_csc(*args)
+    dx_p, dee_p, dt_p = tsp.softmax_bwd_csc_plain(*args)
+    _assert_close(dx, dx_p, **TOL[dtype])
+    _assert_close(dee, dee_p, **TOL[dtype])
+    ptr = g.csc_col_ptr
+    assert int((ptr[18] - ptr[17])) >= 4000
+    no_edge = (ptr[1:] == ptr[:-1]).nonzero()[:, 0]
+    assert no_edge.numel() >= 100 and not dx[no_edge].any()
+    assert not dee[g.n_edge:].any()
+    dx2, dee2, dt2 = tsp.softmax_bwd_csc(*args)
+    assert torch.equal(dx, dx2) and torch.equal(dee, dee2)
+    if grad_weights:
+        _assert_close(dt, dt_p, **TOL_DT[torch.float32])
+        assert torch.equal(dt, dt2)
+    torch.cuda.synchronize()
+    assert tsp.softmax_bwd_csc.launches == before + 2
+
+
+def _long_row_band(dev, seed=21, n=4096, deg=8):
+    """A band whose rows reach and pass K7's list: locality-banded power-law
+    senders, window 768 and no hub rows (receiver 5 takes 700 senders of its
+    window, 300 takes 400 and 700 exactly 256), with the hub columns of a
+    second band (degree ≥ 64) attached, so that a long row's chunks run on
+    into its hub columns."""
+    import dataclasses
+
+    rng = np.random.default_rng(seed)
+    w = (1.0 / (1.0 + np.arange(n, dtype=np.float64))) ** 0.8
+    rng.shuffle(w)
+    s = rng.choice(n, n * deg, p=w / w.sum())
+    r = np.clip(s + rng.integers(-200, 201, n * deg), 0, n - 1)
+    hub_band = attach_band(build_graph(None, s, r, num_nodes=n), window=768, hubs=64).band.fwd
+    s = np.concatenate([s, np.arange(0, 700), np.arange(100, 500), np.arange(500, 756)])
+    r = np.concatenate([r, np.full(700, 5), np.full(400, 300), np.full(256, 700)])
+    band = attach_band(build_graph(None, s, r, num_nodes=n), window=768, hubs=None).band.fwd
+    return dataclasses.replace(band, hub_ids=hub_band.hub_ids, a_hub=hub_band.a_hub).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d", [(3, 128), (3, 256), (1, 40)])
+def test_win_fused_long_rows(cuda_device, dtype, h, d):
+    """K7 on rows at and past its list (`k7_list_size`), with hub columns and
+    with and without the drop, against its plain version: M bit for bit,
+    num and den within float32's summation order, two launches bit for bit,
+    one launch each."""
+    from deep_gcns_torch_tpu_torch.ops import gat_dense as tgd
+
+    band = _long_row_band(cuda_device)
+    kept = (band.a > 0).sum(1) + (band.a_hub > 0).sum(1)
+    assert int(kept.max()) >= 2 * tgd.k7_list_size(h) and tgd._hub_in_kernel(band)
+    n = band.a.shape[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    feat = torch.randn(n, h * d, device=cuda_device, generator=gen).to(dtype)
+    el = torch.randn(n, h, device=cuda_device, generator=gen) * 2
+    er = torch.randn(n, h, device=cuda_device, generator=gen) * 2
+    m_other = torch.full((n, h), tgd.NEG, device=cuda_device)
+    m_other[::5] = 3.0
+    for drop in (False, True):
+        spec = _dense_drop(drop)
+        before = tgd.win_fused.launches
+        num, den, m = tgd.win_fused(band, el, er, m_other, feat, 0.2, spec)
+        num_p, den_p, m_p = tgd.win_fused_plain(band, el, er, m_other, feat, 0.2, spec)
+        assert torch.equal(m, m_p)
+        _assert_close(num, num_p, **TOL_DENSE)
+        _assert_close(den, den_p, **TOL_DENSE)
+        for a, b in zip(tgd.win_fused(band, el, er, m_other, feat, 0.2, spec), (num, den, m)):
+            assert torch.equal(a, b)
+        torch.cuda.synchronize()
+        assert tgd.win_fused.launches == before + 2

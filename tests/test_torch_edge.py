@@ -287,6 +287,25 @@ def test_k2_float32_takes_one_group(c, vec):
     assert tsp.k2_lane_groups(c, vec, torch.bfloat16) == tsp.k2_lane_groups(c, vec)
 
 
+@pytest.mark.parametrize("c, vec, want", [(40, 4, (10, 3)), (64, 4, (16, 2)), (128, 4, (32, 1)),
+                                          (256, 4, (32, 1)), (41, 1, (32, 1)), (3, 1, (3, 10)),
+                                          (30, 1, (30, 1))])
+def test_k4_lane_groups(c, vec, want):
+    """K4's lane layout in bf16: G groups of w lanes over a sender row's
+    edges, w·vec channels a group, w·G ≤ 32; a row wider than 32·vec takes
+    one group and walks its channels in chunks. bf16 C=40 is 3 groups."""
+    w, groups = tsp.k4_lane_groups(c, vec)
+    assert (w, groups) == want
+    assert w * groups <= 32 and (w * vec >= c or w == 32)
+
+
+@pytest.mark.parametrize("c, vec", [(40, 4), (64, 4), (128, 4), (41, 1)])
+def test_k4_float32_takes_one_group(c, vec):
+    """float32 K4 keeps one group of 32 lanes at every width, so that a hub
+    sender's dx sums its edges in order, as K2's float32 rows do."""
+    assert tsp.k4_lane_groups(c, vec, torch.float32) == (32, 1)
+
+
 def _hub_graphs(seed, n=300, e=2000, hub=600, c=128):
     """_graphs' shape with a hub row (row 7, ``hub`` in-edges) and 20 rows
     that receive no edge."""

@@ -223,3 +223,29 @@ def test_plain_function_is_the_kernel_function_on_the_cpu():
     for x, y in zip(list(a[0]) + list(a[1]), list(b[0]) + list(b[1])):
         assert torch.equal(x, y)
     assert [k.launches for k in (tgd.win_fused, tgd.win_der, tgd.win_dsend)] == counts
+
+
+@pytest.mark.parametrize("h, want", [(1, 256), (3, 256), (4, 224), (8, 128), (16, 64), (64, 32)])
+def test_k7_list_size(h, want):
+    """K7's list of a row's kept positions: the most multiples of 32 entries
+    whose ids, counts and per-head weights (and M and den per head) fit
+    `K7_LIST_BYTES`, at least 32 and at most `K7_MAX_LIST`; eight warps'
+    lists and the most hub ids a kernel takes fit a block's shared memory on
+    the card. A longer row is done in chunks of this size inside the kernel."""
+    size = tgd.k7_list_size(h)
+    assert size == want and size % 32 == 0
+    per_warp = 4 * (size * (2 + h) + 2 * h)
+    assert size == 32 or per_warp <= tgd.K7_LIST_BYTES
+    assert 4 * tgd.GAT_MAX_HUBS + 8 * per_warp <= 232_448
+
+
+@pytest.mark.parametrize("h, d, vec, want", [(3, 128, 4, 3), (3, 256, 4, 6), (1, 40, 4, 1),
+                                             (1, 256, 4, 2), (4, 256, 4, 6), (2, 41, 1, 8)])
+def test_k7_layout_covers_the_row(h, d, vec, want):
+    """K7's walk form: the fewest of its forms (nch groups of 32·vec columns
+    a lane) that cover a row's H·D columns, or the widest, which walks a
+    wider row (4 x 256) in column chunks."""
+    nch, size = tgd.k7_layout(h, d, vec)
+    assert nch == want and nch in tgd._K7_FORMS[vec]
+    assert size == tgd.k7_list_size(h)
+    assert nch * 32 * vec >= h * d or nch == max(tgd._K7_FORMS[vec])
