@@ -78,7 +78,8 @@ every check; nothing is caught):
    ogbn-proteins (132,534 nodes, degree 60, 10 clusters, 14 layers, 5
    evaluation parts, bf16), with its host partition seconds;
 19. timing of K2 with `ee` and K4 in bf16 at C=40 on the cluster graph,
-   beside their plain versions and bounds (K2's as in phase 6);
+   beside their plain versions and bounds (K2's as in phase 6), and K4
+   with dt at C=64 beside its bound;
 20. RevGAT graph: `bench.py:420-428`'s power-law community graph (N=169,343,
    degree 8, alpha 0.6) made symmetric, with self-loops, cluster order at
    16,384 and its band ("auto");
@@ -86,6 +87,10 @@ every check; nothing is caught):
    Function's backward against the Function on the plain versions, at
    RevGAT-5L's three packed widths (3x256+3, 3x128+3, 1x40+1, padded to a
    multiple of 8), in float32 and bfloat16, with and without the hash keep;
+   and K5's corner cases on a 5,000-node graph (a receiver of 4,500 edges,
+   40 receivers whose every edge is dropped and 100 with none: num, den and
+   the padding columns exact 0), at P=776, 392, 48 and 123 (D=41, scalar
+   loads), f32 and bf16, two launches bit for bit;
 22. GAT agreement: a small RevGAT on the card against the same weights on
    the CPU, on the CSC route and on the band route;
 23. main path, RevGAT-5L (`bench.py:119-132`: 256 hidden x 3 heads, group
@@ -109,6 +114,10 @@ every check; nothing is caught):
    the RevGAT graph's band; and K7 the same way on a 4,096-node band whose
    rows reach and pass K7's list of kept positions (up to 700 window
    positions a row, hub columns attached), done in chunks in the kernel;
+   and K9 on the mirror transpose band, whose sender rows pass K9's list,
+   with and without hub columns, at the three head shapes and D=41, f32
+   and bf16, with and without the drop (rows with no kept position exact
+   0, two launches bit for bit);
 27. dense agreement: small RevGATs with destination scores and with the
    per-receiver stabilizer, and a small PyG GATConv with explicit self
    edges, on a band's dense route on the card against the CPU;
@@ -161,17 +170,22 @@ without a card; it prints no device result.
 
 `--kernel-times` runs phase 1 and then only times K2 (C=128, and with `ee`
 at C=40 and 64), K4 (without dt at C=40, with dt at C=64) and K10 (C=128)
-in float32 and bfloat16, and K7 in bfloat16 at 3x128, 3x256 and 1x40 and
-in float32 at 3x128, at the shapes and on the inputs of phases 6, 19, 29
+in float32 and bfloat16, K7 and K9 in bfloat16 at 3x128, 3x256 and 1x40
+and in float32 at 3x128, and K5 in bfloat16 at P=392, 776 and 48 and in
+float32 at P=392, at the shapes and on the inputs of phases 6, 19, 25, 29
 and 32, printing one JSON line and no device result. It uses the package
 beside the script, so two commits compare on one card by copying this
 script into a checkout of each (`git archive <commit>` into a git-ignored
-directory) and running the copies in turns: parent, change, change, parent.
+directory) and running the copies in turns: parent, change, change, parent;
+`--output-hashes` adds a digest of each K5, K7 and K9 output to that line, so
+that the two commits' kernels compare bit for bit.
 
-`--k7-forms` (card only) runs phase 1 and then times K7's forms, each a copy
-of `csrc/win_fused.cu` with one of the design's constants replaced
-(`K7_FORMS`), at phase 29's shapes, printing one JSON line and no device
-result.
+`--kernel-forms[=K7,K9,K5]` (card only; `--k7-forms` is `--kernel-forms=K7`)
+runs phase 1 and then times the named kernels' forms (all three when none is
+named), each a copy of the kernel's source with some of the design's
+constants replaced and, for some, a list size, walk form or lane layout of
+the wrapper changed (`KERNEL_FORMS`), at phases 25 and 29's shapes, printing
+one JSON line and no device result.
 """
 
 from __future__ import annotations
@@ -1221,6 +1235,15 @@ def phase_edge_timing(g, errs, launches, iters):
                      "bound_ms": b[0], "bound_by": b[1], "library_ms": None})
         log(f"[edge-timing] {name} C={c}: {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}); "
             f"card: {CARD}")
+    # K4 with dt at C=64 (DyResGEN): as K4 at C=40, with q = [qo | out]
+    # read at twice the width and one float32 dt partial a sender row
+    # written; per (edge, channel) 3 more operations for dt's term
+    c = 64
+    idx_b = 4 * e + 4 * (n_pad + 1) + 4 * c + 4
+    k4dt_bound = bound(n_pad * c * 2 + e * c * 2 + n_pad * 2 * c * 2 + idx_b
+                       + n_pad * c * 2 + e_pad * c * 2 + 4 * n_pad, 13 * e * c)
+    log(f"[edge-timing] K4 dt C=64: {times[('K4 dt', c)][0]:.4f} ms, bound "
+        f"{k4dt_bound[0]:.4f} ms ({k4dt_bound[1]}); card: {CARD}")
     log("[edge-timing] no single PyTorch call computes K2 with ee or K4: library_ms is null")
     return rows
 
@@ -1322,9 +1345,46 @@ def phase_gat_kernels(g):
                 del res
             del t, co
         errs[tag] = {"K5": e5, "K6": e6}
+    k5_corner_checks(chk, dev)
     sync(dev)
     chk.raise_if_failed()
     return errs
+
+
+def k5_corner_checks(chk, dev):
+    """K5 against its plain version on a 5,000-node graph with a receiver of
+    4,500 edges (141 batches of a warp's edge table), 40 receivers whose
+    every edge is dropped and 100 with no edge (num, den and the padding
+    columns exactly 0), at P=776, 392, 48 (bf16: lane groups) and at D=41
+    (P=123, scalar loads), f32 and bf16; two launches bit for bit."""
+    n, e = 5000, 40000
+    rng = np.random.default_rng(19)
+    s, r = rng.integers(0, n, e), rng.integers(0, n - 100, e)
+    r[:4500] = 7
+    g = build_graph(None, s, r, num_nodes=n).to(dev)
+    n_pad = g.num_nodes_padded
+    dropped = (g.receivers >= 20) & (g.receivers < 60)
+    recv = torch.where(dropped | ~g.edge_mask, n_pad, g.receivers).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for h, d in GAT_SHAPES + ((2, 41),):
+        hd = h * d
+        p = hd + h + ((-(hd + h)) % 8 if d % 4 == 0 else 0)
+        base = torch.randn(n_pad, p, device=dev, generator=gen)
+        base[:, hd:hd + h] *= 3.0
+        base[:, hd + h:] = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            name = f"corner graph P={p} {tag}"
+            t = base.to(dtype).contiguous()
+            args = (g.senders, recv, g.row_ptr, tsp.gat_cmax(t, hd, h), hd, h, 0.2)
+            out = tsp.gat_fwd(t, *args)
+            chk.close(f"K5 {name}", out, tsp.gat_fwd_plain(t, *args),
+                      **(TOL_F32 if dtype == torch.float32 else TOL_BF16))
+            zero = torch.cat([out[20:60].flatten(), out[n - 100:].flatten(),
+                              out[:, hd + h:].flatten()])
+            chk.equal(f"K5 rows with every edge dropped or none, and padding, 0 {name}", zero,
+                      torch.zeros_like(zero))
+            chk.equal(f"K5 two launches bit for bit {name}", tsp.gat_fwd(t, *args), out)
 
 
 def phase_gat_agreement(dev):
@@ -1629,6 +1689,8 @@ def phase_dense_kernels(g):
             del feat, el, er, gnum, gden
         errs[tag] = {"K7": e7, "K8": e8, "K9": e9}
     k7_long_row_checks(chk, k7_long_row_band(dev))
+    for hubs in (True, False):
+        k9_long_row_checks(chk, k9_long_row_band(dev, hubs))
     sync(dev)
     chk.raise_if_failed()
     return errs
@@ -1690,6 +1752,73 @@ def k7_long_row_checks(chk, band):
                 for part, a, b in zip(("num", "den", "M"), tgd.win_fused(
                         band, el, er, m_other, feat, 0.2, spec), (num, den, m)):
                     chk.equal(f"K7 two launches bit for bit ({part}) {name}", a, b)
+
+
+def k9_long_row_band(dev, hubs):
+    """The mirror of `k7_long_row_band` for K9: a TRANSPOSE band whose sender
+    rows reach and pass K9's list (sender 5 sends to 700 receivers of its
+    window, 300 to 400 and 700 to exactly 256; window 768, no hub rows), with
+    the transpose hub columns of a second band (degree ≥ 64) attached when
+    ``hubs``. The power-law senders leave many rows with no position."""
+    rng = np.random.default_rng(21)
+    n, deg = 4096, 8
+    w = (1.0 / (1.0 + np.arange(n, dtype=np.float64))) ** 0.8
+    rng.shuffle(w)
+    s = rng.choice(n, n * deg, p=w / w.sum())
+    r = np.clip(s + rng.integers(-200, 201, n * deg), 0, n - 1)
+    hub_band = attach_band(build_graph(None, s, r, num_nodes=n), window=768, hubs=64).band.bwd
+    s = np.concatenate([s, np.full(700, 5), np.full(400, 300), np.full(256, 700)])
+    r = np.concatenate([r, np.arange(0, 700), np.arange(100, 500), np.arange(500, 756)])
+    band = attach_band(build_graph(None, s, r, num_nodes=n), window=768, hubs=None).band.bwd
+    if hubs:
+        band = dataclasses.replace(band, hub_ids=hub_band.hub_ids, a_hub=hub_band.a_hub)
+    return band.to(dev)
+
+
+def k9_long_row_checks(chk, band):
+    """K9 against its plain version on `k9_long_row_band`, at the three head
+    shapes and D=41 (scalar loads), f32 and bf16, with and without the drop:
+    d_el within TOL_DENSE_T, d_feat within TOL_DENSE, rows with no kept
+    position exactly 0, two launches bit for bit. Rows past the list are done
+    in chunks inside the kernel."""
+    dev = band.a.device
+    gen = torch.Generator(device=dev).manual_seed(29)
+    n = band.a.shape[0]
+    hubs = band.hub_ids is not None
+    kept = (band.a > 0).sum(1) + ((band.a_hub > 0).sum(1) if hubs else 0)
+    for h, d in GAT_SHAPES + ((2, 41),):
+        size = tgd.k9_list_size(h)
+        log(f"[dense kernels] K9 long-row band{'' if hubs else ' without hub columns'}, "
+            f"{h}x{d}: list of {size}, {int((kept >= size).sum())} rows with at least as "
+            f"many positions (longest {int(kept.max())}), {int((kept == 0).sum())} with none")
+        if int(kept.max()) < 2 * size:
+            raise AssertionError("the long-row band does not pass K9's list")
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            feat = torch.randn(n, h * d, device=dev, generator=gen).to(dtype)
+            gnum = torch.randn(n, h * d, device=dev, generator=gen).to(dtype)
+            el = torch.randn(n, h, device=dev, generator=gen) * 2.0
+            er = torch.randn(n, h, device=dev, generator=gen) * 2.0
+            gden = torch.randn(n, h, device=dev, generator=gen)
+            m = torch.full((n, h), 3.0, device=dev)
+            m[::3] = 6.0
+            for drop in (False, True):
+                spec = dense_drop(drop)
+                name = (f"long sender rows{'' if hubs else ', no hub columns'} {h}x{d}"
+                        f"{' drop' if drop else ''} {tag}")
+                args = (el, er, m, feat, gnum, gden, 0.2, spec)
+                d_el, d_feat = tgd.win_dsend(band, *args)
+                d_el_p, d_feat_p = tgd.win_dsend_plain(band, *args)
+                chk.close(f"K9 d_el {name}", d_el, d_el_p, **TOL_DENSE_T)
+                chk.close(f"K9 d_feat {name}", d_feat, d_feat_p, **TOL_DENSE)
+                empty = torch.ones(n, dtype=torch.bool, device=dev)
+                empty[tgd._entries(band, spec, True)[0]] = False
+                zero = torch.cat([d_el[empty].flatten(), d_feat[empty].flatten()])
+                chk.equal(f"K9 rows with no kept position 0 {name}", zero,
+                          torch.zeros_like(zero))
+                for part, a, b in zip(("d_el", "d_feat"), tgd.win_dsend(band, *args),
+                                      (d_el, d_feat)):
+                    chk.equal(f"K9 two launches bit for bit ({part}) {name}", a, b)
 
 
 def phase_dense_agreement(dev):
@@ -2119,15 +2248,27 @@ def phase_remat(g, labels, layers):
     return info
 
 
-def phase_kernel_times(dev, n, cluster, iters):
+def _sha256(*tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def phase_kernel_times(dev, n, cluster, iters, hashes=False):
     """`--kernel-times`: `time_fn`'s times of K2 at C=128 on the main graph;
     K2 with `ee` at C=40 and 64, K4 without dt at C=40 and with dt at C=64
-    on the cluster graph (phase 14's inputs); K7 at 3x128, 3x256 and 1x40
-    on the RevGAT graph's band with the step's hash drop (phase 29's inputs;
-    float32 at 3x128 only); K10 at C=128 on the block-sparse graph; each in
-    float32 and bfloat16 unless said, as one JSON line beside the card's
-    name and power limit. No check and no model runs."""
-    res = {}
+    on the cluster graph (phase 14's inputs); K7 and K9 at 3x128, 3x256 and
+    1x40 on the RevGAT graph's band with the step's hash drop (phase 29's
+    inputs; float32 at 3x128 only); K5 at P=392, 776 and 48 with the step's
+    hash keep (phase 25's inputs; float32 at P=392 only); K10 at C=128 on the
+    block-sparse graph; each in float32 and bfloat16 unless said, as one JSON
+    line beside the card's name and power limit. No check and no model runs.
+    ``hashes`` (`--output-hashes`) adds a digest of each K5, K7 and K9 output,
+    so that two commits' kernels compare bit for bit on one card."""
+    res, digests = {}, {}
     gen = torch.Generator(device=dev).manual_seed(5)
     g, _ = main_graph(n, dev)
     t = torch.tensor([0.1], device=dev)
@@ -2165,90 +2306,215 @@ def phase_kernel_times(dev, n, cluster, iters):
         m_other = dense_m_other(band, el, er, spec)
         res[f"K7 {h}x{d} {tag}"] = time_fn(
             lambda: tgd.win_fused(band, el, er, m_other, feat, 0.2, spec), dev, iters)
-    del g, band, feat, el, er, m_other
+        gnum = torch.randn(feat.shape, device=dev, generator=gen).to(dtype)
+        gden = torch.randn(el.shape, device=dev, generator=gen)
+        m = tgd.win_fused(band, el, er, m_other, feat, 0.2, spec)[2]
+        res[f"K9 {h}x{d} {tag}"] = time_fn(
+            lambda: tgd.win_dsend(g.band.bwd, el, er, m, feat, gnum, gden, 0.2, spec), dev,
+            iters)
+        if hashes:
+            digests[f"K7 {h}x{d} {tag}"] = _sha256(
+                *tgd.win_fused(band, el, er, m_other, feat, 0.2, spec))
+            d_el, d_feat = tgd.win_dsend(g.band.bwd, el, er, m, feat, gnum, gden, 0.2, spec)
+            digests[f"K9 d_el {h}x{d} {tag}"] = _sha256(d_el)
+            digests[f"K9 d_feat {h}x{d} {tag}"] = _sha256(d_feat)
+            del d_el, d_feat
+        del gnum, gden, m
+    recv, _ = gat_drop(g, True)
+    for (h, d), dtype, tag in (((3, 128), torch.bfloat16, "bf16"),
+                               ((3, 256), torch.bfloat16, "bf16"),
+                               ((1, 40), torch.bfloat16, "bf16"),
+                               ((3, 128), torch.float32, "f32")):
+        t = gat_table(g, h, d, dtype, gen)
+        fa = (g.senders, recv, g.row_ptr, tsp.gat_cmax(t, h * d, h), h * d, h, 0.2)
+        res[f"K5 P={t.shape[1]} {tag}"] = time_fn(lambda: tsp.gat_fwd(t, *fa), dev, iters)
+        if hashes:
+            digests[f"K5 P={t.shape[1]} {tag}"] = _sha256(tsp.gat_fwd(t, *fa))
+        del t, fa
+    del g, band, feat, el, er, m_other, recv
     bg = bsp_graph(n, dev)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         x = torch.randn(bg["n_pad"], 128, device=dev, generator=gen).to(dtype)
         res[f"K10 C=128 {tag}"] = time_fn(lambda: tbs.bsp_call(x, bg["tiles"]), dev, iters)
-    log(json.dumps({"root": ROOT, "card": CARD, "kernel_ms": res}))
+    log(json.dumps({"root": ROOT, "card": CARD, "kernel_ms": res,
+                    **({"outputs_sha256": digests} if hashes else {})}))
 
 
-# `--k7-forms`: K7's forms, each a copy of csrc/win_fused.cu with the
-# design's constants replaced (passes whose counts a lane loads at once,
-# blocks an SM keeps resident) and a list size; the first is the source as
-# it stands
-K7_FORMS = (("kept", {}, 256), ("1 pass a load", {"kScanBatch": 1}, 256),
-            ("4 passes a load", {"kScanBatch": 4}, 256), ("1 block", {"kMinBlocks": 1}, 256),
-            ("3 blocks", {"kMinBlocks": 3}, 256), ("5 blocks", {"kMinBlocks": 5}, 256),
-            ("5 blocks, list 128", {"kMinBlocks": 5}, 128),
-            ("6 blocks, list 128", {"kMinBlocks": 6}, 128),
-            ("8 blocks, list 128", {"kMinBlocks": 8}, 128))
+# `--kernel-forms`: each kernel's forms, a copy of its source with some of the
+# design's `constexpr int` constants replaced and, for some, attributes of the
+# wrapper's module set (list sizes, walk forms, lane groups); the first form
+# of each is the source as it stands. K7: passes whose counts a lane loads
+# at once, blocks an SM keeps resident, the list; K9: the same, the gnum
+# values in flight and one walk at 3 x 256; K5: the
+# sender-row values in flight, blocks an SM, one walk at 3 x 256, no lane
+# groups at 1 x 40.
+_ONE_WALK_FORMS = {4: (1, 2, 3, 6), 1: (8,)}
+KERNEL_FORMS = {
+    "K7": ("win_fused", (
+        ("kept", {}, {}), ("1 pass a load", {"kScanBatch": 1}, {}),
+        ("4 passes a load", {"kScanBatch": 4}, {}), ("1 block", {"kMinBlocks": 1}, {}),
+        ("3 blocks", {"kMinBlocks": 3}, {}), ("5 blocks", {"kMinBlocks": 5}, {}),
+        ("5 blocks, list 128", {"kMinBlocks": 5}, {"K7_MAX_LIST": 128}),
+        ("6 blocks, list 128", {"kMinBlocks": 6}, {"K7_MAX_LIST": 128}),
+        ("8 blocks, list 128", {"kMinBlocks": 8}, {"K7_MAX_LIST": 128}))),
+    "K9": ("win_dsend", (
+        ("kept", {}, {}),
+        ("1 pass a load", {"kScanBatch": 1}, {}),
+        ("half the rows in flight", {"kFlightValues": 12}, {}),
+        ("twice the rows in flight", {"kFlightValues": 48}, {}),
+        ("3 blocks", {"kMinBlocks": 3}, {}), ("2 blocks", {"kMinBlocks": 2}, {}),
+        ("list 64", {}, {"K9_MAX_LIST": 64}), ("list 224", {}, {"K9_LIST_BYTES": 8192}),
+        ("one walk at 3x256, 3 blocks", {"kMinBlocks": 3}, {"_K9_FORMS": _ONE_WALK_FORMS}))),
+    "K5": ("gat_fwd", (
+        ("kept", {}, {}),
+        ("half the rows in flight", {"kFlightValues": 48}, {}),
+        ("a quarter of the rows in flight", {"kFlightValues": 24}, {}),
+        ("3 blocks", {"kMinBlocks": 3}, {}), ("6 blocks", {"kMinBlocks": 6}, {}),
+        ("one walk at 3x256, 3 blocks", {"kMinBlocks": 3}, {"_K5_FORMS": _ONE_WALK_FORMS}),
+        ("no lane groups", {}, {"k2_lane_groups": lambda c, vec, dtype=None: (32, 1)}))),
+}
+FORM_SHAPES = (((3, 128), "bf16"), ((3, 256), "bf16"), ((1, 40), "bf16"), ((3, 128), "f32"))
 
 
-def phase_k7_forms(dev, n, iters):
-    """`--k7-forms` (card only): builds each of `K7_FORMS` with `nvcc` into
-    the git-ignored build directory, checks it against the plain version at
-    3x128 bf16 (M bit for bit, num within TOL_DENSE), and times it in turns
-    (the forms, then again in reverse order) on phase 29's inputs, as one
-    JSON line beside the card's name and power limit."""
-    import ctypes
+def _build_form(src_name, consts, out, tag):
+    """Starts `nvcc` on a copy of csrc/<src_name>.cu with ``consts`` replaced;
+    returns (library path, process)."""
     import re
 
-    out = os.path.join(ROOT, PKG, "build", "k7_forms")
-    shutil.rmtree(out, ignore_errors=True)
-    procs = []
-    for i, (name, consts, _) in enumerate(K7_FORMS):
-        src = open(os.path.join(_build.CSRC, "win_fused.cu")).read()
-        for k, v in consts.items():
-            src, hits = re.subn(rf"constexpr int {k} = \d+;", f"constexpr int {k} = {v};", src)
-            if hits != 1:
-                raise AssertionError(f"{k} not found once in win_fused.cu")
-        os.makedirs(out, exist_ok=True)
-        cu, so = os.path.join(out, f"form{i}.cu"), os.path.join(out, f"form{i}.so")
-        with open(cu, "w") as f:
-            f.write(src)
-        cmd = [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-I", _build.CSRC, "-o", so, cu]
-        procs.append((so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT, text=True)))
-    libs = []
-    for so, proc in procs:
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for {so}:\n{proc.stdout.read()}")
-        lib = ctypes.CDLL(so)
-        for fn, argtypes in _build._SIGNATURES["win_fused"].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        libs.append(lib)
-    g, _ = revgat_graph(n, dev)
-    band, spec = g.band.fwd, dense_drop(True)
-    gen = torch.Generator(device=dev).manual_seed(11)
-    shapes = (((3, 128), torch.bfloat16, "bf16"), ((3, 256), torch.bfloat16, "bf16"),
-              ((1, 40), torch.bfloat16, "bf16"), ((3, 128), torch.float32, "f32"))
-    inputs = {}
-    for (h, d), dtype, tag in shapes:
-        feat, el, er = dense_inputs(g, h, d, dtype, gen)
-        inputs[f"{h}x{d} {tag}"] = (feat, el, er, dense_m_other(band, el, er, spec))
-    chk = Checks("k7 forms")
-    res = {name: {k: [] for k in inputs} for name, _, _ in K7_FORMS}
-    order = list(range(len(K7_FORMS)))
-    try:
-        for i in order + order[::-1]:
-            name, _, size = K7_FORMS[i]
-            _build._libs["win_fused"], tgd.K7_MAX_LIST = libs[i], size
-            for key, (feat, el, er, m_other) in inputs.items():
-                if key == "3x128 bf16" and not res[name][key]:
-                    num, _, m = tgd.win_fused(band, el, er, m_other, feat, 0.2, spec)
-                    num_p, _, m_p = tgd.win_fused_plain(band, el, er, m_other, feat, 0.2, spec)
+    src = open(os.path.join(_build.CSRC, f"{src_name}.cu")).read()
+    for k, v in consts.items():
+        src, hits = re.subn(rf"constexpr int {k} = \d+;", f"constexpr int {k} = {v};", src)
+        if hits != 1:
+            raise AssertionError(f"{k} not found once in {src_name}.cu")
+    cu, so = os.path.join(out, f"{tag}.cu"), os.path.join(out, f"{tag}.so")
+    with open(cu, "w") as f:
+        f.write(src)
+    cmd = [_build.nvcc_path(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-I", _build.CSRC, "-o", so, cu]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+
+
+def _form_cases(kernel, g, gen):
+    """{shape key: (call, check)} of one kernel on phase 25/29's inputs: the
+    call launches the kernel; check(chk, name) holds one launch against the
+    plain version."""
+    dev = g.senders.device
+    cases = {}
+    for (h, d), tag in FORM_SHAPES:
+        dtype = torch.float32 if tag == "f32" else torch.bfloat16
+        key = f"{h}x{d} {tag}"
+        if kernel == "K5":
+            recv, _ = gat_drop(g, True)
+            t = gat_table(g, h, d, dtype, gen)
+            fa = (g.senders, recv, g.row_ptr, tsp.gat_cmax(t, h * d, h), h * d, h, 0.2)
+
+            def call(t=t, fa=fa):
+                return tsp.gat_fwd(t, *fa)
+
+            def check(chk, name, t=t, fa=fa, call=call):
+                chk.close(f"K5 {name}", call(), tsp.gat_fwd_plain(t, *fa), **TOL_BF16)
+        else:
+            band, spec = g.band.fwd, dense_drop(True)
+            feat, el, er = dense_inputs(g, h, d, dtype, gen)
+            m_other = dense_m_other(band, el, er, spec)
+            if kernel == "K7":
+                def call(a=(band, el, er, m_other, feat, 0.2, spec)):
+                    return tgd.win_fused(*a)
+
+                def check(chk, name, call=call, a=(band, el, er, m_other, feat, 0.2, spec)):
+                    num, _, m = call()
+                    num_p, _, m_p = tgd.win_fused_plain(*a)
                     chk.equal(f"K7 {name} M", m, m_p)
                     chk.close(f"K7 {name} num", num, num_p, **TOL_DENSE)
-                res[name][key].append(time_fn(
-                    lambda: tgd.win_fused(band, el, er, m_other, feat, 0.2, spec), dev, iters))
-    finally:
-        _build._libs.pop("win_fused", None)
-        tgd.K7_MAX_LIST = K7_FORMS[0][2]
+            else:
+                m = tgd.win_fused_plain(band, el, er, m_other, feat, 0.2, spec)[2]
+                gnum = torch.randn(feat.shape, device=dev, generator=gen).to(dtype)
+                gden = torch.randn(el.shape, device=dev, generator=gen)
+                args = (g.band.bwd, el, er, m, feat, gnum, gden, 0.2, spec)
+
+                def call(a=args):
+                    return tgd.win_dsend(*a)
+
+                def check(chk, name, call=call, a=args):
+                    d_el, d_feat = call()
+                    d_el_p, d_feat_p = tgd.win_dsend_plain(*a)
+                    chk.close(f"K9 {name} d_el", d_el, d_el_p, **TOL_DENSE_T)
+                    chk.close(f"K9 {name} d_feat", d_feat, d_feat_p, **TOL_DENSE)
+        cases[key] = (call, check)
+    return cases
+
+
+def phase_kernel_forms(dev, n, iters, kernels):
+    """`--kernel-forms` (card only): builds each form of `KERNEL_FORMS` of the
+    named kernels with `nvcc` (all at once) into the git-ignored build
+    directory, checks each against the plain version at 3x128 bf16, and
+    times it in turns (the forms, then again in reverse order) on phase
+    25/29's inputs, as one JSON line beside the card's name and power limit."""
+    import ctypes
+
+    out = os.path.join(ROOT, PKG, "build", "kernel_forms")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out, exist_ok=True)
+    procs = {k: [_build_form(KERNEL_FORMS[k][0], consts, out, f"{k}_{i}")
+                 for i, (_, consts, _) in enumerate(KERNEL_FORMS[k][1])] for k in kernels}
+    libs = {}
+    for k, built in procs.items():
+        libs[k] = []
+        for so, proc in built:
+            if proc.wait() != 0:
+                raise RuntimeError(f"nvcc failed for {so}:\n{proc.stdout.read()}")
+            lib = ctypes.CDLL(so)
+            for fn, argtypes in _build._SIGNATURES[KERNEL_FORMS[k][0]].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            libs[k].append(lib)
+    g, _ = revgat_graph(n, dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    chk = Checks("kernel forms")
+    res = {}
+    for k in kernels:
+        src, forms = KERNEL_FORMS[k]
+        module = tsp if k == "K5" else tgd
+        cases = _form_cases(k, g, gen)
+        res[k] = {name: {key: [] for key in cases} for name, _, _ in forms}
+        order = list(range(len(forms)))
+        for i in order + order[::-1]:
+            name, _, attrs = forms[i]
+            saved = {a: getattr(module, a) for a in attrs}
+            _build._libs[src] = libs[k][i]
+            try:
+                for a, v in attrs.items():
+                    setattr(module, a, v)
+                for key, (call, check) in cases.items():
+                    if key == "3x128 bf16" and not res[k][name][key]:
+                        check(chk, f"{name} {key}")
+                    res[k][name][key].append(time_fn(call, dev, iters))
+            finally:
+                _build._libs.pop(src, None)
+                for a, v in saved.items():
+                    setattr(module, a, v)
+        del cases
     chk.raise_if_failed()
-    log(json.dumps({"card": CARD, "k7_forms_ms": res}))
+    log(json.dumps({"card": CARD, "kernel_forms_ms": res}))
+
+
+def kernel_forms_arg(argv):
+    """The kernels of `--kernel-forms[=K9,K5]` (all of `KERNEL_FORMS` when
+    none is named), or of its older spelling `--k7-forms`; [] without it."""
+    for a in argv:
+        if a == "--k7-forms":
+            return ["K7"]
+        if a == "--kernel-forms":
+            return list(KERNEL_FORMS)
+        if a.startswith("--kernel-forms="):
+            names = a.split("=", 1)[1].split(",")
+            unknown = [k for k in names if k not in KERNEL_FORMS]
+            if unknown:
+                raise SystemExit(f"--kernel-forms: no forms for {unknown}; "
+                                 f"known: {list(KERNEL_FORMS)}")
+            return names
+    return []
 
 
 def main(argv):
@@ -2262,13 +2528,15 @@ def main(argv):
     info = phase_device(dev)
     mark("device")
     if "--kernel-times" in argv:
-        phase_kernel_times(dev, n, (800, 10) if rehearse else (13_000, 60), iters)
+        phase_kernel_times(dev, n, (800, 10) if rehearse else (13_000, 60), iters,
+                           "--output-hashes" in argv)
         return 0
-    if "--k7-forms" in argv:
+    forms = kernel_forms_arg(argv)
+    if forms:
         if rehearse:
-            log("--k7-forms builds CUDA sources: it runs on the card only")
+            log("--kernel-forms builds CUDA sources: it runs on the card only")
             return 1
-        phase_k7_forms(dev, n, iters)
+        phase_kernel_forms(dev, n, iters, forms)
         return 0
     g, labels = main_graph(n, dev)
     g_main, labels_main = g, labels  # the remat phase runs on it at the end

@@ -2,23 +2,26 @@
 // destination-score GAT over the window band and its hub columns
 // (deep_gcns_torch_tpu/ops/gat_dense.py:966-1393).
 //
-// In K8 and K9 one warp owns one (row, head) pair of a band: a receiver row
-// of the forward band (K8) or a sender row of the transpose band (K9); K7
-// gives a warp a whole receiver row and all its heads (win_fused.cu).  The row's
-// positions are its W window counts (int8 A[N_pad, W], row-major; node id
-// w_lo[row / 128] + column) and, when the kernel takes the band's hub columns,
-// its hub counts (bf16 a_hub[N_pad, H_hub]; node id hub_ids[k]).  A warp
-// examines them 256 at a time, 8 per lane (one 8-byte load of int8 counts, or
-// one 16-byte load of bf16 ones); a position is valid when its count is
-// non-zero and the hash edge-drop keeps its edge.  On the RevGAT-5L graph
-// about 1.8 % of the window positions are edges (~14 a row), so the TPU's
-// dense W x 128 tile is not evaluated: valid positions are compacted into a
-// per-warp list in shared memory (a popcount and a warp prefix sum, as in
-// band.cu) and the list is walked with the lanes across the head's D
-// columns.  Skipping a masked position is exact: it adds 0 to every sum and
-// NEG to the maximum.  Scores, exp and sums are float32; each term rounds
-// where the TPU kernel rounds (__f*_rn keeps the compiler from contracting
-// what the plain version rounds).
+// In K8 one warp owns one (row, head) pair of the forward band; K7 gives a
+// warp a whole receiver row of the forward band and all its heads
+// (win_fused.cu), K9 a whole sender row of the transpose band and all its
+// heads (win_dsend.cu).  The row's positions are its W window counts (int8
+// A[N_pad, W], row-major; node id w_lo[row / 128] + column) and, when the
+// kernel takes the band's hub columns, its hub counts (bf16 a_hub[N_pad,
+// H_hub]; node id hub_ids[k]).  A warp examines them 256 at a time, 8 per
+// lane (one 8-byte load of int8 counts, or one 16-byte load of bf16 ones); a
+// position is valid when its count is non-zero and the hash edge-drop keeps
+// its edge.  On the RevGAT-5L graph about 1.8 % of the window positions are
+// edges (~14 a row), so the TPU's dense W x 128 tile is not evaluated: valid
+// positions are compacted into a per-warp list in shared memory (a popcount
+// and a warp prefix sum, as in band.cu) and the list is walked.  K8 walks
+// one 256-position pass at a time with the lanes across the head's D
+// columns (`for_each_pass`); K7 and K9 scan the whole row once into a longer
+// list (`fill_list`, done in list-sized chunks past its end) and walk it
+// with the lanes across all H·D columns.  Skipping a masked position is
+// exact: it adds 0 to every sum and NEG to the maximum.  Scores, exp and
+// sums are float32; each term rounds where the TPU kernel rounds (__f*_rn
+// keeps the compiler from contracting what the plain version rounds).
 #pragma once
 
 #include "common.cuh"
@@ -167,6 +170,123 @@ __device__ __forceinline__ void for_each_pass(const DenseBand& b, int row, int l
     if (col0 < b.n_hub) hub_slots(b, row, col0, swap, sl);
     visit(sl);
   }
+}
+
+// ---- the one-scan list of K7 and K9 ----
+
+// Where a scan resumes: a pass (the window's passes, then the hub columns')
+// and the list index of the first kept position in it.
+struct Cursor {
+  int pass, first;
+};
+
+// The lane's 8 raw counts of pass p: int8 window counts in .x and .y, or
+// bf16 hub counts in .x to .w; zeros past the row's end.
+__device__ __forceinline__ uint4 load_pass(const DenseBand& b, int row, int n_win, int p,
+                                           int lane) {
+  uint4 w = make_uint4(0u, 0u, 0u, 0u);
+  if (p < n_win) {
+    const int col0 = p * kPass + kSlots * lane;
+    if (col0 < b.W) {
+      const uint2 v =
+          *reinterpret_cast<const uint2*>(b.a + static_cast<long long>(row) * b.W + col0);
+      w.x = v.x;
+      w.y = v.y;
+    }
+  } else {
+    const int col0 = (p - n_win) * kPass + kSlots * lane;
+    if (col0 < b.n_hub)
+      w = *reinterpret_cast<const uint4*>(b.a_hub + static_cast<long long>(row) * b.n_hub +
+                                          col0);
+  }
+  return w;
+}
+
+// window_slots / hub_slots on counts already loaded, with the hub ids from
+// the block's copy in shared memory
+__device__ __forceinline__ void decode_pass(const DenseBand& b, int row, int w_lo, int n_win,
+                                            int p, int lane, bool swap, const uint4& w,
+                                            const int* hub_ids, Slots& sl) {
+  sl.valid = 0;
+  if (p < n_win) {
+    const int col0 = p * kPass + kSlots * lane;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const int c = static_cast<int8_t>(((k < 4 ? w.x : w.y) >> (8 * (k & 3))) & 0xFFu);
+      sl.cnt[k] = static_cast<float>(c);
+      sl.id[k] = w_lo + col0 + k;
+      if (c > 0 && kept(b, row, sl.id[k], swap)) sl.valid |= 1u << k;
+    }
+  } else {
+    const int col0 = (p - n_win) * kPass + kSlots * lane;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const uint32_t word = k < 2 ? w.x : (k < 4 ? w.y : (k < 6 ? w.z : w.w));
+      sl.cnt[k] = __uint_as_float(((word >> (16 * (k & 1))) & 0xFFFFu) << 16);
+      sl.id[k] = 0;
+      if (sl.cnt[k] > 0.f) {
+        sl.id[k] = hub_ids[col0 + k];
+        if (kept(b, row, sl.id[k], swap)) sl.valid |= 1u << k;
+      }
+    }
+  }
+}
+
+// Compacts the kept positions of list index [lo, lo + L) into the list
+// (node ids `id`, counts `cnt`), scanning from `cur`; returns how many it
+// wrote.  `more` is set when kept positions remain past lo + L, and `cur`
+// then stays at the pass that holds index lo + L, where the next chunk
+// starts.  A lane loads the counts of BATCH passes before it decodes any, so
+// that a row's count loads overlap.  The list order is the window's passes,
+// then the hub columns', each pass in lane order: `for_each_pass`'s order.
+// Uniform across the warp.
+template <int BATCH>
+__device__ __forceinline__ int fill_list(const DenseBand& b, int row, int w_lo, int n_win,
+                                         int n_pass, int lane, bool swap, int L, int lo,
+                                         Cursor& cur, const int* hub_ids, int* id, float* cnt,
+                                         bool& more) {
+  more = false;
+  for (int p0 = cur.pass; p0 < n_pass; p0 += BATCH) {
+    uint4 raw[BATCH];
+#pragma unroll
+    for (int q = 0; q < BATCH; ++q)
+      raw[q] = p0 + q < n_pass ? load_pass(b, row, n_win, p0 + q, lane)
+                               : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int q = 0; q < BATCH; ++q) {
+      const int p = p0 + q;
+      if (p >= n_pass) break;
+      Slots sl;
+      decode_pass(b, row, w_lo, n_win, p, lane, swap, raw[q], hub_ids, sl);
+      int total;
+      int pos = cur.first + warp_prefix(__popc(sl.valid), lane, total);
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        if ((sl.valid >> k) & 1u) {
+          if (pos >= lo && pos < lo + L) {
+            id[pos - lo] = sl.id[k];
+            cnt[pos - lo] = sl.cnt[k];
+          }
+          ++pos;
+        }
+      }
+      if (cur.first + total > lo + L) {
+        more = true;
+        return L;
+      }
+      cur.first += total;
+      cur.pass = p + 1;
+    }
+  }
+  return cur.first - lo;
+}
+
+// The block's copy of the hub ids, at the start of its dynamic shared memory.
+__device__ __forceinline__ int* stage_hub_ids(const DenseBand& b, float* smem) {
+  int* hub_ids = reinterpret_cast<int*>(smem);
+  for (int i = threadIdx.x; i < b.n_hub; i += blockDim.x) hub_ids[i] = b.hub_ids[i];
+  __syncthreads();
+  return hub_ids;
 }
 
 // Loads the lane's columns of one head's D values of a row (zeros past D).

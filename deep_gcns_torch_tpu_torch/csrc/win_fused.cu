@@ -45,16 +45,17 @@
 //      columns (at 3 x 128 bf16, 384 values, 12 a lane), several rows in
 //      flight, each column adding round_T(E)·feat in list order (the window's
 //      positions, then the hub columns', as the first form did).
-// The scan loads the counts of 2 passes before it decodes any, and the
-// block copies the hub ids into shared memory first, so a row's count loads
-// overlap and no hub-id load waits on a count.  The list holds L entries
-// (`k7_list_size` in ops/gat_dense.py, 256 at up to 3 heads).  No bound on a row's kept positions holds in general (a band
-// without hub rows, a wide window, 2048 hub columns), so a longer row is done
-// here in list-sized chunks: a first sweep over the chunks finds M, a second
-// rescans them and adds the weights and the feature walk against it, num's
-// partial sums carried through the row's own num (written and read again by
-// the same lanes).  Rows wider than one walk's columns (32·VEC·NCH) walk the
-// list once per column chunk.
+// The scan (`fill_list`, gat_dense.cuh, shared with K9) loads the counts of
+// 2 passes before it decodes any, and the block copies the hub ids into
+// shared memory first, so a row's count loads overlap and no hub-id load
+// waits on a count.  The list holds L entries (`k7_list_size` in
+// ops/gat_dense.py, 256 at up to 3 heads).  No bound on a row's kept
+// positions holds in general (a band without hub rows, a wide window, 2048
+// hub columns), so a longer row is done here in list-sized chunks: a first
+// sweep over the chunks finds M, a second rescans them and adds the weights
+// and the feature walk against it, num's partial sums carried through the
+// row's own num (written and read again by the same lanes).  Rows wider
+// than one walk's columns (32·VEC·NCH) walk the list once per column chunk.
 //
 // Forms measured on the H100 (80GB HBM3, 700 W) on the RevGAT-5L band with
 // the step's drop (N=169,472, W=768, 128 hub columns, 13.9 kept positions a
@@ -102,112 +103,11 @@ __device__ __forceinline__ RowList row_list(float* base, int L, int H) {
   return r;
 }
 
-// Where a scan resumes: a pass (the window's passes, then the hub columns')
-// and the list index of the first kept position in it.
-struct Cursor {
-  int pass, first;
-};
-
-// Passes whose counts a lane loads before it decodes any, so that a row's
-// count loads overlap (the RevGAT band's rows have 3 window passes and one
-// of hub columns: two batches).  4 passes at once measured slower at 64
-// registers a thread.
+// Passes whose counts a lane loads before it decodes any (`fill_list` in
+// gat_dense.cuh), so that a row's count loads overlap (the RevGAT band's rows
+// have 3 window passes and one of hub columns: two batches).  4 passes at
+// once measured slower at 64 registers a thread.
 constexpr int kScanBatch = 2;
-
-// The lane's 8 raw counts of pass p: int8 window counts in .x and .y, or
-// bf16 hub counts in .x to .w; zeros past the row's end.
-__device__ __forceinline__ uint4 load_pass(const DenseBand& b, int row, int n_win, int p,
-                                           int lane) {
-  uint4 w = make_uint4(0u, 0u, 0u, 0u);
-  if (p < n_win) {
-    const int col0 = p * kPass + kSlots * lane;
-    if (col0 < b.W) {
-      const uint2 v =
-          *reinterpret_cast<const uint2*>(b.a + static_cast<long long>(row) * b.W + col0);
-      w.x = v.x;
-      w.y = v.y;
-    }
-  } else {
-    const int col0 = (p - n_win) * kPass + kSlots * lane;
-    if (col0 < b.n_hub)
-      w = *reinterpret_cast<const uint4*>(b.a_hub + static_cast<long long>(row) * b.n_hub +
-                                          col0);
-  }
-  return w;
-}
-
-// window_slots / hub_slots (gat_dense.cuh) on counts already loaded, with the
-// hub ids from the block's copy in shared memory
-__device__ __forceinline__ void decode_pass(const DenseBand& b, int row, int w_lo, int n_win,
-                                            int p, int lane, const uint4& w,
-                                            const int* hub_ids, Slots& sl) {
-  sl.valid = 0;
-  if (p < n_win) {
-    const int col0 = p * kPass + kSlots * lane;
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const int c = static_cast<int8_t>(((k < 4 ? w.x : w.y) >> (8 * (k & 3))) & 0xFFu);
-      sl.cnt[k] = static_cast<float>(c);
-      sl.id[k] = w_lo + col0 + k;
-      if (c > 0 && kept(b, row, sl.id[k], false)) sl.valid |= 1u << k;
-    }
-  } else {
-    const int col0 = (p - n_win) * kPass + kSlots * lane;
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      const uint32_t word = k < 2 ? w.x : (k < 4 ? w.y : (k < 6 ? w.z : w.w));
-      sl.cnt[k] = __uint_as_float(((word >> (16 * (k & 1))) & 0xFFFFu) << 16);
-      sl.id[k] = 0;
-      if (sl.cnt[k] > 0.f) {
-        sl.id[k] = hub_ids[col0 + k];
-        if (kept(b, row, sl.id[k], false)) sl.valid |= 1u << k;
-      }
-    }
-  }
-}
-
-// Compacts the kept positions of list index [lo, lo + L) into the list,
-// scanning from `cur`; returns how many it wrote.  `more` is set when kept
-// positions remain past lo + L, and `cur` then stays at the pass that holds
-// index lo + L, where the next chunk starts.  Uniform across the warp.
-__device__ __forceinline__ int fill_list(const DenseBand& b, int row, int w_lo, int n_win,
-                                         int n_pass, int lane, int L, int lo, Cursor& cur,
-                                         const int* hub_ids, const RowList& rl, bool& more) {
-  more = false;
-  for (int p0 = cur.pass; p0 < n_pass; p0 += kScanBatch) {
-    uint4 raw[kScanBatch];
-#pragma unroll
-    for (int q = 0; q < kScanBatch; ++q)
-      raw[q] = p0 + q < n_pass ? load_pass(b, row, n_win, p0 + q, lane)
-                               : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-    for (int q = 0; q < kScanBatch; ++q) {
-      const int p = p0 + q;
-      if (p >= n_pass) break;
-      Slots sl;
-      decode_pass(b, row, w_lo, n_win, p, lane, raw[q], hub_ids, sl);
-      int total;
-      int pos = cur.first + warp_prefix(__popc(sl.valid), lane, total);
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        if ((sl.valid >> k) & 1u) {
-          if (pos >= lo && pos < lo + L) {
-            rl.id[pos - lo] = sl.id[k];
-            rl.cnt[pos - lo] = sl.cnt[k];
-          }
-          ++pos;
-        }
-      }
-      if (cur.first + total > lo + L) {
-        more = true;
-        return L;
-      }
-      cur.first += total;
-      cur.pass = p + 1;
-    }
-  }
-  return cur.first - lo;
-}
 
 // Scores of the list's n entries, w[i, h] = lrelu(el[id_i, h] + er[r, h]),
 // lanes over (entry, head), two el loads in flight a lane; then M[h] =
@@ -334,9 +234,7 @@ win_fused_kernel(DenseBand b, const float* __restrict__ el, const float* __restr
                  int L) {
   // dynamic shared memory: the hub ids (n_hub ints), then each warp's list
   extern __shared__ float smem[];
-  int* hub_ids = reinterpret_cast<int*>(smem);
-  for (int i = threadIdx.x; i < b.n_hub; i += blockDim.x) hub_ids[i] = b.hub_ids[i];
-  __syncthreads();
+  const int* hub_ids = stage_hub_ids(b, smem);
   const int wib = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + wib;
   if (row >= b.n_rows) return;  // the whole warp leaves
@@ -356,13 +254,15 @@ win_fused_kernel(DenseBand b, const float* __restrict__ el, const float* __restr
   // 1-2. one scan into the list, the scores and M
   Cursor cur{0, 0};
   bool more;
-  int n = fill_list(b, row, w_lo, n_win, n_pass, lane, L, 0, cur, hub_ids, rl, more);
+  int n = fill_list<kScanBatch>(b, row, w_lo, n_win, n_pass, lane, false, L, 0, cur, hub_ids,
+                                rl.id, rl.cnt, more);
   __syncwarp();
   list_scores(rl, n, H, el, er_row, b.ns, lane);
   const bool chunked = more;
   for (int lo = L; more; lo += L) {  // a row longer than the list: M over every chunk
     __syncwarp();
-    n = fill_list(b, row, w_lo, n_win, n_pass, lane, L, lo, cur, hub_ids, rl, more);
+    n = fill_list<kScanBatch>(b, row, w_lo, n_win, n_pass, lane, false, L, lo, cur, hub_ids,
+                              rl.id, rl.cnt, more);
     __syncwarp();
     list_scores(rl, n, H, el, er_row, b.ns, lane);
   }
@@ -375,7 +275,8 @@ win_fused_kernel(DenseBand b, const float* __restrict__ el, const float* __restr
     cur = Cursor{0, 0};
     for (int lo = 0;; lo += L) {
       __syncwarp();
-      n = fill_list(b, row, w_lo, n_win, n_pass, lane, L, lo, cur, hub_ids, rl, more);
+      n = fill_list<kScanBatch>(b, row, w_lo, n_win, n_pass, lane, false, L, lo, cur, hub_ids,
+                                rl.id, rl.cnt, more);
       __syncwarp();
       // the scores again; their maxima change nothing now
       list_scores(rl, n, H, el, er_row, b.ns, lane);

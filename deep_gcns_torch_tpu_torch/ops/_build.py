@@ -47,17 +47,19 @@ _SIGNATURES = {
                         for name in ("dgc_softmax_bwd_csc_f32", "dgc_softmax_bwd_csc_bf16")},
     "band": {name: [_P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _I, _P]
              for name in ("dgc_band_f32", "dgc_band_bf16")},
-    "gat_fwd": {name: [_P] * 6 + [_I] * 4 + [_F, _I, _I, _P]
+    # tab, senders, recv, row_ptr, cmax, out; n_rows, P, D, H; slope, vec,
+    # nch, w, G, stream
+    "gat_fwd": {name: [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _I, _P]
                 for name in ("dgc_gat_fwd_f32", "dgc_gat_fwd_bf16")},
     "gat_bwd_csc": {name: [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P]
                     for name in ("dgc_gat_bwd_csc_f32", "dgc_gat_bwd_csc_bf16")},
     # K7-K9: the band's 4 pointers, the [N, H] and [N, H*D] tables and the
     # outputs, then n_rows, W, n_hub, H, D, the slope, the drop key and
-    # threshold, vec, nch (K7: and its list size) and the stream
+    # threshold, vec, nch (K7 and K9: and the list size) and the stream
     **{src: {f"dgc_{src}_{t}": [_P] * n_ptr + [_I] * 5 + [_F, _U, _U, _I, _I] + [_I] * n_lay
              + [_P] for t in ("f32", "bf16")}
        for src, n_ptr, n_lay in (("win_fused", 11, 2), ("win_der", 11, 1),
-                                 ("win_dsend", 12, 1))},
+                                 ("win_dsend", 12, 2))},
     "blocksparse": {name: [_P] * 5 + [_I, _I, _P] for name in ("dgc_bsp_f32", "dgc_bsp_bf16")},
 }
 

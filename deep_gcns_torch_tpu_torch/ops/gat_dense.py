@@ -35,10 +35,11 @@ keep plane per structure and conv call, shared by the passes that read it.
 
 The TPU's transposed count tiles, its 128-lane containers and padded heads
 are layout, not contract: the kernels read the row-major ``a`` and
-``a_hub`` (bf16 on the card). K8 and K9 give a warp to each (row, head);
-K7 gives a warp to each receiver row and all its heads, with a list of the
-row's kept positions in shared memory (`k7_list_size` entries; a longer row
-is done in list-sized chunks inside the kernel).
+``a_hub`` (bf16 on the card). K8 gives a warp to each (row, head); K7
+gives a warp to each receiver row and all its heads, K9 to each sender row
+of the transpose band and all its heads, each with a list of the row's kept
+positions in shared memory (`k7_list_size` and `k9_list_size` entries; a
+longer row is done in list-sized chunks inside the kernel).
 """
 
 from __future__ import annotations
@@ -67,6 +68,13 @@ K7_LIST_BYTES = 6144
 K7_MAX_LIST = 256
 # K7's walk forms: `nch` groups of 32·vec columns a lane, by vec
 _K7_FORMS = {4: (1, 2, 3, 6), 1: (8,)}
+# K9: shared memory a warp gives its list (ids, counts, and round(E) and
+# E·lrelu′ a head per entry, beside d_el per head), the most entries a list
+# takes, and its walk forms (the widest walks a wider row in column chunks:
+# its two float32 sums a column cost twice K7's registers)
+K9_LIST_BYTES = 6144
+K9_MAX_LIST = 256
+_K9_FORMS = {4: (1, 2, 3), 1: (8,)}
 
 
 def _lrelu(z: torch.Tensor, ns: float) -> torch.Tensor:
@@ -201,9 +209,9 @@ def _check_tables(n: int, h: int, **tables: torch.Tensor):
 
 
 def _head_layout(h: int, d: int, vec: int) -> Tuple[int]:
-    """(nch,) of K8 and K9, which walk one head's D columns: groups of
-    32·vec columns a lane."""
-    _require(d <= 256, f"a head of {d} columns is wider than K8 and K9 take (256)")
+    """(nch,) of K8, which walks one head's D columns: groups of 32·vec
+    columns a lane."""
+    _require(d <= 256, f"a head of {d} columns is wider than K8 takes (256)")
     return ((1 if d <= 128 else 2) if vec == 4 else 8,)
 
 
@@ -213,7 +221,7 @@ def _launch(name: str, band: Band, feat: torch.Tensor, rows: Tuple[torch.Tensor,
     """Checks shared by K7–K9 and the launch of ``dgc_<name>_<dtype>``.
     ``rows``: the [N, H·D] tables in feat's dtype (feat first); ``tables``
     the float32 [N, H] ones; ``outs`` the float32 outputs; ``layout(h, d,
-    vec)`` the kernel's walk form (K7: `k7_layout`)."""
+    vec)`` the kernel's walk form (K7: `k7_layout`, K9: `k9_layout`)."""
     dev = feat.device
     n, hd = feat.shape
     for t in rows:
@@ -274,6 +282,25 @@ def k7_layout(h: int, d: int, vec: int) -> Tuple[int, int]:
     return next((f for f in forms if f >= need), forms[-1]), k7_list_size(h)
 
 
+def k9_list_size(h: int) -> int:
+    """Entries of the list in which a warp of K9 keeps its sender row's kept
+    positions: as many multiples of 32 as `K9_LIST_BYTES` holds at 4 bytes
+    for the id, the count and two values a head (beside d_el per head), at
+    least 32 and at most `K9_MAX_LIST`. A row with more kept positions is
+    done in chunks of this size inside the kernel."""
+    fit = (K9_LIST_BYTES - 4 * h) // (4 * (2 + 2 * h)) // 32 * 32
+    return max(32, min(K9_MAX_LIST, fit))
+
+
+def k9_layout(h: int, d: int, vec: int) -> Tuple[int, int]:
+    """(nch, list size) of K9 for H heads of D columns: nch groups of 32·vec
+    columns a lane's walk, the fewest of K9's forms that cover H·D, or the
+    widest, which walks a wider row (3 x 256) in column chunks."""
+    need = -(-(h * d) // (32 * vec))
+    forms = _K9_FORMS[vec]
+    return next((f for f in forms if f >= need), forms[-1]), k9_list_size(h)
+
+
 def win_fused(band: Band, el: torch.Tensor, er: torch.Tensor, m_other: torch.Tensor,
               feat: torch.Tensor, neg_slope: float, drop: Optional[DropSpec] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -331,7 +358,7 @@ def win_dsend(band_bwd: Band, el: torch.Tensor, er: torch.Tensor, m: torch.Tenso
     d_el = torch.empty((n, h), dtype=torch.float32, device=feat.device)
     d_feat = torch.empty((n, hd), dtype=torch.float32, device=feat.device)
     rc = _launch("win_dsend", band_bwd, feat, (feat, gnum), (el, er, m, gden),
-                 (d_el, d_feat), h, neg_slope, drop)
+                 (d_el, d_feat), h, neg_slope, drop, k9_layout)
     win_dsend.launches += 1
     _raise_on(rc, "K9 win_dsend")
     return d_el, d_feat

@@ -509,10 +509,32 @@ def _check_gat(T: torch.Tensor, cmax: torch.Tensor, hd: int, h: int):
              "cmax must be a contiguous float32 [h] tensor on T's device")
 
 
+# K5's walk forms: `nch` groups of 32·vec columns a lane across a row's H·D
+# columns, by vec (a wider row walks its columns in chunks)
+_K5_FORMS = {4: (1, 2, 3), 1: (8,)}
+
+
+def k5_layout(h: int, d: int, vec: int, dtype: torch.dtype = torch.bfloat16
+              ) -> Tuple[int, int, int]:
+    """(nch, w, G) of K5, whose warp walks a receiver row's H·D columns: in
+    bf16 a row of at most 16·vec columns takes K2's lane groups (G groups of
+    w lanes, each every G-th kept edge; 1 x 40 → 3 x 10 lanes) and nch 1;
+    otherwise one group (w = 32, G = 1, float32 always, in edge order) and
+    the fewest of K5's forms that cover H·D, or the widest, which walks a
+    wider row (3 x 256) in column chunks."""
+    hd = h * d
+    w, groups = k2_lane_groups(hd, vec, dtype)
+    if groups > 1:
+        return 1, w, groups
+    need = -(-hd // (32 * vec))
+    forms = _K5_FORMS[vec]
+    return next((f for f in forms if f >= need), forms[-1]), 32, 1
+
+
 def _gat_launch(d: int, p: int, *tables: torch.Tensor) -> Tuple[int, int]:
     """(vec, nch) of a K5/K6 launch: 4-wide loads when the head width D and
-    the row width P are multiples of 4 and every table is aligned, and the
-    number of 32·vec-column groups a lane walks per head."""
+    the row width P are multiples of 4 and every table is aligned, and (K6)
+    the number of 32·vec-column groups a lane walks per head."""
     vec = _vec(d, *tables) if p % 4 == 0 else 1
     groups = -(-d // (32 * vec))
     nch = next((n for n in (1, 2, 4, 8) if n >= groups), None)
@@ -540,11 +562,12 @@ def gat_fwd(T: torch.Tensor, senders: torch.Tensor, receivers_eff: torch.Tensor,
     out = torch.empty((n_rows, p), dtype=T.dtype, device=T.device)
     if n_rows == 0:
         return out
-    vec, nch = _gat_launch(hd // h, p, T, out)
+    vec, _ = _gat_launch(hd // h, p, T, out)
+    nch, w, groups = k5_layout(h, hd // h, vec, T.dtype)
     fn = getattr(library("gat_fwd"), f"dgc_gat_fwd_{_SUFFIX[T.dtype]}")
     rc = fn(T.data_ptr(), senders.data_ptr(), receivers_eff.data_ptr(), row_ptr.data_ptr(),
             cmax.data_ptr(), out.data_ptr(), n_rows, p, hd // h, h, float(neg_slope), vec, nch,
-            torch.cuda.current_stream(T.device).cuda_stream)
+            w, groups, torch.cuda.current_stream(T.device).cuda_stream)
     gat_fwd.launches += 1
     _raise_on(rc, "K5 gat_fwd")
     return out

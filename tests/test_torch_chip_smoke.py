@@ -46,20 +46,50 @@ def test_failed_close_saves_what_it_compared(monkeypatch, tmp_path):
 def test_kernel_times_mode_prints_one_time_per_kernel_form():
     """`--kernel-times` (rehearsed on the CPU) ends in one JSON line with a
     positive time for K2, K2 with `ee` at C=40 and 64, K4 without dt at C=40
-    and with dt at C=64, and K10, each in float32 and bfloat16, and K7 at
-    3x128 (float32 and bfloat16), 3x256 and 1x40 (bfloat16), and prints no
-    device result."""
+    and with dt at C=64, and K10, each in float32 and bfloat16, K7 and K9 at
+    3x128 (float32 and bfloat16), 3x256 and 1x40 (bfloat16), and K5 at P=392
+    (float32 and bfloat16), 776 and 48 (bfloat16); with `--output-hashes` a
+    digest of each K5, K7 and K9 output; and prints no device result."""
     import json
     import subprocess
     import sys
 
     run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rehearse-cpu",
-                          "--kernel-times"], capture_output=True, text=True, timeout=300,
-                         check=True)
+                          "--kernel-times", "--output-hashes"], capture_output=True,
+                         text=True, timeout=300, check=True)
     last = json.loads(run.stdout.strip().splitlines()[-1])
     want = {f"{k} {d}" for k in ("K2 C=128", "K2 ee C=40", "K2 ee C=64", "K4 C=40",
                                  "K4 dt C=64", "K10 C=128") for d in ("f32", "bf16")}
-    want |= {"K7 3x128 bf16", "K7 3x256 bf16", "K7 1x40 bf16", "K7 3x128 f32"}
-    assert set(last["kernel_ms"]) == want
+    dense = {"3x128 bf16", "3x256 bf16", "1x40 bf16", "3x128 f32"}
+    want |= {f"{k} {s}" for k in ("K7", "K9") for s in dense}
+    k5 = {f"K5 {s}" for s in ("P=392 bf16", "P=776 bf16", "P=48 bf16", "P=392 f32")}
+    assert set(last["kernel_ms"]) == want | k5
     assert all(v > 0 for v in last["kernel_ms"].values())
+    assert set(last["outputs_sha256"]) == k5 | {f"K7 {s}" for s in dense} | {
+        f"K9 {o} {s}" for o in ("d_el", "d_feat") for s in dense}
     assert '"ok"' not in run.stdout
+
+
+def test_kernel_forms_argument(monkeypatch, tmp_path):
+    """`--kernel-forms` names the kernels whose forms are built and timed:
+    all of `KERNEL_FORMS` when none is named, `--k7-forms` K7 alone; every
+    constant a form replaces stands once as a `constexpr int` in the
+    kernel's source, and every wrapper attribute it sets exists."""
+    import re
+
+    from deep_gcns_torch_tpu_torch.ops import gat_dense as tgd
+    from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
+
+    mod = _chip_smoke(monkeypatch, tmp_path)
+    assert mod.kernel_forms_arg(["--kernel-forms"]) == ["K7", "K9", "K5"]
+    assert mod.kernel_forms_arg(["--kernel-forms=K9,K5"]) == ["K9", "K5"]
+    assert mod.kernel_forms_arg(["--k7-forms"]) == ["K7"]
+    assert mod.kernel_forms_arg(["--kernel-times"]) == []
+    for kernel, (src, forms) in mod.KERNEL_FORMS.items():
+        text = open(os.path.join(ROOT, "deep_gcns_torch_tpu_torch", "csrc", f"{src}.cu")).read()
+        module = tsp if kernel == "K5" else tgd
+        assert forms[0][1:] == ({}, {})
+        for _, consts, attrs in forms:
+            for k in consts:
+                assert len(re.findall(rf"constexpr int {k} = \d+;", text)) == 1, (kernel, k)
+            assert all(hasattr(module, a) for a in attrs), (kernel, attrs)

@@ -853,3 +853,107 @@ def test_win_fused_long_rows(cuda_device, dtype, h, d):
             assert torch.equal(a, b)
         torch.cuda.synchronize()
         assert tgd.win_fused.launches == before + 2
+
+
+def _k9_long_row_band(dev, hubs=True, seed=21, n=4096, deg=8):
+    """The mirror of `_long_row_band` for K9: a TRANSPOSE band whose sender
+    rows reach and pass K9's list (sender 5 sends to 700 receivers of its
+    window, 300 to 400 and 700 to exactly 256), window 768 and no hub rows,
+    with the transpose hub columns of a second band (degree ≥ 64) attached
+    when ``hubs``, so that a long row's chunks run on into its hub columns.
+    The power-law senders leave many rows with no position at all."""
+    import dataclasses
+
+    rng = np.random.default_rng(seed)
+    w = (1.0 / (1.0 + np.arange(n, dtype=np.float64))) ** 0.8
+    rng.shuffle(w)
+    s = rng.choice(n, n * deg, p=w / w.sum())
+    r = np.clip(s + rng.integers(-200, 201, n * deg), 0, n - 1)
+    hub_band = attach_band(build_graph(None, s, r, num_nodes=n), window=768, hubs=64).band.bwd
+    s = np.concatenate([s, np.full(700, 5), np.full(400, 300), np.full(256, 700)])
+    r = np.concatenate([r, np.arange(0, 700), np.arange(100, 500), np.arange(500, 756)])
+    band = attach_band(build_graph(None, s, r, num_nodes=n), window=768, hubs=None).band.bwd
+    if hubs:
+        band = dataclasses.replace(band, hub_ids=hub_band.hub_ids, a_hub=hub_band.a_hub)
+    return band.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d", [(3, 128), (3, 256), (1, 40), (2, 41)])
+@pytest.mark.parametrize("hubs", [True, False])
+def test_win_dsend_long_rows(cuda_device, dtype, h, d, hubs):
+    """K9 on sender rows at and past its list (`k9_list_size`), with and
+    without hub columns and the drop, against its plain version: d_el within
+    TOL_DENSE_T (its per-head dot is regrouped as feat·Σ a·gnum), d_feat
+    within TOL_DENSE, rows with no kept position exactly 0, two launches bit
+    for bit, one launch each."""
+    from deep_gcns_torch_tpu_torch.ops import gat_dense as tgd
+
+    band = _k9_long_row_band(cuda_device, hubs)
+    kept = (band.a > 0).sum(1)
+    if hubs:
+        kept = kept + (band.a_hub > 0).sum(1)
+        assert tgd._hub_in_kernel(band)
+    assert int(kept.max()) >= 2 * tgd.k9_list_size(h)
+    n = band.a.shape[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    feat = torch.randn(n, h * d, device=cuda_device, generator=gen).to(dtype)
+    gnum = torch.randn(n, h * d, device=cuda_device, generator=gen).to(dtype)
+    el = torch.randn(n, h, device=cuda_device, generator=gen) * 2
+    er = torch.randn(n, h, device=cuda_device, generator=gen) * 2
+    gden = torch.randn(n, h, device=cuda_device, generator=gen)
+    m = torch.full((n, h), 3.0, device=cuda_device)
+    m[::3] = 6.0
+    for drop in (False, True):
+        spec = _dense_drop(drop)
+        args = (el, er, m, feat, gnum, gden, 0.2, spec)
+        before = tgd.win_dsend.launches
+        d_el, d_feat = tgd.win_dsend(band, *args)
+        d_el_p, d_feat_p = tgd.win_dsend_plain(band, *args)
+        _assert_close(d_el, d_el_p, **TOL_DENSE_T)
+        _assert_close(d_feat, d_feat_p, **TOL_DENSE)
+        empty = torch.ones(n, dtype=torch.bool, device=cuda_device)
+        empty[tgd._entries(band, spec, True)[0]] = False
+        assert int(empty.sum()) > 0
+        assert not d_el[empty].any() and not d_feat[empty].any()
+        for a, b in zip(tgd.win_dsend(band, *args), (d_el, d_feat)):
+            assert torch.equal(a, b)
+        torch.cuda.synchronize()
+        assert tgd.win_dsend.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d", [(3, 256), (3, 128), (1, 40), (2, 41)])
+def test_gat_fwd_corner_cases(cuda_device, dtype, h, d):
+    """K5 against its plain version on a receiver of 4,500 edges (141 slot
+    batches of a warp's edge table), 40 receivers whose every edge is
+    dropped and 100 with no edge (num, den and the padding columns exactly
+    0), at P=776, 392 and 48 (lane groups in bf16) and at D=41 (P=123,
+    scalar loads); two launches bit for bit, one launch each."""
+    n, e = 5000, 40000
+    rng = np.random.default_rng(19)
+    s, r = rng.integers(0, n, e), rng.integers(0, n - 100, e)
+    r[:4500] = 7
+    g = build_graph(None, s, r, num_nodes=n).to(cuda_device)
+    n_pad, hd = g.num_nodes_padded, h * d
+    p = hd + h + ((-(hd + h)) % 8 if d % 4 == 0 else 0)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    t = torch.randn(n_pad, p, device=cuda_device, generator=gen)
+    t[:, hd:hd + h] *= 3.0
+    t[:, hd + h:] = 0.0
+    t = t.to(dtype).contiguous()
+    dropped = (g.receivers >= 20) & (g.receivers < 60)
+    recv = torch.where(dropped | ~g.edge_mask, n_pad, g.receivers).contiguous()
+    cmax = tsp.gat_cmax(t, hd, h)
+    args = (g.senders, recv, g.row_ptr, cmax, hd, h, 0.2)
+    before = tsp.gat_fwd.launches
+    out = tsp.gat_fwd(t, *args)
+    _assert_close(out, tsp.gat_fwd_plain(t, *args), **TOL[dtype])
+    assert int((g.row_ptr[8] - g.row_ptr[7]).item()) >= 4500
+    assert not out[20:60].any() and not out[n - 100:].any() and not out[:, hd + h:].any()
+    assert out[7, :hd + h].abs().sum() > 0
+    assert torch.equal(tsp.gat_fwd(t, *args), out)
+    torch.cuda.synchronize()
+    assert tsp.gat_fwd.launches == before + 2

@@ -306,6 +306,32 @@ def test_k4_float32_takes_one_group(c, vec):
     assert tsp.k4_lane_groups(c, vec, torch.float32) == (32, 1)
 
 
+@pytest.mark.parametrize("h, d, vec, want", [(3, 128, 4, (3, 32, 1)), (3, 256, 4, (3, 32, 1)),
+                                             (1, 40, 4, (1, 10, 3)), (1, 64, 4, (1, 16, 2)),
+                                             (2, 41, 1, (8, 32, 1)), (1, 12, 1, (1, 12, 2))])
+def test_k5_layout(h, d, vec, want):
+    """K5's walk across a receiver row's H·D columns in bf16: K2's lane
+    groups for a narrow row (1 x 40: 3 groups of 10 lanes, nch 1); else one
+    group of 32 lanes and the fewest of its forms that cover H·D, or the
+    widest, which walks a wider row (3 x 256) in column chunks."""
+    nch, w, groups = tsp.k5_layout(h, d, vec)
+    assert (nch, w, groups) == want
+    assert w * groups <= 32
+    if groups > 1:
+        assert nch == 1 and w * vec >= h * d
+    else:
+        assert nch in tsp._K5_FORMS[vec]
+        assert nch * 32 * vec >= h * d or nch == max(tsp._K5_FORMS[vec])
+
+
+@pytest.mark.parametrize("h, d, vec", [(1, 40, 4), (3, 128, 4), (1, 12, 1)])
+def test_k5_float32_takes_one_group(h, d, vec):
+    """float32 K5 keeps one group at every width, so that each column sums
+    its edges in edge order, as the first form did."""
+    nch, w, groups = tsp.k5_layout(h, d, vec, torch.float32)
+    assert (w, groups) == (32, 1) and nch * 32 * vec >= min(h * d, 384)
+
+
 def _hub_graphs(seed, n=300, e=2000, hub=600, c=128):
     """_graphs' shape with a hub row (row 7, ``hub`` in-edges) and 20 rows
     that receive no edge."""

@@ -249,3 +249,32 @@ def test_k7_layout_covers_the_row(h, d, vec, want):
     assert nch == want and nch in tgd._K7_FORMS[vec]
     assert size == tgd.k7_list_size(h)
     assert nch * 32 * vec >= h * d or nch == max(tgd._K7_FORMS[vec])
+
+
+@pytest.mark.parametrize("h, want", [(1, 256), (2, 224), (3, 160), (4, 128), (8, 64),
+                                     (64, 32)])
+def test_k9_list_size(h, want):
+    """K9's list of a sender row's kept positions: the most multiples of 32
+    entries whose ids, counts and two values a head (round(E) and E·lrelu′,
+    beside d_el per head) fit `K9_LIST_BYTES`, at least 32 and at most
+    `K9_MAX_LIST`; eight warps' lists and the most hub ids a kernel takes
+    fit a block's shared memory on the card. A longer row is done in chunks
+    of this size inside the kernel."""
+    size = tgd.k9_list_size(h)
+    assert size == want and size % 32 == 0
+    per_warp = 4 * (size * (2 + 2 * h) + h)
+    assert size == 32 or per_warp <= tgd.K9_LIST_BYTES
+    assert 4 * tgd.GAT_MAX_HUBS + 8 * per_warp <= 232_448
+
+
+@pytest.mark.parametrize("h, d, vec, want", [(3, 128, 4, 3), (3, 256, 4, 3), (1, 40, 4, 1),
+                                             (1, 256, 4, 2), (2, 41, 1, 8), (1, 300, 1, 8)])
+def test_k9_layout_covers_the_row(h, d, vec, want):
+    """K9's walk form: the fewest of its forms (nch groups of 32·vec columns
+    a lane) that cover a row's H·D columns, or the widest, which walks a
+    wider row (3 x 256, 768 columns) in column chunks, since each column
+    holds two float32 sums (d_feat and G) in registers."""
+    nch, size = tgd.k9_layout(h, d, vec)
+    assert nch == want and nch in tgd._K9_FORMS[vec]
+    assert size == tgd.k9_list_size(h)
+    assert nch * 32 * vec >= h * d or nch == max(tgd._K9_FORMS[vec])
