@@ -90,7 +90,10 @@ every check; nothing is caught):
    and K5's corner cases on a 5,000-node graph (a receiver of 4,500 edges,
    40 receivers whose every edge is dropped and 100 with none: num, den and
    the padding columns exact 0), at P=776, 392, 48 and 123 (D=41, scalar
-   loads), f32 and bf16, two launches bit for bit;
+   loads), f32 and bf16, two launches bit for bit; and K6's on its mirror (a
+   sender of 4,500 CSC edges, 40 senders whose every edge `keep_csc` drops
+   and 100 with none: their rows and the padding columns exact 0), with and
+   without `keep_csc`, at the same widths;
 22. GAT agreement: a small RevGAT on the card against the same weights on
    the CPU, on the CSC route and on the band route;
 23. main path, RevGAT-5L (`bench.py:119-132`: 256 hidden x 3 heads, group
@@ -114,7 +117,8 @@ every check; nothing is caught):
    the RevGAT graph's band; and K7 the same way on a 4,096-node band whose
    rows reach and pass K7's list of kept positions (up to 700 window
    positions a row, hub columns attached), done in chunks in the kernel;
-   and K9 on the mirror transpose band, whose sender rows pass K9's list,
+   and K8 on that band's receiver rows (with and without hub columns) and
+   K9 on the mirror transpose band, whose sender rows pass K9's list,
    with and without hub columns, at the three head shapes and D=41, f32
    and bf16, with and without the drop (rows with no kept position exact
    0, two launches bit for bit);
@@ -141,7 +145,7 @@ every check; nothing is caught):
    launches), then K10 in bf16 at C=128 beside its plain version,
    `torch.sparse.mm` of the same adjacency, K1 on the same edges and its
    bound, with K10's ratios to the three (no route of the JAX package
-   calls K10);
+   calls K10), and K10 in float32 beside `torch.sparse.mm` in float32;
 33. checkpoint path, arxiv: `apps/ogbn_arxiv.main` as ResGEN-28 (bf16) on
    169,343 synthetic nodes for 2 epochs with `--save_ckpt`, resumed with
    `--pretrained_model` to epoch 4, and `apps/ogbn_arxiv_test.main` on the
@@ -170,22 +174,23 @@ without a card; it prints no device result.
 
 `--kernel-times` runs phase 1 and then only times K2 (C=128, and with `ee`
 at C=40 and 64), K4 (without dt at C=40, with dt at C=64) and K10 (C=128)
-in float32 and bfloat16, K7 and K9 in bfloat16 at 3x128, 3x256 and 1x40
-and in float32 at 3x128, and K5 in bfloat16 at P=392, 776 and 48 and in
-float32 at P=392, at the shapes and on the inputs of phases 6, 19, 25, 29
-and 32, printing one JSON line and no device result. It uses the package
-beside the script, so two commits compare on one card by copying this
-script into a checkout of each (`git archive <commit>` into a git-ignored
-directory) and running the copies in turns: parent, change, change, parent;
-`--output-hashes` adds a digest of each K5, K7 and K9 output to that line, so
-that the two commits' kernels compare bit for bit.
+in float32 and bfloat16, K7, K8 and K9 in bfloat16 at 3x128, 3x256 and
+1x40 and in float32 at 3x128, and K5 and K6 in bfloat16 at P=392, 776 and
+48 and in float32 at P=392, at the shapes and on the inputs of phases 6,
+19, 25, 29 and 32, printing one JSON line and no device result. It uses the
+package beside the script, so two commits compare on one card by copying
+this script into a checkout of each (`git archive <commit>` into a
+git-ignored directory) and running the copies in turns: parent, change,
+change, parent; `--output-hashes` adds a digest of each K5, K6 (its dmsg and
+d_el columns apart), K7, K8 and K9 output to that line, so that the two
+commits' kernels compare bit for bit.
 
-`--kernel-forms[=K7,K9,K5]` (card only; `--k7-forms` is `--kernel-forms=K7`)
-runs phase 1 and then times the named kernels' forms (all three when none is
-named), each a copy of the kernel's source with some of the design's
-constants replaced and, for some, a list size, walk form or lane layout of
-the wrapper changed (`KERNEL_FORMS`), at phases 25 and 29's shapes, printing
-one JSON line and no device result.
+`--kernel-forms[=K7,K9,K5,K8,K6]` (card only; `--k7-forms` is
+`--kernel-forms=K7`) runs phase 1 and then times the named kernels' forms
+(all five when none is named), each a copy of the kernel's source with some
+of the design's constants replaced and, for some, a list size, walk form or
+lane layout of the wrapper changed (`KERNEL_FORMS`), at phases 25 and 29's
+shapes, printing one JSON line and no device result.
 """
 
 from __future__ import annotations
@@ -1346,6 +1351,7 @@ def phase_gat_kernels(g):
             del t, co
         errs[tag] = {"K5": e5, "K6": e6}
     k5_corner_checks(chk, dev)
+    k6_corner_checks(chk, dev)
     sync(dev)
     chk.raise_if_failed()
     return errs
@@ -1385,6 +1391,55 @@ def k5_corner_checks(chk, dev):
             chk.equal(f"K5 rows with every edge dropped or none, and padding, 0 {name}", zero,
                       torch.zeros_like(zero))
             chk.equal(f"K5 two launches bit for bit {name}", tsp.gat_fwd(t, *args), out)
+
+
+def k6_corner_checks(chk, dev):
+    """K6 against its plain version on a 5,000-node graph with a sender of
+    4,500 CSC edges (141 batches of a warp's edge table), 40 senders whose
+    every edge `keep_csc` drops and 100 with no edge (dT's row, d_el and the
+    padding columns exactly 0), at P=776, 392, 48 (bf16: lane groups) and at
+    D=41 (P=123, scalar loads), f32 and bf16, with and without `keep_csc`;
+    two launches bit for bit."""
+    n, e = 5000, 40000
+    rng = np.random.default_rng(31)
+    s, r = rng.integers(0, n - 100, e), rng.integers(0, n, e)
+    s[:4500] = 7
+    g = build_graph(None, s, r, num_nodes=n).to(dev)
+    n_pad = g.num_nodes_padded
+    send = g.csc_senders
+    spec = tband.DropSpec(k0=-77, k1=4242, thresh=tband.drop_thresh(0.3))
+    hashed = (tband.edge_keep_mask(spec, g.receivers, g.senders) > 0).index_select(
+        0, g.csc_perm.long())
+    keep_csc = hashed & ~((send >= 20) & (send < 60))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for h, d in GAT_SHAPES + ((2, 41),):
+        hd = h * d
+        p = hd + h + ((-(hd + h)) % 8 if d % 4 == 0 else 0)
+        base = torch.randn(n_pad, p, device=dev, generator=gen)
+        base[:, hd:hd + h] *= 3.0
+        base[:, hd + h:] = 0.0
+        q = torch.randn(n_pad, p, device=dev, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            t, qt = base.to(dtype).contiguous(), q.to(dtype).contiguous()
+            cmax = tsp.gat_cmax(t, hd, h)
+            for keep in (None, keep_csc):
+                name = f"corner graph P={p}{' keep' if keep is not None else ''} {tag}"
+                args = (g.csc_col_ptr, g.csc_receivers, keep, cmax, hd, h, 0.2)
+                dt = tsp.gat_bwd_csc(t, qt, *args)
+                want = tsp.gat_bwd_csc_plain(t, qt, *args)
+                chk.close(f"K6 dmsg {name}", dt[:, :hd], want[:, :hd],
+                          **(TOL_F32 if dtype == torch.float32 else TOL_BF16))
+                chk.close(f"K6 d_el {name}", dt[:, hd:], want[:, hd:],
+                          **(TOL_F32 if dtype == torch.float32 else TOL_GAT_EL_BF16))
+                zero = [dt[n - 100:].flatten(), dt[:, hd + h:].flatten()]
+                if keep is not None:
+                    zero.append(dt[20:60].flatten())
+                zero = torch.cat(zero)
+                chk.equal(f"K6 senders with every edge dropped or none, and padding, 0 {name}",
+                          zero, torch.zeros_like(zero))
+                chk.equal(f"K6 two launches bit for bit {name}", tsp.gat_bwd_csc(t, qt, *args),
+                          dt)
 
 
 def phase_gat_agreement(dev):
@@ -1587,6 +1642,19 @@ def phase_gat_timing(g, errs, launches, iters):
             f"{miss5:.4f} ms; K6 {k6[0]:.4f} ms (plain {k6[1]:.3f}), bound {b6[0]:.4f} ms "
             f"({b6[1]}), all gathers from HBM {miss6:.4f} ms")
         rows[(h, d)] = (k5, b5, k6, b6)
+        if (h, d) == GAT_SHAPES[1] and keep_csc is not None:
+            # what the senders of many edges cost: K6 with every edge of a
+            # sender of more than 64 CSC edges dropped as well (one warp
+            # walks such a row alone)
+            deg = (g.csc_col_ptr[1:] - g.csc_col_ptr[:-1]).long()
+            edges, senders = tsp._edge_rows(g.csc_col_ptr)
+            light = keep_csc.clone()
+            light[edges] &= deg[senders] <= 64
+            bl = (g.csc_col_ptr, g.csc_receivers, light, cmax, hd, h, 0.2)
+            k6_light = time_fn(lambda: tsp.gat_bwd_csc(t, q, *bl), dev, iters)
+            log(f"[gat-timing] {h}x{d} P={p} bf16: K6 {k6_light:.4f} ms on the "
+                f"{int(light[edges].sum())} kept edges of senders of at most 64 edges (largest "
+                f"sender {int(deg.max())} edges), against {k6[0]:.4f} ms on all {kept}")
         del t, q
     log("[gat-timing] no single PyTorch call computes K5 or K6: library_ms is null")
     k5, b5, k6, b6 = rows[GAT_SHAPES[1]]
@@ -1688,32 +1756,36 @@ def phase_dense_kernels(g):
                 del res, co_n, co_d
             del feat, el, er, gnum, gden
         errs[tag] = {"K7": e7, "K8": e8, "K9": e9}
-    k7_long_row_checks(chk, k7_long_row_band(dev))
+    long_rows = k7_long_row_band(dev)
+    k7_long_row_checks(chk, long_rows)
     for hubs in (True, False):
+        k8_long_row_checks(chk, long_rows if hubs else k7_long_row_band(dev, False))
         k9_long_row_checks(chk, k9_long_row_band(dev, hubs))
     sync(dev)
     chk.raise_if_failed()
     return errs
 
 
-def k7_long_row_band(dev):
+def k7_long_row_band(dev, hubs=True):
     """A band whose rows reach K7's list and pass it: 4,096 locality-banded
     nodes with power-law senders (window 768, no hub rows, so that no row
     leaves the window) where
     receiver 5 takes 700 senders of its window, 300 takes 400 and 700 exactly
-    256, with the hub columns of a second band (degree ≥ 64) attached, so
-    that a long row's chunks run on into its hub columns."""
+    256, with the hub columns of a second band (degree ≥ 64) attached when
+    ``hubs``, so that a long row's chunks run on into its hub columns."""
     rng = np.random.default_rng(21)
     n, deg = 4096, 8
     w = (1.0 / (1.0 + np.arange(n, dtype=np.float64))) ** 0.8  # power-law senders
     rng.shuffle(w)
     s = rng.choice(n, n * deg, p=w / w.sum())
     r = np.clip(s + rng.integers(-200, 201, n * deg), 0, n - 1)
-    hubs = build_graph(None, s, r, num_nodes=n)
+    hub_graph = build_graph(None, s, r, num_nodes=n)
     s = np.concatenate([s, np.arange(0, 700), np.arange(100, 500), np.arange(500, 756)])
     r = np.concatenate([r, np.full(700, 5), np.full(400, 300), np.full(256, 700)])
     g = attach_band(build_graph(None, s, r, num_nodes=n), window=768, hubs=None)
-    band = attach_band(hubs, window=768, hubs=64).band.fwd
+    if not hubs:
+        return g.band.fwd.to(dev)
+    band = attach_band(hub_graph, window=768, hubs=64).band.fwd
     fwd = dataclasses.replace(g.band.fwd, hub_ids=band.hub_ids, a_hub=band.a_hub)
     return fwd.to(dev)
 
@@ -1752,6 +1824,49 @@ def k7_long_row_checks(chk, band):
                 for part, a, b in zip(("num", "den", "M"), tgd.win_fused(
                         band, el, er, m_other, feat, 0.2, spec), (num, den, m)):
                     chk.equal(f"K7 two launches bit for bit ({part}) {name}", a, b)
+
+
+def k8_long_row_checks(chk, band):
+    """K8 against its plain version on `k7_long_row_band` (receiver rows of
+    256, 400 and 700 positions, with or without hub columns), at the three
+    head shapes and D=41 (scalar loads), f32 and bf16, with and without the
+    drop: d_er within TOL_DENSE_T (its per-head dot is regrouped as
+    gnum·Σ a·feat), rows with no kept position exactly 0, two launches bit
+    for bit. Rows past the list are done in chunks inside the kernel."""
+    dev = band.a.device
+    gen = torch.Generator(device=dev).manual_seed(37)
+    n = band.a.shape[0]
+    hubs = band.hub_ids is not None
+    kept = (band.a > 0).sum(1) + ((band.a_hub > 0).sum(1) if hubs else 0)
+    for h, d in GAT_SHAPES + ((2, 41),):
+        size = tgd.k8_list_size(h)
+        log(f"[dense kernels] K8 long-row band{'' if hubs else ' without hub columns'}, "
+            f"{h}x{d}: list of {size}, {int((kept >= size).sum())} rows with at least as "
+            f"many positions (longest {int(kept.max())}), {int((kept == 0).sum())} with none")
+        if int(kept.max()) < 2 * size:
+            raise AssertionError("the long-row band does not pass K8's list")
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            feat = torch.randn(n, h * d, device=dev, generator=gen).to(dtype)
+            gnum = torch.randn(n, h * d, device=dev, generator=gen).to(dtype)
+            el = torch.randn(n, h, device=dev, generator=gen) * 2.0
+            er = torch.randn(n, h, device=dev, generator=gen) * 2.0
+            gden = torch.randn(n, h, device=dev, generator=gen)
+            m = torch.full((n, h), 3.0, device=dev)
+            m[::3] = 6.0
+            for drop in (False, True):
+                spec = dense_drop(drop)
+                name = (f"long receiver rows{'' if hubs else ', no hub columns'} {h}x{d}"
+                        f"{' drop' if drop else ''} {tag}")
+                args = (el, er, m, feat, gnum, gden, 0.2, spec)
+                d_er = tgd.win_der(band, *args)
+                chk.close(f"K8 d_er {name}", d_er, tgd.win_der_plain(band, *args),
+                          **TOL_DENSE_T)
+                empty = torch.ones(n, dtype=torch.bool, device=dev)
+                empty[tgd._entries(band, spec, False)[0]] = False
+                chk.equal(f"K8 rows with no kept position 0 {name}", d_er[empty],
+                          torch.zeros_like(d_er[empty]))
+                chk.equal(f"K8 two launches bit for bit {name}", tgd.win_der(band, *args), d_er)
 
 
 def k9_long_row_band(dev, hubs):
@@ -2032,7 +2147,8 @@ def phase_bsp_timing(bg, errs, iters):
     """K10's drive (the module's entry point `block_spmm`, forward and
     backward once, counts set to 0 just before), then its time in bf16 at
     C=128 beside its plain version, `torch.sparse.mm` of the same adjacency
-    and K1 (gathered form) on the same edges, and its bound."""
+    and K1 (gathered form) on the same edges, and its bound; and K10 in
+    float32 beside `torch.sparse.mm` in float32."""
     dev = bg["tiles"].offs.device
     chk = Checks("bsp timing")
     n_pad, tiles, tiles_t, c = bg["n_pad"], bg["tiles"], bg["tiles_t"], 128
@@ -2071,7 +2187,17 @@ def phase_bsp_timing(bg, errs, iters):
     out = tbs.bsp_call(x, tiles)
     chk.close("library yardstick sparse.mm vs K10", torch.sparse.mm(a, xy), out, **TOL_LIBRARY)
     chk.close("K1 on the same edges vs K10", tsp.csr_seg_sum(x, ptr, idx), out, **TOL_BF16)
+    # float32: K10's three exact bf16 planes beside torch.sparse.mm in float32
+    x32 = x.float()
+    a32 = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(), csr.values().float(),
+                                  (n_pad, n_pad), check_invariants=True)
+    k10_f32_ms = time_fn(lambda: tbs.bsp_call(x32, tiles), dev, iters)
+    lib_f32_ms = time_fn(lambda: torch.sparse.mm(a32, x32), dev, iters)
+    chk.close("library yardstick sparse.mm vs K10, float32", torch.sparse.mm(a32, x32),
+              tbs.bsp_call(x32, tiles), **TOL_F32)
     chk.raise_if_failed()
+    log(f"[bsp] float32: K10 {k10_f32_ms:.4f} ms, torch.sparse.mm {lib_f32_ms:.4f} ms "
+        f"({k10_f32_ms / lib_f32_ms:.4f}); card: {CARD}")
     nt = tiles.n_tiles
     # x read once and out written once (bf16); the offsets (uint8, two rows a
     # tile), tile_sb and tile_start as stored; one f32 add per (edge, channel)
@@ -2260,14 +2386,15 @@ def _sha256(*tensors):
 def phase_kernel_times(dev, n, cluster, iters, hashes=False):
     """`--kernel-times`: `time_fn`'s times of K2 at C=128 on the main graph;
     K2 with `ee` at C=40 and 64, K4 without dt at C=40 and with dt at C=64
-    on the cluster graph (phase 14's inputs); K7 and K9 at 3x128, 3x256 and
-    1x40 on the RevGAT graph's band with the step's hash drop (phase 29's
-    inputs; float32 at 3x128 only); K5 at P=392, 776 and 48 with the step's
-    hash keep (phase 25's inputs; float32 at P=392 only); K10 at C=128 on the
-    block-sparse graph; each in float32 and bfloat16 unless said, as one JSON
-    line beside the card's name and power limit. No check and no model runs.
-    ``hashes`` (`--output-hashes`) adds a digest of each K5, K7 and K9 output,
-    so that two commits' kernels compare bit for bit on one card."""
+    on the cluster graph (phase 14's inputs); K7, K9 and K8 at 3x128, 3x256
+    and 1x40 on the RevGAT graph's band with the step's hash drop (phase
+    29's inputs; float32 at 3x128 only); K5 and K6 at P=392, 776 and 48 with
+    the step's hash keep (phase 25's inputs; float32 at P=392 only); K10 at
+    C=128 on the block-sparse graph; each in float32 and bfloat16 unless
+    said, as one JSON line beside the card's name and power limit. No check
+    and no model runs. ``hashes`` (`--output-hashes`) adds a digest of each
+    K5, K6 (dmsg and d_el apart), K7, K8 and K9 output, so that two commits'
+    kernels compare bit for bit on one card."""
     res, digests = {}, {}
     gen = torch.Generator(device=dev).manual_seed(5)
     g, _ = main_graph(n, dev)
@@ -2312,26 +2439,40 @@ def phase_kernel_times(dev, n, cluster, iters, hashes=False):
         res[f"K9 {h}x{d} {tag}"] = time_fn(
             lambda: tgd.win_dsend(g.band.bwd, el, er, m, feat, gnum, gden, 0.2, spec), dev,
             iters)
+        res[f"K8 {h}x{d} {tag}"] = time_fn(
+            lambda: tgd.win_der(band, el, er, m, feat, gnum, gden, 0.2, spec), dev, iters)
         if hashes:
             digests[f"K7 {h}x{d} {tag}"] = _sha256(
                 *tgd.win_fused(band, el, er, m_other, feat, 0.2, spec))
             d_el, d_feat = tgd.win_dsend(g.band.bwd, el, er, m, feat, gnum, gden, 0.2, spec)
             digests[f"K9 d_el {h}x{d} {tag}"] = _sha256(d_el)
             digests[f"K9 d_feat {h}x{d} {tag}"] = _sha256(d_feat)
+            digests[f"K8 d_er {h}x{d} {tag}"] = _sha256(
+                tgd.win_der(band, el, er, m, feat, gnum, gden, 0.2, spec))
             del d_el, d_feat
         del gnum, gden, m
-    recv, _ = gat_drop(g, True)
+    recv, keep_csc = gat_drop(g, True)
     for (h, d), dtype, tag in (((3, 128), torch.bfloat16, "bf16"),
                                ((3, 256), torch.bfloat16, "bf16"),
                                ((1, 40), torch.bfloat16, "bf16"),
                                ((3, 128), torch.float32, "f32")):
+        hd = h * d
         t = gat_table(g, h, d, dtype, gen)
-        fa = (g.senders, recv, g.row_ptr, tsp.gat_cmax(t, h * d, h), h * d, h, 0.2)
-        res[f"K5 P={t.shape[1]} {tag}"] = time_fn(lambda: tsp.gat_fwd(t, *fa), dev, iters)
+        cmax = tsp.gat_cmax(t, hd, h)
+        fa = (g.senders, recv, g.row_ptr, cmax, hd, h, 0.2)
+        key = f"P={t.shape[1]} {tag}"
+        res[f"K5 {key}"] = time_fn(lambda: tsp.gat_fwd(t, *fa), dev, iters)
+        q = torch.randn(t.shape, device=dev, generator=gen).to(dtype)
+        ba = (g.csc_col_ptr, g.csc_receivers, keep_csc, cmax, hd, h, 0.2)
+        res[f"K6 {key}"] = time_fn(lambda: tsp.gat_bwd_csc(t, q, *ba), dev, iters)
         if hashes:
-            digests[f"K5 P={t.shape[1]} {tag}"] = _sha256(tsp.gat_fwd(t, *fa))
-        del t, fa
-    del g, band, feat, el, er, m_other, recv
+            digests[f"K5 {key}"] = _sha256(tsp.gat_fwd(t, *fa))
+            dt = tsp.gat_bwd_csc(t, q, *ba)
+            digests[f"K6 dmsg {key}"] = _sha256(dt[:, :hd])
+            digests[f"K6 d_el {key}"] = _sha256(dt[:, hd:])
+            del dt
+        del t, fa, q, ba
+    del g, band, feat, el, er, m_other, recv, keep_csc
     bg = bsp_graph(n, dev)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         x = torch.randn(bg["n_pad"], 128, device=dev, generator=gen).to(dtype)
@@ -2344,10 +2485,10 @@ def phase_kernel_times(dev, n, cluster, iters, hashes=False):
 # design's `constexpr int` constants replaced and, for some, attributes of the
 # wrapper's module set (list sizes, walk forms, lane groups); the first form
 # of each is the source as it stands. K7: passes whose counts a lane loads
-# at once, blocks an SM keeps resident, the list; K9: the same, the gnum
-# values in flight and one walk at 3 x 256; K5: the
+# at once, blocks an SM keeps resident, the list; K9 and K8: the same, the
+# gnum (K8: feat) values in flight and one walk at 3 x 256; K5: the
 # sender-row values in flight, blocks an SM, one walk at 3 x 256, no lane
-# groups at 1 x 40.
+# groups at 1 x 40; K6: the same, and the reduce-scatter dot.
 _ONE_WALK_FORMS = {4: (1, 2, 3, 6), 1: (8,)}
 KERNEL_FORMS = {
     "K7": ("win_fused", (
@@ -2372,6 +2513,21 @@ KERNEL_FORMS = {
         ("3 blocks", {"kMinBlocks": 3}, {}), ("6 blocks", {"kMinBlocks": 6}, {}),
         ("one walk at 3x256, 3 blocks", {"kMinBlocks": 3}, {"_K5_FORMS": _ONE_WALK_FORMS}),
         ("no lane groups", {}, {"k2_lane_groups": lambda c, vec, dtype=None: (32, 1)}))),
+    "K8": ("win_der", (
+        ("kept", {}, {}),
+        ("1 pass a load", {"kScanBatch": 1}, {}),
+        ("2/3 of the rows in flight", {"kFlightValues": 24}, {}),
+        ("4/3 of the rows in flight", {"kFlightValues": 48}, {}),
+        ("3 blocks", {"kMinBlocks": 3}, {}), ("5 blocks", {"kMinBlocks": 5}, {}),
+        ("list 128", {}, {"K8_MAX_LIST": 128}),
+        ("one walk at 3x256, 3 blocks", {"kMinBlocks": 3}, {"_K8_FORMS": _ONE_WALK_FORMS}))),
+    "K6": ("gat_bwd_csc", (
+        ("kept", {}, {}),
+        ("butterfly dots", {"kDotScatter": 0}, {}),
+        ("2 rows in flight", {"kFlightValues": 48, "kFlightDots": 6}, {}),
+        ("3 blocks", {"kMinBlocks": 3}, {}), ("6 blocks", {"kMinBlocks": 6}, {}),
+        ("three walks at 3x256", {}, {"_K6_FORMS": {4: (1, 2, 3), 1: (8,)}}),
+        ("no lane groups", {}, {"k6_lane_groups": lambda hd, vec, dtype=None: (32, 1)}))),
 }
 FORM_SHAPES = (((3, 128), "bf16"), ((3, 256), "bf16"), ((1, 40), "bf16"), ((3, 128), "f32"))
 
@@ -2414,6 +2570,21 @@ def _form_cases(kernel, g, gen):
 
             def check(chk, name, t=t, fa=fa, call=call):
                 chk.close(f"K5 {name}", call(), tsp.gat_fwd_plain(t, *fa), **TOL_BF16)
+        elif kernel == "K6":
+            _, keep_csc = gat_drop(g, True)
+            t = gat_table(g, h, d, dtype, gen)
+            q = torch.randn(t.shape, device=dev, generator=gen).to(dtype)
+            hd = h * d
+            ba = (t, q, g.csc_col_ptr, g.csc_receivers, keep_csc, tsp.gat_cmax(t, hd, h), hd,
+                  h, 0.2)
+
+            def call(ba=ba):
+                return tsp.gat_bwd_csc(*ba)
+
+            def check(chk, name, ba=ba, call=call, hd=hd):
+                dt, want = call(), tsp.gat_bwd_csc_plain(*ba)
+                chk.close(f"K6 {name} dmsg", dt[:, :hd], want[:, :hd], **TOL_BF16)
+                chk.close(f"K6 {name} d_el", dt[:, hd:], want[:, hd:], **TOL_GAT_EL_BF16)
         else:
             band, spec = g.band.fwd, dense_drop(True)
             feat, el, er = dense_inputs(g, h, d, dtype, gen)
@@ -2427,6 +2598,17 @@ def _form_cases(kernel, g, gen):
                     num_p, _, m_p = tgd.win_fused_plain(*a)
                     chk.equal(f"K7 {name} M", m, m_p)
                     chk.close(f"K7 {name} num", num, num_p, **TOL_DENSE)
+            elif kernel == "K8":
+                m = tgd.win_fused_plain(band, el, er, m_other, feat, 0.2, spec)[2]
+                gnum = torch.randn(feat.shape, device=dev, generator=gen).to(dtype)
+                gden = torch.randn(el.shape, device=dev, generator=gen)
+                args = (band, el, er, m, feat, gnum, gden, 0.2, spec)
+
+                def call(a=args):
+                    return tgd.win_der(*a)
+
+                def check(chk, name, call=call, a=args):
+                    chk.close(f"K8 {name} d_er", call(), tgd.win_der_plain(*a), **TOL_DENSE_T)
             else:
                 m = tgd.win_fused_plain(band, el, er, m_other, feat, 0.2, spec)[2]
                 gnum = torch.randn(feat.shape, device=dev, generator=gen).to(dtype)
@@ -2475,7 +2657,7 @@ def phase_kernel_forms(dev, n, iters, kernels):
     res = {}
     for k in kernels:
         src, forms = KERNEL_FORMS[k]
-        module = tsp if k == "K5" else tgd
+        module = tsp if k in ("K5", "K6") else tgd
         cases = _form_cases(k, g, gen)
         res[k] = {name: {key: [] for key in cases} for name, _, _ in forms}
         order = list(range(len(forms)))
@@ -2500,7 +2682,7 @@ def phase_kernel_forms(dev, n, iters, kernels):
 
 
 def kernel_forms_arg(argv):
-    """The kernels of `--kernel-forms[=K9,K5]` (all of `KERNEL_FORMS` when
+    """The kernels of `--kernel-forms[=K8,K6]` (all of `KERNEL_FORMS` when
     none is named), or of its older spelling `--k7-forms`; [] without it."""
     for a in argv:
         if a == "--k7-forms":

@@ -85,10 +85,4 @@ __device__ __forceinline__ bool hash_keep(uint32_t recv, uint32_t send, uint32_t
   return static_cast<int>(h & 0x7FFFFFFFu) >= thresh;
 }
 
-// Edges a warp keeps in flight per step when each lane holds NCH groups of
-// VEC columns per edge (fewer for wide rows, so the loads stay in registers).
-template <int NCH> struct EdgesInFlight {
-  static constexpr int value = NCH <= 2 ? 4 : (NCH == 4 ? 2 : 1);
-};
-
 }  // namespace dgc

@@ -2,26 +2,24 @@
 // destination-score GAT over the window band and its hub columns
 // (deep_gcns_torch_tpu/ops/gat_dense.py:966-1393).
 //
-// In K8 one warp owns one (row, head) pair of the forward band; K7 gives a
-// warp a whole receiver row of the forward band and all its heads
-// (win_fused.cu), K9 a whole sender row of the transpose band and all its
-// heads (win_dsend.cu).  The row's positions are its W window counts (int8
-// A[N_pad, W], row-major; node id w_lo[row / 128] + column) and, when the
-// kernel takes the band's hub columns, its hub counts (bf16 a_hub[N_pad,
-// H_hub]; node id hub_ids[k]).  A warp examines them 256 at a time, 8 per
-// lane (one 8-byte load of int8 counts, or one 16-byte load of bf16 ones); a
-// position is valid when its count is non-zero and the hash edge-drop keeps
-// its edge.  On the RevGAT-5L graph about 1.8 % of the window positions are
-// edges (~14 a row), so the TPU's dense W x 128 tile is not evaluated: valid
-// positions are compacted into a per-warp list in shared memory (a popcount
-// and a warp prefix sum, as in band.cu) and the list is walked.  K8 walks
-// one 256-position pass at a time with the lanes across the head's D
-// columns (`for_each_pass`); K7 and K9 scan the whole row once into a longer
-// list (`fill_list`, done in list-sized chunks past its end) and walk it
-// with the lanes across all H·D columns.  Skipping a masked position is
-// exact: it adds 0 to every sum and NEG to the maximum.  Scores, exp and
-// sums are float32; each term rounds where the TPU kernel rounds (__f*_rn
-// keeps the compiler from contracting what the plain version rounds).
+// Each kernel gives a warp one row of a band and all its heads: K7 and K8 a
+// receiver row of the forward band (win_fused.cu, win_der.cu), K9 a sender
+// row of the transpose band (win_dsend.cu).  The row's positions are its W
+// window counts (int8 A[N_pad, W], row-major; node id w_lo[row / 128] +
+// column) and, when the kernel takes the band's hub columns, its hub counts
+// (bf16 a_hub[N_pad, H_hub]; node id hub_ids[k]).  A warp examines them 256
+// at a time, 8 per lane (one 8-byte load of int8 counts, or one 16-byte load
+// of bf16 ones); a position is valid when its count is non-zero and the hash
+// edge-drop keeps its edge.  On the RevGAT-5L graph about 1.8 % of the
+// window positions are edges (~14 a row), so the TPU's dense W x 128 tile is
+// not evaluated: the warp scans the whole row once and compacts its valid
+// positions into a list in shared memory (`fill_list`: a popcount and a warp
+// prefix sum, as in band.cu; a row longer than the list is done in
+// list-sized chunks), then walks the list with the lanes across the row's
+// H·D columns.  Skipping a masked position is exact: it adds 0 to every sum
+// and NEG to the maximum.  Scores, exp and sums are float32; each term
+// rounds where the TPU kernel rounds (__f*_rn keeps the compiler from
+// contracting what the plain version rounds).
 #pragma once
 
 #include "common.cuh"
@@ -117,62 +115,7 @@ __device__ __forceinline__ bool kept(const DenseBand& b, int row, int id, bool s
   return swap ? hash_keep(s, r, b.k0, b.k1, b.thresh) : hash_keep(r, s, b.k0, b.k1, b.thresh);
 }
 
-// Window columns col0 .. col0 + 7 of `row` (W a multiple of 8).
-__device__ __forceinline__ void window_slots(const DenseBand& b, int row, int lo, int col0,
-                                             bool swap, Slots& sl) {
-  const uint2 w = *reinterpret_cast<const uint2*>(b.a + static_cast<long long>(row) * b.W + col0);
-  sl.valid = 0;
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    const int c = static_cast<int8_t>(((k < 4 ? w.x : w.y) >> (8 * (k & 3))) & 0xFFu);
-    sl.cnt[k] = static_cast<float>(c);
-    sl.id[k] = lo + col0 + k;
-    if (c > 0 && kept(b, row, sl.id[k], swap)) sl.valid |= 1u << k;
-  }
-}
-
-// Hub columns col0 .. col0 + 7 of `row` (n_hub a multiple of 8); a bf16
-// count widens to float32 by a shift of its bits.
-__device__ __forceinline__ void hub_slots(const DenseBand& b, int row, int col0, bool swap,
-                                          Slots& sl) {
-  const uint4 w = *reinterpret_cast<const uint4*>(b.a_hub + static_cast<long long>(row) * b.n_hub
-                                                  + col0);
-  sl.valid = 0;
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    const uint32_t word = k < 2 ? w.x : (k < 4 ? w.y : (k < 6 ? w.z : w.w));
-    sl.cnt[k] = __uint_as_float(((word >> (16 * (k & 1))) & 0xFFFFu) << 16);
-    sl.id[k] = 0;
-    if (sl.cnt[k] > 0.f) {
-      sl.id[k] = b.hub_ids[col0 + k];
-      if (kept(b, row, sl.id[k], swap)) sl.valid |= 1u << k;
-    }
-  }
-}
-
-// Calls visit(slots) once per pass in every lane of the warp, the window's
-// passes first, then the hub columns'; lanes past the end get no valid slot.
-// Every lane makes the same calls, so `visit` may use warp shuffles.
-template <class Visit>
-__device__ __forceinline__ void for_each_pass(const DenseBand& b, int row, int lane, bool swap,
-                                              Visit&& visit) {
-  const int lo = b.w_lo[row / kBlockRows];
-  Slots sl;
-  for (int base = 0; base < b.W; base += kPass) {
-    const int col0 = base + kSlots * lane;
-    sl.valid = 0;
-    if (col0 < b.W) window_slots(b, row, lo, col0, swap, sl);
-    visit(sl);
-  }
-  for (int base = 0; base < b.n_hub; base += kPass) {
-    const int col0 = base + kSlots * lane;
-    sl.valid = 0;
-    if (col0 < b.n_hub) hub_slots(b, row, col0, swap, sl);
-    visit(sl);
-  }
-}
-
-// ---- the one-scan list of K7 and K9 ----
+// ---- the one-scan list ----
 
 // Where a scan resumes: a pass (the window's passes, then the hub columns')
 // and the list index of the first kept position in it.
@@ -202,8 +145,9 @@ __device__ __forceinline__ uint4 load_pass(const DenseBand& b, int row, int n_wi
   return w;
 }
 
-// window_slots / hub_slots on counts already loaded, with the hub ids from
-// the block's copy in shared memory
+// The valid positions of the counts of pass p already loaded (window: count
+// > 0 and kept; hub columns: the same, with the hub ids from the block's copy
+// in shared memory)
 __device__ __forceinline__ void decode_pass(const DenseBand& b, int row, int w_lo, int n_win,
                                             int p, int lane, bool swap, const uint4& w,
                                             const int* hub_ids, Slots& sl) {
@@ -238,7 +182,7 @@ __device__ __forceinline__ void decode_pass(const DenseBand& b, int row, int w_l
 // then stays at the pass that holds index lo + L, where the next chunk
 // starts.  A lane loads the counts of BATCH passes before it decodes any, so
 // that a row's count loads overlap.  The list order is the window's passes,
-// then the hub columns', each pass in lane order: `for_each_pass`'s order.
+// then the hub columns', each pass in lane order.
 // Uniform across the warp.
 template <int BATCH>
 __device__ __forceinline__ int fill_list(const DenseBand& b, int row, int w_lo, int n_win,
@@ -289,73 +233,4 @@ __device__ __forceinline__ int* stage_hub_ids(const DenseBand& b, float* smem) {
   return hub_ids;
 }
 
-// Loads the lane's columns of one head's D values of a row (zeros past D).
-template <typename T, int VEC, int NCH>
-__device__ __forceinline__ void load_head(const T* p, int D, int lane, float (&v)[NCH][VEC]) {
-#pragma unroll
-  for (int g = 0; g < NCH; ++g) {
-    const int c0 = g * 32 * VEC + lane * VEC;
-    if (c0 < D) {
-      Rows<T, VEC>::load(p + c0, v[g]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) v[g][q] = 0.f;
-    }
-  }
-}
-
-template <int VEC, int NCH>
-__device__ __forceinline__ void store_head(float* p, int D, int lane, const float (&v)[NCH][VEC]) {
-#pragma unroll
-  for (int g = 0; g < NCH; ++g) {
-    const int c0 = g * 32 * VEC + lane * VEC;
-    if (c0 < D) Rows<float, VEC>::store(p + c0, v[g]);
-  }
-}
-
-// The lane's part of a per-head dot product.
-template <int VEC, int NCH>
-__device__ __forceinline__ float lane_dot(const float (&a)[NCH][VEC], const float (&b)[NCH][VEC]) {
-  float s = 0.f;
-#pragma unroll
-  for (int g = 0; g < NCH; ++g)
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) s = fmaf(a[g][q], b[g][q], s);
-  return s;
-}
-
-// acc += w * v, the product rounded before the sum (as the plain version's
-// products of a rounded weight and a row)
-template <int VEC, int NCH>
-__device__ __forceinline__ void add_scaled(float (&acc)[NCH][VEC], float w,
-                                           const float (&v)[NCH][VEC]) {
-#pragma unroll
-  for (int g = 0; g < NCH; ++g)
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) acc[g][q] = __fadd_rn(acc[g][q], __fmul_rn(w, v[g][q]));
-}
-
-inline dim3 dense_grid(int n_rows, int H) {
-  const long long warps = static_cast<long long>(n_rows) * H;
-  return dim3(static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-}
-
 }  // namespace dgc
-
-// The launch of one K7-K9 kernel for the (vec, nch) of the call: `vec` 4
-// (D and H*D multiples of 4, the row tables 16-byte aligned) with nch 1
-// (D <= 128) or 2 (D <= 256), or `vec` 1 with nch 8 (D <= 256); `nch` is the
-// number of 32*vec-column groups a lane walks per head.  Three forms per type
-// keep the build short.
-#define DGC_DENSE_DISPATCH(LAUNCH, T, vec, nch)                                          \
-  do {                                                                                   \
-    if (vec == 4 && nch == 1) {                                                          \
-      LAUNCH(T, 4, 1);                                                                   \
-    } else if (vec == 4 && nch == 2) {                                                   \
-      LAUNCH(T, 4, 2);                                                                   \
-    } else if (vec == 1 && nch == 8) {                                                   \
-      LAUNCH(T, 1, 8);                                                                   \
-    } else {                                                                             \
-      return static_cast<int>(cudaErrorInvalidValue);                                    \
-    }                                                                                    \
-  } while (0)

@@ -20,7 +20,7 @@
 // window shared in L1/L2, d_feat float32 written once).  chip_smoke.py prints
 // the bound for its run.  The first form of this kernel gave a warp to each
 // (sender row, head): it loaded and drop-hashed each row's counts H times
-// (`for_each_pass`, gat_dense.cuh), gathered er, M and gden per listed
+// (once per head's warp), gathered er, M and gden per listed
 // receiver in the scan, and for each receiver read gnum's head slice and ran
 // a 5-step shuffle butterfly (the dot <feat_s, gnum_r>_h) before d_el could
 // take the term: a short list of ~14 entries a row, each a dependent load

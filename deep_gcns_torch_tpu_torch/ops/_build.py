@@ -51,14 +51,16 @@ _SIGNATURES = {
     # nch, w, G, stream
     "gat_fwd": {name: [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _I, _P]
                 for name in ("dgc_gat_fwd_f32", "dgc_gat_fwd_bf16")},
-    "gat_bwd_csc": {name: [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P]
+    # tab, g, col_ptr, recv, keep, cmax, dtab; n_rows, P, D, H; slope, vec,
+    # nch, w, G, stream
+    "gat_bwd_csc": {name: [_P] * 7 + [_I] * 4 + [_F, _I, _I, _I, _I, _P]
                     for name in ("dgc_gat_bwd_csc_f32", "dgc_gat_bwd_csc_bf16")},
     # K7-K9: the band's 4 pointers, the [N, H] and [N, H*D] tables and the
     # outputs, then n_rows, W, n_hub, H, D, the slope, the drop key and
-    # threshold, vec, nch (K7 and K9: and the list size) and the stream
+    # threshold, vec, nch, the list size and the stream
     **{src: {f"dgc_{src}_{t}": [_P] * n_ptr + [_I] * 5 + [_F, _U, _U, _I, _I] + [_I] * n_lay
              + [_P] for t in ("f32", "bf16")}
-       for src, n_ptr, n_lay in (("win_fused", 11, 2), ("win_der", 11, 1),
+       for src, n_ptr, n_lay in (("win_fused", 11, 2), ("win_der", 11, 2),
                                  ("win_dsend", 12, 2))},
     "blocksparse": {name: [_P] * 5 + [_I, _I, _P] for name in ("dgc_bsp_f32", "dgc_bsp_bf16")},
 }

@@ -35,11 +35,11 @@ keep plane per structure and conv call, shared by the passes that read it.
 
 The TPU's transposed count tiles, its 128-lane containers and padded heads
 are layout, not contract: the kernels read the row-major ``a`` and
-``a_hub`` (bf16 on the card). K8 gives a warp to each (row, head); K7
-gives a warp to each receiver row and all its heads, K9 to each sender row
-of the transpose band and all its heads, each with a list of the row's kept
-positions in shared memory (`k7_list_size` and `k9_list_size` entries; a
-longer row is done in list-sized chunks inside the kernel).
+``a_hub`` (bf16 on the card). K7 and K8 give a warp to each receiver row
+and all its heads, K9 to each sender row of the transpose band and all its
+heads, each with a list of the row's kept positions in shared memory
+(`k7_list_size`, `k8_list_size` and `k9_list_size` entries; a longer row is
+done in list-sized chunks inside the kernel).
 """
 
 from __future__ import annotations
@@ -75,6 +75,12 @@ _K7_FORMS = {4: (1, 2, 3, 6), 1: (8,)}
 K9_LIST_BYTES = 6144
 K9_MAX_LIST = 256
 _K9_FORMS = {4: (1, 2, 3), 1: (8,)}
+# K8: shared memory a warp gives its list (ids, counts and E·lrelu′ a head
+# per entry, beside d_er per head), the most entries a list takes, and its
+# walk forms (the widest walks a wider row in column chunks)
+K8_LIST_BYTES = 6144
+K8_MAX_LIST = 256
+_K8_FORMS = {4: (1, 2, 3), 1: (8,)}
 
 
 def _lrelu(z: torch.Tensor, ns: float) -> torch.Tensor:
@@ -208,20 +214,14 @@ def _check_tables(n: int, h: int, **tables: torch.Tensor):
                  f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _head_layout(h: int, d: int, vec: int) -> Tuple[int]:
-    """(nch,) of K8, which walks one head's D columns: groups of 32·vec
-    columns a lane."""
-    _require(d <= 256, f"a head of {d} columns is wider than K8 takes (256)")
-    return ((1 if d <= 128 else 2) if vec == 4 else 8,)
-
-
 def _launch(name: str, band: Band, feat: torch.Tensor, rows: Tuple[torch.Tensor, ...],
             tables: Tuple[torch.Tensor, ...], outs: Tuple[torch.Tensor, ...], h: int,
-            neg_slope: float, drop: Optional[DropSpec], layout=_head_layout):
+            neg_slope: float, drop: Optional[DropSpec], layout):
     """Checks shared by K7–K9 and the launch of ``dgc_<name>_<dtype>``.
     ``rows``: the [N, H·D] tables in feat's dtype (feat first); ``tables``
     the float32 [N, H] ones; ``outs`` the float32 outputs; ``layout(h, d,
-    vec)`` the kernel's walk form (K7: `k7_layout`, K9: `k9_layout`)."""
+    vec)`` the kernel's walk form and list size (`k7_layout`, `k8_layout`,
+    `k9_layout`)."""
     dev = feat.device
     n, hd = feat.shape
     for t in rows:
@@ -282,6 +282,26 @@ def k7_layout(h: int, d: int, vec: int) -> Tuple[int, int]:
     return next((f for f in forms if f >= need), forms[-1]), k7_list_size(h)
 
 
+def k8_list_size(h: int) -> int:
+    """Entries of the list in which a warp of K8 keeps its receiver row's
+    kept positions: as many multiples of 32 as `K8_LIST_BYTES` holds at 4
+    bytes for the id, the count and E·lrelu′ a head (beside d_er per head),
+    at least 32 and at most `K8_MAX_LIST`. A row with more kept positions is
+    done in chunks of this size inside the kernel."""
+    fit = (K8_LIST_BYTES - 4 * h) // (4 * (2 + h)) // 32 * 32
+    return max(32, min(K8_MAX_LIST, fit))
+
+
+def k8_layout(h: int, d: int, vec: int) -> Tuple[int, int]:
+    """(nch, list size) of K8 for H heads of D columns: nch groups of 32·vec
+    columns a lane's walk, the fewest of K8's forms that cover H·D, or the
+    widest, which walks a wider row (3 x 256) in column chunks; the chunks
+    cover any width."""
+    need = -(-(h * d) // (32 * vec))
+    forms = _K8_FORMS[vec]
+    return next((f for f in forms if f >= need), forms[-1]), k8_list_size(h)
+
+
 def k9_list_size(h: int) -> int:
     """Entries of the list in which a warp of K9 keeps its sender row's kept
     positions: as many multiples of 32 as `K9_LIST_BYTES` holds at 4 bytes
@@ -336,7 +356,7 @@ def win_der(band: Band, el: torch.Tensor, er: torch.Tensor, m: torch.Tensor,
     _check_tables(n, h, el=el, er=er, m=m, gden=gden)
     d_er = torch.empty((n, h), dtype=torch.float32, device=feat.device)
     rc = _launch("win_der", band, feat, (feat, gnum), (el, er, m, gden), (d_er,), h,
-                 neg_slope, drop)
+                 neg_slope, drop, k8_layout)
     win_der.launches += 1
     _raise_on(rc, "K8 win_der")
     return d_er

@@ -531,16 +531,47 @@ def k5_layout(h: int, d: int, vec: int, dtype: torch.dtype = torch.bfloat16
     return next((f for f in forms if f >= need), forms[-1]), 32, 1
 
 
-def _gat_launch(d: int, p: int, *tables: torch.Tensor) -> Tuple[int, int]:
-    """(vec, nch) of a K5/K6 launch: 4-wide loads when the head width D and
-    the row width P are multiples of 4 and every table is aligned, and (K6)
-    the number of 32·vec-column groups a lane walks per head."""
+def _gat_vec(d: int, p: int, *tables: torch.Tensor) -> int:
+    """The loads of a K5/K6 launch: 4-wide when the head width D and the row
+    width P are multiples of 4 and every table is aligned, else scalar. K6
+    walks whole heads, so a head may be at most 256·vec columns wide."""
     vec = _vec(d, *tables) if p % 4 == 0 else 1
-    groups = -(-d // (32 * vec))
-    nch = next((n for n in (1, 2, 4, 8) if n >= groups), None)
-    _require(nch is not None, f"a head of {d} columns is wider than the kernels take "
-                              f"({256 * vec} with these loads)")
-    return vec, nch
+    _require(d <= 256 * vec, f"a head of {d} columns is wider than the kernels take "
+                             f"({256 * vec} with these loads)")
+    return vec
+
+
+# K6's walk forms: `nch` groups of 32·vec columns a lane, by vec; a walk
+# takes whole heads, and a head wider than these forms (vec 4: over 768
+# columns) takes `_K6_WIDE`
+_K6_FORMS = {4: (1, 2, 3, 6), 1: (8,)}
+_K6_WIDE = 8
+
+
+def k6_lane_groups(hd: int, vec: int, dtype: torch.dtype = torch.bfloat16
+                   ) -> Tuple[int, int]:
+    """(w, G) of K6: in bf16 a row of at most 16·vec columns takes two lane
+    groups of 16, each every other kept edge, whose dot butterflies stay
+    inside the group (1 x 40); otherwise one group of 32, and float32 always,
+    in edge order."""
+    return (16, 2) if dtype == torch.bfloat16 and hd <= 16 * vec else (32, 1)
+
+
+def k6_layout(h: int, d: int, vec: int, dtype: torch.dtype = torch.bfloat16
+              ) -> Tuple[int, int, int]:
+    """(nch, w, G) of K6, whose warp walks a sender row's H·D columns in
+    walks of whole heads (each (edge, head) dot completes within one walk):
+    `k6_lane_groups`' groups with nch 1, or one group and, of the forms that
+    hold a head, the one with the fewest walks (then the narrowest): 3 x 128
+    one walk of 3 groups, 3 x 256 one walk of 6."""
+    w, groups = k6_lane_groups(h * d, vec, dtype)
+    if groups > 1:
+        return 1, w, groups
+    forms = [f for f in _K6_FORMS[vec] if f * 32 * vec >= d] or [_K6_WIDE]
+
+    def walks(f):
+        return -(-h // min(h, f, f * 32 * vec // d))
+    return min(forms, key=lambda f: (walks(f), f)), 32, 1
 
 
 def gat_fwd(T: torch.Tensor, senders: torch.Tensor, receivers_eff: torch.Tensor,
@@ -562,7 +593,7 @@ def gat_fwd(T: torch.Tensor, senders: torch.Tensor, receivers_eff: torch.Tensor,
     out = torch.empty((n_rows, p), dtype=T.dtype, device=T.device)
     if n_rows == 0:
         return out
-    vec, _ = _gat_launch(hd // h, p, T, out)
+    vec = _gat_vec(hd // h, p, T, out)
     nch, w, groups = k5_layout(h, hd // h, vec, T.dtype)
     fn = getattr(library("gat_fwd"), f"dgc_gat_fwd_{_SUFFIX[T.dtype]}")
     rc = fn(T.data_ptr(), senders.data_ptr(), receivers_eff.data_ptr(), row_ptr.data_ptr(),
@@ -630,11 +661,12 @@ def gat_bwd_csc(T: torch.Tensor, g: torch.Tensor, col_ptr: torch.Tensor,
     dT = torch.empty_like(T)
     if n_rows == 0:
         return dT
-    vec, nch = _gat_launch(hd // h, p, T, g, dT)
+    vec = _gat_vec(hd // h, p, T, g, dT)
+    nch, w, groups = k6_layout(h, hd // h, vec, T.dtype)
     fn = getattr(library("gat_bwd_csc"), f"dgc_gat_bwd_csc_{_SUFFIX[T.dtype]}")
     rc = fn(T.data_ptr(), g.data_ptr(), col_ptr.data_ptr(), csc_receivers.data_ptr(),
             None if keep_csc is None else keep_csc.data_ptr(), cmax.data_ptr(), dT.data_ptr(),
-            n_rows, p, hd // h, h, float(neg_slope), vec, nch,
+            n_rows, p, hd // h, h, float(neg_slope), vec, nch, w, groups,
             torch.cuda.current_stream(T.device).cuda_stream)
     gat_bwd_csc.launches += 1
     _raise_on(rc, "K6 gat_bwd_csc")

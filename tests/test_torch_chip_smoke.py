@@ -46,10 +46,11 @@ def test_failed_close_saves_what_it_compared(monkeypatch, tmp_path):
 def test_kernel_times_mode_prints_one_time_per_kernel_form():
     """`--kernel-times` (rehearsed on the CPU) ends in one JSON line with a
     positive time for K2, K2 with `ee` at C=40 and 64, K4 without dt at C=40
-    and with dt at C=64, and K10, each in float32 and bfloat16, K7 and K9 at
-    3x128 (float32 and bfloat16), 3x256 and 1x40 (bfloat16), and K5 at P=392
-    (float32 and bfloat16), 776 and 48 (bfloat16); with `--output-hashes` a
-    digest of each K5, K7 and K9 output; and prints no device result."""
+    and with dt at C=64, and K10, each in float32 and bfloat16, K7, K8 and K9
+    at 3x128 (float32 and bfloat16), 3x256 and 1x40 (bfloat16), and K5 and
+    K6 at P=392 (float32 and bfloat16), 776 and 48 (bfloat16); with
+    `--output-hashes` a digest of each K5, K6 (dmsg and d_el apart), K7, K8
+    and K9 output; and prints no device result."""
     import json
     import subprocess
     import sys
@@ -61,12 +62,14 @@ def test_kernel_times_mode_prints_one_time_per_kernel_form():
     want = {f"{k} {d}" for k in ("K2 C=128", "K2 ee C=40", "K2 ee C=64", "K4 C=40",
                                  "K4 dt C=64", "K10 C=128") for d in ("f32", "bf16")}
     dense = {"3x128 bf16", "3x256 bf16", "1x40 bf16", "3x128 f32"}
-    want |= {f"{k} {s}" for k in ("K7", "K9") for s in dense}
-    k5 = {f"K5 {s}" for s in ("P=392 bf16", "P=776 bf16", "P=48 bf16", "P=392 f32")}
-    assert set(last["kernel_ms"]) == want | k5
+    want |= {f"{k} {s}" for k in ("K7", "K8", "K9") for s in dense}
+    csc = ("P=392 bf16", "P=776 bf16", "P=48 bf16", "P=392 f32")
+    k5 = {f"K5 {s}" for s in csc}
+    assert set(last["kernel_ms"]) == want | k5 | {f"K6 {s}" for s in csc}
     assert all(v > 0 for v in last["kernel_ms"].values())
     assert set(last["outputs_sha256"]) == k5 | {f"K7 {s}" for s in dense} | {
-        f"K9 {o} {s}" for o in ("d_el", "d_feat") for s in dense}
+        f"K9 {o} {s}" for o in ("d_el", "d_feat") for s in dense} | {
+        f"K8 d_er {s}" for s in dense} | {f"K6 {o} {s}" for o in ("dmsg", "d_el") for s in csc}
     assert '"ok"' not in run.stdout
 
 
@@ -81,13 +84,14 @@ def test_kernel_forms_argument(monkeypatch, tmp_path):
     from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
 
     mod = _chip_smoke(monkeypatch, tmp_path)
-    assert mod.kernel_forms_arg(["--kernel-forms"]) == ["K7", "K9", "K5"]
+    assert mod.kernel_forms_arg(["--kernel-forms"]) == ["K7", "K9", "K5", "K8", "K6"]
     assert mod.kernel_forms_arg(["--kernel-forms=K9,K5"]) == ["K9", "K5"]
+    assert mod.kernel_forms_arg(["--kernel-forms=K8,K6"]) == ["K8", "K6"]
     assert mod.kernel_forms_arg(["--k7-forms"]) == ["K7"]
     assert mod.kernel_forms_arg(["--kernel-times"]) == []
     for kernel, (src, forms) in mod.KERNEL_FORMS.items():
         text = open(os.path.join(ROOT, "deep_gcns_torch_tpu_torch", "csrc", f"{src}.cu")).read()
-        module = tsp if kernel == "K5" else tgd
+        module = tsp if kernel in ("K5", "K6") else tgd
         assert forms[0][1:] == ({}, {})
         for _, consts, attrs in forms:
             for k in consts:

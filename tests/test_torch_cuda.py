@@ -801,12 +801,12 @@ def test_softmax_bwd_csc_lane_groups(cuda_device, dtype, c, grad_weights):
     assert tsp.softmax_bwd_csc.launches == before + 2
 
 
-def _long_row_band(dev, seed=21, n=4096, deg=8):
+def _long_row_band(dev, hubs=True, seed=21, n=4096, deg=8):
     """A band whose rows reach and pass K7's list: locality-banded power-law
     senders, window 768 and no hub rows (receiver 5 takes 700 senders of its
     window, 300 takes 400 and 700 exactly 256), with the hub columns of a
-    second band (degree ≥ 64) attached, so that a long row's chunks run on
-    into its hub columns."""
+    second band (degree ≥ 64) attached when ``hubs``, so that a long row's
+    chunks run on into its hub columns. A few receivers have no position."""
     import dataclasses
 
     rng = np.random.default_rng(seed)
@@ -818,7 +818,9 @@ def _long_row_band(dev, seed=21, n=4096, deg=8):
     s = np.concatenate([s, np.arange(0, 700), np.arange(100, 500), np.arange(500, 756)])
     r = np.concatenate([r, np.full(700, 5), np.full(400, 300), np.full(256, 700)])
     band = attach_band(build_graph(None, s, r, num_nodes=n), window=768, hubs=None).band.fwd
-    return dataclasses.replace(band, hub_ids=hub_band.hub_ids, a_hub=hub_band.a_hub).to(dev)
+    if hubs:
+        band = dataclasses.replace(band, hub_ids=hub_band.hub_ids, a_hub=hub_band.a_hub)
+    return band.to(dev)
 
 
 @pytest.mark.cuda
@@ -957,3 +959,93 @@ def test_gat_fwd_corner_cases(cuda_device, dtype, h, d):
     assert torch.equal(tsp.gat_fwd(t, *args), out)
     torch.cuda.synchronize()
     assert tsp.gat_fwd.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d", [(3, 128), (3, 256), (1, 40), (2, 41), (8, 16)])
+@pytest.mark.parametrize("hubs", [True, False])
+def test_win_der_long_rows(cuda_device, dtype, h, d, hubs):
+    """K8 on receiver rows at and past its list (`k8_list_size`), with and
+    without hub columns and the drop, against its plain version: d_er within
+    TOL_DENSE_T (its per-head dot is regrouped as gnum·Σ a·feat), rows with
+    no kept position exactly 0, two launches bit for bit, one launch each;
+    3 x 256 walks its 768 columns in chunks, D=41 takes scalar loads, 8 x 16
+    puts eight heads in one column group of the walk."""
+    from deep_gcns_torch_tpu_torch.ops import gat_dense as tgd
+
+    band = _long_row_band(cuda_device, hubs)
+    kept = (band.a > 0).sum(1)
+    if hubs:
+        kept = kept + (band.a_hub > 0).sum(1)
+        assert tgd._hub_in_kernel(band)
+    assert int(kept.max()) >= 2 * tgd.k8_list_size(h)
+    n = band.a.shape[0]
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    feat = torch.randn(n, h * d, device=cuda_device, generator=gen).to(dtype)
+    gnum = torch.randn(n, h * d, device=cuda_device, generator=gen).to(dtype)
+    el = torch.randn(n, h, device=cuda_device, generator=gen) * 2
+    er = torch.randn(n, h, device=cuda_device, generator=gen) * 2
+    gden = torch.randn(n, h, device=cuda_device, generator=gen)
+    m = torch.full((n, h), 3.0, device=cuda_device)
+    m[::3] = 6.0
+    for drop in (False, True):
+        spec = _dense_drop(drop)
+        args = (el, er, m, feat, gnum, gden, 0.2, spec)
+        before = tgd.win_der.launches
+        d_er = tgd.win_der(band, *args)
+        _assert_close(d_er, tgd.win_der_plain(band, *args), **TOL_DENSE_T)
+        empty = torch.ones(n, dtype=torch.bool, device=cuda_device)
+        empty[tgd._entries(band, spec, False)[0]] = False
+        assert int(empty.sum()) > 0 and not d_er[empty].any()
+        assert torch.equal(tgd.win_der(band, *args), d_er)
+        torch.cuda.synchronize()
+        assert tgd.win_der.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d", [(3, 256), (3, 128), (1, 40), (2, 41), (8, 16), (4, 12)])
+@pytest.mark.parametrize("keep", [False, True])
+def test_gat_bwd_csc_corner_cases(cuda_device, dtype, h, d, keep):
+    """K6 against its plain version on a sender of 4,500 CSC edges (141 slot
+    batches of a warp's edge table), 40 senders whose every edge `keep_csc`
+    drops (with the hash keep of the other edges) and 100 with no edge (dT's
+    row and the padding columns exactly 0), at P=776 (one walk of 6 column
+    groups), 392, 48 (lane groups in bf16), at D=41 (P=123, scalar loads),
+    8 x 16 (six heads a walk, several in one column group: the per-lane head
+    slots) and 4 x 12 (lane groups of four one-head walks in bf16), with and
+    without `keep_csc`; two launches bit for bit, one launch each."""
+    n, e = 5000, 40000
+    rng = np.random.default_rng(31)
+    s, r = rng.integers(0, n - 100, e), rng.integers(0, n, e)
+    s[:4500] = 7
+    g = build_graph(None, s, r, num_nodes=n).to(cuda_device)
+    assert int((g.csc_col_ptr[8] - g.csc_col_ptr[7]).item()) >= 4500
+    n_pad, hd = g.num_nodes_padded, h * d
+    keep_csc = None
+    if keep:
+        spec = tband.DropSpec(k0=-77, k1=4242, thresh=tband.drop_thresh(0.3))
+        hashed = (tband.edge_keep_mask(spec, g.receivers, g.senders) > 0).index_select(
+            0, g.csc_perm.long())
+        keep_csc = hashed & ~((g.csc_senders >= 20) & (g.csc_senders < 60))
+    p = hd + h + ((-(hd + h)) % 8 if d % 4 == 0 else 0)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    t = torch.randn(n_pad, p, device=cuda_device, generator=gen)
+    t[:, hd:hd + h] *= 3.0
+    t[:, hd + h:] = 0.0
+    t = t.to(dtype).contiguous()
+    q = torch.randn(n_pad, p, device=cuda_device, generator=gen).to(dtype)
+    args = (g.csc_col_ptr, g.csc_receivers, keep_csc, tsp.gat_cmax(t, hd, h), hd, h, 0.2)
+    before = tsp.gat_bwd_csc.launches
+    dt = tsp.gat_bwd_csc(t, q, *args)
+    want = tsp.gat_bwd_csc_plain(t, q, *args)
+    _assert_close(dt[:, :hd], want[:, :hd], **TOL[dtype])
+    _assert_close(dt[:, hd:], want[:, hd:], **TOL_GAT_EL[dtype])
+    assert not dt[n - 100:].any() and not dt[:, hd + h:].any()
+    assert dt[7, :hd + h].abs().sum() > 0
+    if keep:
+        assert not dt[20:60].any()
+    assert torch.equal(tsp.gat_bwd_csc(t, q, *args), dt)
+    torch.cuda.synchronize()
+    assert tsp.gat_bwd_csc.launches == before + 2

@@ -278,3 +278,32 @@ def test_k9_layout_covers_the_row(h, d, vec, want):
     assert nch == want and nch in tgd._K9_FORMS[vec]
     assert size == tgd.k9_list_size(h)
     assert nch * 32 * vec >= h * d or nch == max(tgd._K9_FORMS[vec])
+
+
+@pytest.mark.parametrize("h, want", [(1, 256), (3, 256), (4, 224), (8, 128), (16, 64), (64, 32)])
+def test_k8_list_size(h, want):
+    """K8's list of a receiver row's kept positions: the most multiples of
+    32 entries whose ids, counts and E·lrelu′ a head (beside d_er per head)
+    fit `K8_LIST_BYTES`, at least 32 and at most `K8_MAX_LIST`; eight warps'
+    lists and the most hub ids a kernel takes fit a block's shared memory on
+    the card. A longer row is done in chunks of this size inside the
+    kernel."""
+    size = tgd.k8_list_size(h)
+    assert size == want and size % 32 == 0
+    per_warp = 4 * (size * (2 + h) + h)
+    assert size == 32 or per_warp <= tgd.K8_LIST_BYTES
+    assert 4 * tgd.GAT_MAX_HUBS + 8 * per_warp <= 232_448
+
+
+@pytest.mark.parametrize("h, d, vec, want", [(3, 128, 4, 3), (3, 256, 4, 3), (1, 40, 4, 1),
+                                             (1, 256, 4, 2), (2, 41, 1, 8), (1, 300, 1, 8),
+                                             (2, 600, 4, 3)])
+def test_k8_layout_covers_the_row(h, d, vec, want):
+    """K8's walk form: the fewest of its forms (nch groups of 32·vec columns
+    a lane) that cover a row's H·D columns, or the widest, which walks a
+    wider row (3 x 256, 768 columns) in column chunks; the chunks take a head
+    of any width (1 x 300 and 2 x 600 too)."""
+    nch, size = tgd.k8_layout(h, d, vec)
+    assert nch == want and nch in tgd._K8_FORMS[vec]
+    assert size == tgd.k8_list_size(h)
+    assert nch * 32 * vec >= h * d or nch == max(tgd._K8_FORMS[vec])

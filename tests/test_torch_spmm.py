@@ -143,3 +143,33 @@ def test_cpu_wrappers_never_count_launches(rng_np):
     tsp.fused_softmax_gather_agg(x, *_port_args(g), torch.tensor([1.0]))
     tsp.csr_seg_sum(x, _t(g.csc_col_ptr), _t(g.csc_receivers))
     assert (tsp.csr_seg_sum.launches, tsp.softmax_agg.launches) == before
+
+
+@pytest.mark.parametrize("h, d, vec, want", [(3, 128, 4, (3, 32, 1)), (3, 256, 4, (6, 32, 1)),
+                                             (1, 40, 4, (1, 16, 2)), (2, 41, 1, (8, 32, 1)),
+                                             (8, 64, 4, (6, 32, 1)), (1, 900, 4, (8, 32, 1)),
+                                             (2, 8, 4, (1, 16, 2)), (4, 512, 4, (6, 32, 1))])
+def test_k6_layout(h, d, vec, want):
+    """K6's walk across a sender row's H·D columns in bf16: two lane groups
+    of 16 for a row of at most 16·vec columns (1 x 40, nch 1); else one
+    group and, of the forms that hold a whole head, the one with the fewest
+    walks (3 x 128: one walk of 3 column groups; 3 x 256: one walk of 6; 4 x
+    512: walks of one head in 6; a head over 768 columns: the wide form).
+    Every walk holds at least one whole head, so each (edge, head) dot
+    completes in one walk."""
+    nch, w, groups = tsp.k6_layout(h, d, vec)
+    assert (nch, w, groups) == want
+    assert w * groups <= 32 and (w, groups) == tsp.k6_lane_groups(h * d, vec)
+    if groups > 1:
+        assert nch == 1 and w * vec >= h * d and w & (w - 1) == 0
+    else:
+        assert nch in tsp._K6_FORMS[vec] or nch == tsp._K6_WIDE
+    assert min(h, nch, w * vec * nch // d) >= 1
+
+
+@pytest.mark.parametrize("h, d, vec", [(1, 40, 4), (3, 128, 4), (2, 8, 4), (1, 12, 1)])
+def test_k6_float32_takes_one_group(h, d, vec):
+    """float32 K6 keeps one group at every width, so that each column and
+    each head's d_el sum their edges in edge order, as the first form did."""
+    nch, w, groups = tsp.k6_layout(h, d, vec, torch.float32)
+    assert (w, groups) == (32, 1) and nch * 32 * vec >= d
