@@ -161,9 +161,26 @@ every check; nothing is caught):
    `checkpoint_prologue` against the same weights without them: the warm-up
    loss bit for bit and every gradient within TOL_BWD_BF16, then one timed
    step each with its peak (lower with remat) and launches (K2 2L-1 with
-   remat, L without).
+   remat, L without);
+37. mean route: a small DeeperGCN with `aggr="mean"` on the card against the
+   same weights on the CPU (logits and gradients, as phase 3), then
+   ResGEN-28 with `aggr="mean"` (phase 4's model and graph otherwise)
+   through the app's `train_step`: one warm-up, 2 timed steps and a
+   `predict`, K1 56 launches a step (28 plain-form sums forward, 28
+   gathered sums in the gather's backward) and 28 a `predict`, K2 none,
+   finite losses, the step time and peak;
+38. K1's corner cases on a 3,000-node graph (a receiver and a sender of
+   5,000 edges each, 100 nodes with no edge, the CSC index sentinel-padded)
+   at C=8, 30, 48, 128, 392 and 776, f32 and bf16, plain and gathered:
+   against the plain version, rows with no edge exact 0, two launches bit
+   for bit;
+39. K1's timing at every shape its paths give it (`K1_PATHS`): the time,
+   the device time, the bound, the time if every gathered row came from
+   HBM, the plain version's time and a library time (`torch.sparse.mm` for
+   the gathered form, `torch.segment_reduce` for the plain), and the
+   gathered shapes without their rows of more than 64 edges.
 
-Every time and memory figure of phases 30-36 is printed beside the card's
+Every time and memory figure of phases 30-39 is printed beside the card's
 name and power limit. A failed comparison saves its tensors (K2's with its
 inputs) under `chiprun_out/check_failures/` for replay.
 
@@ -177,20 +194,23 @@ at C=40 and 64), K4 (without dt at C=40, with dt at C=64) and K10 (C=128)
 in float32 and bfloat16, K7, K8 and K9 in bfloat16 at 3x128, 3x256 and
 1x40 and in float32 at 3x128, and K5 and K6 in bfloat16 at P=392, 776 and
 48 and in float32 at P=392, at the shapes and on the inputs of phases 6,
-19, 25, 29 and 32, printing one JSON line and no device result. It uses the
-package beside the script, so two commits compare on one card by copying
-this script into a checkout of each (`git archive <commit>` into a
-git-ignored directory) and running the copies in turns: parent, change,
-change, parent; `--output-hashes` adds a digest of each K5, K6 (its dmsg and
-d_el columns apart), K7, K8 and K9 output to that line, so that the two
+19, 25, 29 and 32, and K1 at phase 39's shapes (also as device times),
+printing one JSON line and no device result. It uses the package beside
+the script, so two commits compare on one card by copying this script into
+a checkout of each (`git archive <commit>` into a git-ignored directory)
+and running the copies in turns: parent, change, change, parent;
+`--output-hashes` adds a digest of each K1, K5, K6 (its dmsg and d_el
+columns apart), K7, K8 and K9 output to that line, so that the two
 commits' kernels compare bit for bit.
 
-`--kernel-forms[=K7,K9,K5,K8,K6]` (card only; `--k7-forms` is
+`--kernel-forms[=K7,K9,K5,K8,K6,K1]` (card only; `--k7-forms` is
 `--kernel-forms=K7`) runs phase 1 and then times the named kernels' forms
-(all five when none is named), each a copy of the kernel's source with some
+(all six when none is named), each a copy of the kernel's source with some
 of the design's constants replaced and, for some, a list size, walk form or
 lane layout of the wrapper changed (`KERNEL_FORMS`), at phases 25 and 29's
-shapes, printing one JSON line and no device result.
+shapes (K1 at phase 39's, with device times, each form's output checked
+bit for bit against the kept form's), printing one JSON line and no device
+result.
 """
 
 from __future__ import annotations
@@ -508,14 +528,15 @@ def k4_corner_checks(chk, g, gen):
                     chk.equal(f"{name} two launches bit for bit (dt)", dt2, dt)
 
 
-def phase_agreement(dev):
-    """A small DeeperGCN on ``dev`` against the same weights on the CPU."""
-    chk = Checks("agreement")
+def phase_agreement(dev, aggr="softmax"):
+    """A small DeeperGCN on ``dev`` against the same weights on the CPU
+    (``aggr`` "softmax" with a learned t: K2 and K1; "mean": K1 both ways)."""
+    chk = Checks(f"agreement {aggr}")
     gc, _ = random_node_graph(np.random.default_rng(2), 3000, 10, 32, num_classes=7,
                               self_loops=True)
     cfg = DeeperGCNConfig(in_channels=32, hidden_channels=64, num_tasks=7, num_layers=4,
-                          block="res+", aggr="softmax", learn_t=True, t=0.5, norm="batch",
-                          mlp_layers=1, dropout=0.0)
+                          block="res+", aggr=aggr, learn_t=aggr == "softmax", t=0.5,
+                          norm="batch", mlp_layers=1, dropout=0.0)
     co = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (gc.num_nodes_padded, 7)).astype(np.float32))
     outs = []
@@ -531,17 +552,18 @@ def phase_agreement(dev):
     # matmuls. The absolute floor of the gradients is set by the largest
     # gradient of all: a bias that feeds a BatchNorm has a true gradient of 0,
     # and what both devices return for it is rounding noise.
-    chk.close("small DeeperGCN logits, card vs cpu", outs[0][0], outs[1][0], 1e-4, 1e-4)
+    chk.close(f"small DeeperGCN {aggr} logits, card vs cpu", outs[0][0], outs[1][0], 1e-4,
+              1e-4)
     g_max = max(float(v.abs().max()) for v in outs[1][1].values())
     for k in outs[1][1]:
-        chk.close(f"small DeeperGCN grad {k}", outs[0][1][k], outs[1][1][k], 1e-3, 1e-4,
-                  ref_max=g_max)
+        chk.close(f"small DeeperGCN {aggr} grad {k}", outs[0][1][k], outs[1][1][k], 1e-3,
+                  1e-4, ref_max=g_max)
     chk.raise_if_failed()
 
 
-def main_model(dev, layers):
+def main_model(dev, layers, aggr="softmax_sg"):
     cfg = DeeperGCNConfig(in_channels=128, hidden_channels=128, num_tasks=40,
-                          num_layers=layers, block="res+", aggr="softmax_sg", t=0.1,
+                          num_layers=layers, block="res+", aggr=aggr, t=0.1,
                           norm="batch", mlp_layers=1, dropout=0.5,
                           compute_dtype="bfloat16")
     model = DeeperGCN(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
@@ -570,32 +592,37 @@ def no_launches():
     return {k: 0 for k in _counted()}
 
 
-def expected_launches(g, layers, steps):
+def expected_launches(g, layers, steps, aggr="softmax_sg"):
     """Kernel launches of (steps + 1) train steps and one `predict`: every
     forward runs one aggregation per layer, every backward one more. The
-    gather route runs K2 forward and K1 backward; the band route K3 both ways,
-    plus K1 wherever that direction's leftover is not empty."""
+    gather route runs K2 forward and K1 backward (the mean route K1 both
+    ways: the CSR sum forward, the gather's CSC sum backward); the band route
+    K3 both ways, plus K1 wherever that direction's leftover is not empty."""
     want = no_launches()
     if g.senders.device.type != "cuda":
         return want  # CPU tensors never launch a kernel
     fwd, bwd = layers * (steps + 2), layers * (steps + 1)
     if g.band is None:
-        want.update(K1=bwd, K2=fwd)
+        if aggr == "mean":
+            want.update(K1=fwd + bwd)
+        else:
+            want.update(K1=bwd, K2=fwd)
         return want
     lo_f, lo_b = int(g.band.fwd.n_lo > 0), int(g.band.bwd.n_lo > 0)
     want.update(K1=fwd * lo_f + bwd * lo_b, K3=fwd + bwd)
     return want
 
 
-def phase_main_path(g, labels, layers, steps, tag="main"):
-    """ResGEN-28 through the app's `train_step` and `predict` on ``g``; the
-    launch counts are set to 0 just before and read just after."""
+def phase_main_path(g, labels, layers, steps, tag="main", aggr="softmax_sg"):
+    """ResGEN-28 (its aggregator ``aggr``) through the app's `train_step` and
+    `predict` on ``g``; the launch counts are set to 0 just before and read
+    just after."""
     dev = g.senders.device
     n = g.n_node
     lab = torch.zeros(g.num_nodes_padded, dtype=torch.long)
     lab[:n] = torch.from_numpy(np.asarray(labels))
     lab = lab.to(dev)
-    model, opt = main_model(dev, layers)
+    model, opt = main_model(dev, layers, aggr)
     gen = torch.Generator(device=dev).manual_seed(1)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -622,7 +649,7 @@ def phase_main_path(g, labels, layers, steps, tag="main"):
     if pred.shape != (g.num_nodes_padded,) or int(pred.min()) < 0 or int(pred.max()) >= 40:
         raise AssertionError(f"{tag}: predict gave shape {tuple(pred.shape)} range "
                              f"[{int(pred.min())}, {int(pred.max())}]")
-    want = expected_launches(g, layers, steps)
+    want = expected_launches(g, layers, steps, aggr)
     log(f"[{tag}] launches {launches} expected {want}")
     if launches != want:
         raise AssertionError(f"{tag}: kernel launches {launches} != expected {want}")
@@ -633,7 +660,7 @@ def phase_main_path(g, labels, layers, steps, tag="main"):
     if dev.type == "cuda":
         info["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
         info["smi_after_steps"] = smi("clocks.sm,power.draw,temperature.gpu")
-    log(f"[{tag}] {json.dumps(info)}")
+    log(f"[{tag}] {json.dumps(info)}; card: {CARD}")
     return info, (model, opt, lab, gen)
 
 
@@ -670,7 +697,8 @@ def phase_profile(dev, step, tag="profile"):
     log(f"[{tag}] 1 train step: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of the window), "
         f"{sum(r[1] for r in rows)} device calls")
-    for dev_us, count, key in rows[:40]:
+    # the 40 largest rows, and every kernel of the port's (`dgc::`) below them
+    for dev_us, count, key in rows[:40] + [r for r in rows[40:] if "dgc::" in r[2]]:
         log(f"[{tag}] {dev_us / 1e3:10.3f} ms {count:6d} calls "
             f"{100 * dev_us / max(busy, 1e-9):5.1f}%  {key[:160]}")
     log(f"[{tag}] traced and read in {time.time() - t_phase:.1f}s")
@@ -694,6 +722,27 @@ def time_fn(fn, dev, iters):
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_ms(fn, dev, iters):
+    """Device time of one call: CUDA events around `iters` calls queued
+    behind a ~10 ms sleep kernel, so that the card runs them back to back.
+    Unlike `time_fn` it leaves out the host's launch gaps, which set
+    `time_fn`'s reading of a kernel shorter than the wrapper's launch (K1's
+    narrow shapes). The host clock on the CPU."""
+    if dev.type != "cuda":
+        return time_fn(fn, dev, iters)
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda._sleep(20_000_000)  # 2e7 clocks: longer than enqueueing the calls
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / iters
 
 
 def bound(bytes_moved, flops, exps=0):
@@ -2374,6 +2423,135 @@ def phase_remat(g, labels, layers):
     return info
 
 
+# slice 11: GENConv's mean through K1, K1's corner cases and its shapes
+
+def phase_mean_route(g, labels, layers, steps):
+    """A small mean DeeperGCN card against CPU, then ResGEN-28 with
+    `aggr="mean"` on the main graph (phase 4's model and graph otherwise)
+    through the app's `train_step` and `predict`: K1 56 launches a step (28
+    plain-form forward, 28 gathered backward), 28 a `predict`, K2 none; and
+    a profile of one more step."""
+    phase_agreement(g.senders.device, aggr="mean")
+    _, state = phase_main_path(g, labels, layers, steps, tag="mean-route", aggr="mean")
+    phase_profile(g.senders.device, arxiv_step(g, state), tag="mean-route-profile")
+
+
+def k1_corner_graph(dev):
+    """3,000 nodes: a receiver of 5,000 edges and a sender of 5,000 (hub rows
+    of both forms), the last 100 nodes with no edge either way, and the edge
+    arrays padded with the sentinel N_pad, which K1 must never read (the
+    graph of `tests/test_torch_cuda.py::test_seg_sum_corner_cases`)."""
+    n, e = 3000, 30000
+    rng = np.random.default_rng(41)
+    s, r = rng.integers(0, n - 100, e), rng.integers(0, n - 100, e)
+    r[:5000] = 7
+    s[5000:10000] = 11
+    return build_graph(None, s, r, num_nodes=n).to(dev)
+
+
+def phase_k1_corners(dev):
+    """K1 in both forms on `k1_corner_graph` at C=8, 30, 48, 128, 392 and 776
+    (lane groups over rows, 16-byte bf16 loads, scalar loads, one warp
+    holding one to eight slots a lane), f32 and bf16: against the plain
+    version, rows with no edge exact 0, two launches bit for bit."""
+    chk = Checks("k1 corners")
+    g = k1_corner_graph(dev)
+    if int(g.csc_receivers[g.n_edge:].min()) != g.num_nodes_padded:
+        raise AssertionError("k1 corners: the CSC index is not sentinel-padded")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    for c in (8, 30, 48, 128, 392, 776):
+        for dtype, tag, tol in ((torch.float32, "f32", TOL_F32),
+                                (torch.bfloat16, "bf16", TOL_BF16)):
+            msgs = torch.randn(g.num_edges_padded, c, device=dev, generator=gen).to(dtype)
+            src = torch.randn(g.num_nodes_padded, c, device=dev, generator=gen).to(dtype)
+            zero = torch.zeros(g.num_nodes_padded - 2900, c, dtype=dtype, device=dev)
+            for form, args in (("plain", (msgs, g.row_ptr)),
+                               ("gathered", (src, g.csc_col_ptr, g.csc_receivers))):
+                name = f"K1 {form} C={c} {tag}"
+                out = tsp.csr_seg_sum(*args)
+                chk.close(name, out, tsp.csr_seg_sum_plain(*args), **tol)
+                chk.equal(f"{name} rows with no edge exact 0", out[2900:], zero)
+                chk.equal(f"{name} two launches bit for bit", tsp.csr_seg_sum(*args), out)
+    sync(dev)
+    chk.raise_if_failed()
+
+
+def _without_long_rows(ptr, idx, limit=64):
+    """(ptr, idx) of a gathered CSR with the rows of more than ``limit``
+    edges emptied, and the share of the edges they held."""
+    cnt = (ptr[1:] - ptr[:-1]).long()
+    keep = cnt <= limit
+    rows = torch.repeat_interleave(torch.arange(cnt.shape[0], device=ptr.device), cnt)
+    new = torch.zeros_like(ptr)
+    new[1:] = torch.cumsum(torch.where(keep, cnt, 0), 0).to(ptr.dtype)
+    kept = idx[int(ptr[0]):int(ptr[-1])][keep[rows]].contiguous()
+    return new, kept, 1.0 - kept.shape[0] / max(rows.shape[0], 1)
+
+
+def phase_k1_timing(g, lo, iters):
+    """K1 at every shape of `K1_PATHS` (`k1_inputs`): `time_fn`'s time, the
+    device time (`device_ms`), the bound (src's rows that the edges read,
+    each read once, out written once, the index and pointers; one float32 add
+    per edge and channel), the time if every gathered row came from HBM, the
+    plain version's time and a library time beside it (the gathered form:
+    `torch.sparse.mm` of the count matrix; the plain form:
+    `torch.segment_reduce`); and the gathered shapes without their rows of
+    more than 64 edges."""
+    dev = g.senders.device
+    chk = Checks("k1 timing")
+    for key, (src, ptr, idx) in k1_inputs(g, lo, torch.Generator(device=dev).manual_seed(6)
+                                          ).items():
+        n_rows, c, size = ptr.shape[0] - 1, src.shape[1], src.element_size()
+        e0, e1 = int(ptr[0]), int(ptr[-1])
+        e = e1 - e0
+        ms = time_fn(lambda: tsp.csr_seg_sum(src, ptr, idx), dev, iters)
+        d_ms = device_ms(lambda: tsp.csr_seg_sum(src, ptr, idx), dev, iters)
+        plain_ms = time_fn(lambda: tsp.csr_seg_sum_plain(src, ptr, idx), dev, 3)
+        out = tsp.csr_seg_sum(src, ptr, idx)
+        fixed = 4 * (n_rows + 1) + n_rows * c * size + (4 * e if idx is not None else 0)
+        read = e if idx is None else int(torch.unique(idx[e0:e1]).numel())
+        b = bound(fixed + read * c * size, e * c)
+        hbm_ms = (fixed + e * c * size) / HBM_BYTES_PER_S * 1e3
+        # yardsticks (never called by the port); the CPU rehearsal runs them
+        # in float32, where the CPU's sparse product has no bfloat16
+        y = src if dev.type == "cuda" else src.float()
+        if idx is None:
+            offsets = ptr.long() - e0
+
+            def lib():
+                return torch.segment_reduce(y[e0:e1], "sum", offsets=offsets, axis=0)
+        else:
+            coo = torch.sparse_coo_tensor(
+                torch.stack([torch.repeat_interleave(torch.arange(n_rows, device=dev),
+                                                     (ptr[1:] - ptr[:-1]).long()),
+                             idx[e0:e1].long()]),
+                torch.ones(e, device=dev), (n_rows, src.shape[0])).coalesce().to_sparse_csr()
+            a = torch.sparse_csr_tensor(coo.crow_indices(), coo.col_indices(),
+                                        coo.values().to(y.dtype), (n_rows, src.shape[0]))
+
+            def lib():
+                return torch.sparse.mm(a, y)
+        lib_ms = time_fn(lib, dev, iters)
+        chk.close(f"library yardstick vs K1 {key}", lib(), out, **TOL_LIBRARY)
+        row = {"ms": ms, "device_ms": d_ms, "bound_ms": b[0], "bound_by": b[1],
+               "all_from_hbm_ms": hbm_ms if idx is not None else None,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": "torch.segment_reduce" if idx is None else "torch.sparse.mm",
+               "rows": n_rows, "edges": e,
+               "longest_row": int((ptr[1:] - ptr[:-1]).max()) if n_rows else 0,
+               "launches": K1_PATHS[key]}
+        if idx is not None:
+            p64, i64, share = _without_long_rows(ptr, idx)
+            row["without_rows_over_64_edges"] = {
+                "ms": time_fn(lambda: tsp.csr_seg_sum(src, p64, i64), dev, iters),
+                "device_ms": device_ms(lambda: tsp.csr_seg_sum(src, p64, i64), dev, iters),
+                "edge_share_left_out": share}
+        log(f"[k1-timing] {key}: {json.dumps(row)}")
+        del src, out, lib
+    chk.raise_if_failed()
+    log(f"[k1-timing] card: {CARD}")
+
+
 def _sha256(*tensors):
     import hashlib
 
@@ -2383,6 +2561,54 @@ def _sha256(*tensors):
     return h.hexdigest()[:16]
 
 
+# K1 at the shapes its paths give it: key -> the path and its launches
+K1_PATHS = {
+    "gather C=128 bf16": "ResGEN-28 gather route backward, 28 a step; the mean route's "
+                         "backward, 28 a step",
+    "gather C=128 f32": "the same in float32",
+    "plain C=128 bf16": "the mean route's forward, 28 a step + 28 a predict",
+    "lo C=392 bf16": "dense RevGAT _lo_sum / _lo_dsend at 3x128",
+    "lo C=776 bf16": "dense RevGAT _lo_sum / _lo_dsend at 3x256",
+    "lo C=48 bf16": "dense RevGAT _lo_sum / _lo_dsend at 1x40",
+    "lo C=8 f32": "dense RevGAT _lo_der",
+    "band-lo C=128 bf16": "ResGEN-28 band route's leftover, backward: 28 a step",
+    "band-lo C=256 bf16": "the same, forward (the packed [e·m | e] table): 28 a step + 28 a "
+                          "predict",
+}
+
+
+def k1_inputs(g, lo, gen):
+    """{key of `K1_PATHS`: (src, ptr, idx)} on random values: the gathered
+    form over the main graph ``g``'s CSC (the gather route's backward), the
+    plain form over its CSR (the mean route's forward), the plain form over
+    the RevGAT band's leftover at the dense route's packed widths (`_lo_sum`
+    and `_lo_dsend` at 3x128, 3x256, 1x40: 392, 776 and 48 columns in bf16;
+    `_lo_der`'s 8 in f32), and the gathered form over the ResGEN band's
+    leftover at the band route's widths (the backward's 128 columns, the
+    forward's packed 256). ``lo`` holds the leftovers' CSR: "band" the
+    ResGEN band's forward (lo_row_ptr, lo_src), "gat" the RevGAT band's
+    forward (lo_row_ptr, n_lo)."""
+    dev = g.senders.device
+
+    def rnd(rows, c, dtype):
+        return torch.randn(rows, c, device=dev, generator=gen).to(dtype)
+
+    n_pad, bf16, f32 = g.num_nodes_padded, torch.bfloat16, torch.float32
+    gat_ptr, n_lo = lo["gat"]
+    band_ptr, band_src = lo["band"]
+    return {"gather C=128 bf16": (rnd(n_pad, 128, bf16), g.csc_col_ptr, g.csc_receivers),
+            "gather C=128 f32": (rnd(n_pad, 128, f32), g.csc_col_ptr, g.csc_receivers),
+            "plain C=128 bf16": (rnd(g.num_edges_padded, 128, bf16), g.row_ptr, None),
+            "lo C=392 bf16": (rnd(n_lo, 392, bf16), gat_ptr, None),
+            "lo C=776 bf16": (rnd(n_lo, 776, bf16), gat_ptr, None),
+            "lo C=48 bf16": (rnd(n_lo, 48, bf16), gat_ptr, None),
+            "lo C=8 f32": (rnd(n_lo, 8, f32), gat_ptr, None),
+            "band-lo C=128 bf16": (rnd(band_ptr.shape[0] - 1, 128, bf16), band_ptr,
+                                   band_src),
+            "band-lo C=256 bf16": (rnd(band_ptr.shape[0] - 1, 256, bf16), band_ptr,
+                                   band_src)}
+
+
 def phase_kernel_times(dev, n, cluster, iters, hashes=False):
     """`--kernel-times`: `time_fn`'s times of K2 at C=128 on the main graph;
     K2 with `ee` at C=40 and 64, K4 without dt at C=40 and with dt at C=64
@@ -2390,12 +2616,14 @@ def phase_kernel_times(dev, n, cluster, iters, hashes=False):
     and 1x40 on the RevGAT graph's band with the step's hash drop (phase
     29's inputs; float32 at 3x128 only); K5 and K6 at P=392, 776 and 48 with
     the step's hash keep (phase 25's inputs; float32 at P=392 only); K10 at
-    C=128 on the block-sparse graph; each in float32 and bfloat16 unless
-    said, as one JSON line beside the card's name and power limit. No check
-    and no model runs. ``hashes`` (`--output-hashes`) adds a digest of each
-    K5, K6 (dmsg and d_el apart), K7, K8 and K9 output, so that two commits'
+    C=128 on the block-sparse graph; K1 at every key of `K1_PATHS`
+    (`k1_inputs`), whose device times (`device_ms`) the line also holds;
+    each in float32 and bfloat16 unless said, as one JSON line beside the
+    card's name and power limit. No check and no model
+    runs. ``hashes`` (`--output-hashes`) adds a digest of each K1, K5, K6
+    (dmsg and d_el apart), K7, K8 and K9 output, so that two commits'
     kernels compare bit for bit on one card."""
-    res, digests = {}, {}
+    res, dev_res, digests = {}, {}, {}
     gen = torch.Generator(device=dev).manual_seed(5)
     g, _ = main_graph(n, dev)
     t = torch.tensor([0.1], device=dev)
@@ -2404,7 +2632,10 @@ def phase_kernel_times(dev, n, cluster, iters, hashes=False):
         cmax = tsp.fused_cmax(x, t, 1e-7)
         res[f"K2 C=128 {tag}"] = time_fn(
             lambda: tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7), dev, iters)
-    del g, x
+    g_main = g  # K1's main-graph shapes, timed beside the leftovers below
+    gb, _, _ = band_graph(n, dev)
+    k1_lo = {"band": (gb.band.fwd.lo_row_ptr, gb.band.fwd.lo_src)}
+    del g, x, gb
     g, _ = cluster_graph(*cluster, dev)
     t = torch.tensor([1.0], device=dev)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -2472,12 +2703,19 @@ def phase_kernel_times(dev, n, cluster, iters, hashes=False):
             digests[f"K6 d_el {key}"] = _sha256(dt[:, hd:])
             del dt
         del t, fa, q, ba
-    del g, band, feat, el, er, m_other, recv, keep_csc
+    k1_lo["gat"] = (g.band.fwd.lo_row_ptr, g.band.fwd.n_lo)
+    k1 = k1_inputs(g_main, k1_lo, torch.Generator(device=dev).manual_seed(6))
+    for key, (src, ptr, idx) in k1.items():
+        res[f"K1 {key}"] = time_fn(lambda: tsp.csr_seg_sum(src, ptr, idx), dev, iters)
+        dev_res[f"K1 {key}"] = device_ms(lambda: tsp.csr_seg_sum(src, ptr, idx), dev, iters)
+        if hashes:
+            digests[f"K1 {key}"] = _sha256(tsp.csr_seg_sum(src, ptr, idx))
+    del g, band, feat, el, er, m_other, recv, keep_csc, k1, k1_lo, g_main, src, ptr, idx
     bg = bsp_graph(n, dev)
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         x = torch.randn(bg["n_pad"], 128, device=dev, generator=gen).to(dtype)
         res[f"K10 C=128 {tag}"] = time_fn(lambda: tbs.bsp_call(x, bg["tiles"]), dev, iters)
-    log(json.dumps({"root": ROOT, "card": CARD, "kernel_ms": res,
+    log(json.dumps({"root": ROOT, "card": CARD, "kernel_ms": res, "kernel_device_ms": dev_res,
                     **({"outputs_sha256": digests} if hashes else {})}))
 
 
@@ -2528,6 +2766,20 @@ KERNEL_FORMS = {
         ("3 blocks", {"kMinBlocks": 3}, {}), ("6 blocks", {"kMinBlocks": 6}, {}),
         ("three walks at 3x256", {}, {"_K6_FORMS": {4: (1, 2, 3), 1: (8,)}}),
         ("no lane groups", {}, {"k6_lane_groups": lambda hd, vec, dtype=None: (32, 1)}))),
+    "K1": ("seg_sum", (
+        ("kept", {}, {}),
+        ("8-byte bf16 loads", {}, {"K1_WIDE_LOADS_MAX_C": 0}),
+        ("16-byte bf16 loads at every width", {}, {"K1_WIDE_LOADS_MAX_C": 1 << 20}),
+        ("16-byte bf16 loads up to C=256", {}, {"K1_WIDE_LOADS_MAX_C": 256}),
+        ("2 edges in flight", {"kFlightGather": 2, "kFlightPlain": 2}, {}),
+        ("gathered: 8 edges in flight", {"kFlightGather": 8}, {}),
+        ("plain: 4 edges in flight", {"kFlightPlain": 4}, {}),
+        ("32 registers a lane", {"kLaneRegs": 32}, {}),
+        ("64 registers a lane", {"kLaneRegs": 64}, {}),
+        ("6 blocks", {"kMinBlocks": 6}, {}), ("8 blocks", {"kMinBlocks": 8}, {}),
+        ("128 channels a walk", {"kMaxSlots": 1}, {}),
+        ("one warp a row", {},
+         {"k1_layout": lambda c, vec, dtype=None: (min(32, -(-c // vec)), 1)}))),
 }
 FORM_SHAPES = (((3, 128), "bf16"), ((3, 256), "bf16"), ((1, 40), "bf16"), ((3, 128), "f32"))
 
@@ -2549,6 +2801,29 @@ def _build_form(src_name, consts, out, tag):
            "-Xcompiler", "-fPIC", "-I", _build.CSRC, "-o", so, cu]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)
+
+
+def _k1_form_cases(k1):
+    """{key: (call, check)} of K1 on `k1_inputs`' ``k1``: check(chk, name)
+    holds one launch against the plain version and, after the first (kept)
+    form's, bit for bit against that form's output."""
+    cases, first = {}, {}
+    for key, args in k1.items():
+        tol = TOL_F32 if args[0].dtype == torch.float32 else TOL_BF16
+
+        def call(a=args):
+            return tsp.csr_seg_sum(*a)
+
+        def check(chk, name, a=args, call=call, key=key, tol=tol):
+            out = call()
+            chk.close(f"K1 {name} {key}", out, tsp.csr_seg_sum_plain(*a), **tol)
+            if key in first:
+                chk.equal(f"K1 {name} {key} bit for bit the kept form's", out, first[key])
+            else:
+                first[key] = out
+
+        cases[key] = (call, check)
+    return cases
 
 
 def _form_cases(kernel, g, gen):
@@ -2653,13 +2928,24 @@ def phase_kernel_forms(dev, n, iters, kernels):
             libs[k].append(lib)
     g, _ = revgat_graph(n, dev)
     gen = torch.Generator(device=dev).manual_seed(11)
+    if "K1" in kernels:
+        gm, _ = main_graph(n, dev)
+        gb, _, _ = band_graph(n, dev)
+        k1 = k1_inputs(gm, {"band": (gb.band.fwd.lo_row_ptr, gb.band.fwd.lo_src),
+                            "gat": (g.band.fwd.lo_row_ptr, g.band.fwd.n_lo)}, gen)
+        del gm, gb
     chk = Checks("kernel forms")
-    res = {}
+    res, dev_res = {}, {}
     for k in kernels:
         src, forms = KERNEL_FORMS[k]
-        module = tsp if k in ("K5", "K6") else tgd
-        cases = _form_cases(k, g, gen)
+        module = tsp if k in ("K5", "K6", "K1") else tgd
+        # K1's forms must keep every output bit for bit: each is checked at
+        # every shape; the others at 3x128 bf16. K1's narrow shapes take
+        # less device time than a launch, so its device times go beside.
+        cases = _k1_form_cases(k1) if k == "K1" else _form_cases(k, g, gen)
         res[k] = {name: {key: [] for key in cases} for name, _, _ in forms}
+        if k == "K1":
+            dev_res[k] = {name: {key: [] for key in cases} for name, _, _ in forms}
         order = list(range(len(forms)))
         for i in order + order[::-1]:
             name, _, attrs = forms[i]
@@ -2669,16 +2955,18 @@ def phase_kernel_forms(dev, n, iters, kernels):
                 for a, v in attrs.items():
                     setattr(module, a, v)
                 for key, (call, check) in cases.items():
-                    if key == "3x128 bf16" and not res[k][name][key]:
+                    if (k == "K1" or key == "3x128 bf16") and not res[k][name][key]:
                         check(chk, f"{name} {key}")
                     res[k][name][key].append(time_fn(call, dev, iters))
+                    if k == "K1":
+                        dev_res[k][name][key].append(device_ms(call, dev, iters))
             finally:
                 _build._libs.pop(src, None)
                 for a, v in saved.items():
                     setattr(module, a, v)
         del cases
     chk.raise_if_failed()
-    log(json.dumps({"card": CARD, "kernel_forms_ms": res}))
+    log(json.dumps({"card": CARD, "kernel_forms_ms": res, "kernel_forms_device_ms": dev_res}))
 
 
 def kernel_forms_arg(argv):
@@ -2747,6 +3035,7 @@ def main(argv):
         f"{band_info['step_ms_median'] / gather_info['step_ms_median']:.4f} "
         f"({band_info['step_ms_median']:.3f} / {gather_info['step_ms_median']:.3f} ms)")
     k3_row = phase_band_timing(gb, errs_b, band_info["launches"], iters)
+    k1_lo = {"band": (gb.band.fwd.lo_row_ptr, gb.band.fwd.lo_src)}  # phase 39's leftover
     del gb
     log(f"[done] band-route phases in {time.time() - t_all:.1f}s")
 
@@ -2818,6 +3107,7 @@ def main(argv):
         f"package measured 1.82 on a TPU v5e, information only)")
     mark("dense paths")
     rows += phase_dense_timing(ggat, errs_d, dense_info["launches"], iters)
+    k1_lo["gat"] = (ggat.band.fwd.lo_row_ptr, ggat.band.fwd.n_lo)
     del ggat
     free_memory(dev)
     log(f"[done] dense-route phases in {time.time() - t_all:.1f}s")
@@ -2839,6 +3129,13 @@ def main(argv):
     free_memory(dev)
     phase_remat(g_main, labels_main, layers)
     mark("remat")
+    free_memory(dev)
+    phase_mean_route(g_main, labels_main, layers, 2)
+    mark("mean route")
+    phase_k1_corners(dev)
+    mark("k1 corners")
+    phase_k1_timing(g_main, k1_lo, iters)
+    mark("k1 timing")
     log(f"[done] all phases in {time.time() - t_all:.1f}s")
     if rehearse:
         print(json.dumps({"kernels": rows}))

@@ -174,14 +174,15 @@ class GENConv(nn.Module):
                 deg = segment_degree(g.receivers, n, g.edge_mask)
                 m = torch.pow(deg, torch.sigmoid(self.y))[:, None].to(m.dtype) * m
         else:
-            send = torch.clamp(g.senders.long(), max=n - 1)
-            msg = xc.index_select(0, send)
+            # the gather's backward is K1's gathered form over the CSC ranges,
+            # and the sum family's aggregation K1 over the CSR ranges
+            msg = gather_src_auto(xc, g)
             if edge_emb is not None:
                 msg = msg + edge_emb.to(cd)
             msg = torch.relu(msg) + torch.tensor(self.eps, dtype=cd)
             m = generalized_aggregate(
                 msg, g.receivers, n, aggr=self.aggr, t=self.t, p=self.p, y=self.y,
-                learn_t=self.grad_w, mask=g.edge_mask)
+                learn_t=self.grad_w, mask=g.edge_mask, row_ptr=g.row_ptr)
         m = m.to(x.dtype)
         if self.msg_norm is not None:
             m = self.msg_norm(x, m)

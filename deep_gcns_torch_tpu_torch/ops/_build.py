@@ -36,7 +36,8 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _L = ctypes.c_longlong
 # argtypes of every C entry point, by source
 _SIGNATURES = {
-    "seg_sum": {name: [_P, _P, _P, _P, _I, _I, _I, _P]
+    # src, idx, ptr, out; n_rows, C, vec, w, G, stream
+    "seg_sum": {name: [_P] * 4 + [_I] * 5 + [_P]
                 for name in ("dgc_seg_sum_f32", "dgc_seg_sum_bf16")},
     # x, ee, senders, row_ptr, t, cmax, out, den; n_rows, C, w, G; eps, vec, stream
     "softmax_agg": {name: [_P] * 8 + [_I] * 4 + [_F, _I, _P]

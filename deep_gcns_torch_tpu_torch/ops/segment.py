@@ -8,10 +8,12 @@ PyTorch (counterpart of `deep_gcns_torch_tpu/ops/segment.py:112-370`).
 * `generalized_aggregate` is DeeperGCN's SoftMax/PowerMean family with the
   reference's stop-gradient softmax weights unless ``learn_t`` (for softmax
   and softmax_sum), the power clamps to [1e-7, 10] and the degree scaling
-  of the ``*_sum`` variants.
+  of the ``*_sum`` variants. Given the receivers' CSR ``row_ptr``, its sum
+  and mean go through K1 (`spmm_cuda.segment_sum_csr`), as the JAX
+  package's kernel route does.
 
-These are the CPU path and the oracle of the GENConv routes that have no
-kernel of their own.
+The other reductions are the CPU path and the oracle of the GENConv routes
+that have no kernel of their own.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+
+from .spmm_cuda import segment_sum_csr
 
 Scalar = Union[torch.Tensor, float]
 
@@ -147,11 +151,23 @@ def generalized_aggregate(
     y: Scalar = 0.0,
     learn_t: bool = False,
     mask: Optional[torch.Tensor] = None,
+    row_ptr: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """DeeperGCN generalized aggregation over receiver-keyed messages.
 
     aggr ∈ {softmax, softmax_sg, softmax_sum, power, power_sum, add/sum,
-    mean, max, min}."""
+    mean, max, min}. With ``row_ptr`` (the receivers' CSR over the
+    receiver-sorted messages) add/sum is K1's segment sum and mean that sum
+    over the clamped degree, as the JAX package routes them
+    (`deep_gcns_torch_tpu/ops/segment.py:322-330`): each CSR range is summed
+    and ``mask`` is not read, so it may mark only the sentinel padding
+    beyond ``row_ptr[-1]``, as a graph's edge mask does."""
+    if row_ptr is not None and aggr in ("add", "sum", "mean"):
+        s = segment_sum_csr(msgs, receivers, row_ptr)
+        if aggr == "mean":
+            cnt = segment_degree(receivers, num_segments, mask, s.dtype)
+            s = s / torch.clamp_min(cnt, 1)[:, None]
+        return s
     if aggr in ("add", "sum"):
         return segment_sum(msgs, receivers, num_segments, mask)
     if aggr == "mean":

@@ -74,6 +74,24 @@ def k2_lane_groups(c: int, vec: int, dtype: torch.dtype = torch.bfloat16) -> Tup
     return w, 32 // w
 
 
+# the widest bf16 row (C % 8 == 0) that K1 reads with 16-byte loads (vec 8);
+# wider rows take 8-byte loads over several slots a lane (at C=256 they beat
+# 16-byte loads on the band leftover: 0.071 against 0.079 ms on an H100)
+K1_WIDE_LOADS_MAX_C = 128
+
+
+def k1_layout(c: int, vec: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
+    """(w, G): K1 gives a row of w = ⌈C/vec⌉ ≤ 16 vector slots a lane group of
+    w lanes, G = 32 // w rows a warp (C=8 float32: 2 lanes, 16 rows; C=48
+    bf16: 12 lanes, 2 rows); a wider row takes the whole warp (w = min(32,
+    slots), G = 1), whose lanes hold all of its slots in one walk. Each group
+    walks its own row, so every row still sums in edge order: unlike
+    `k2_lane_groups`, float32 takes the same layout as bf16."""
+    del dtype  # the same layout in both dtypes
+    w = min(32, -(-c // vec))
+    return w, 32 // w
+
+
 def k4_lane_groups(c: int, vec: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
     """(w, G) of K4: the same layout as K2's (G groups of w lanes over a
     sender row's edges in bf16, one group in float32, where a hub sender's
@@ -126,9 +144,13 @@ def csr_seg_sum(src: torch.Tensor, ptr: torch.Tensor,
     out = torch.empty((n_rows, c), dtype=src.dtype, device=src.device)
     if n_rows == 0 or c == 0:
         return out
+    vec = _vec(c, src, out)
+    if vec == 4 and src.dtype == torch.bfloat16 and c % 8 == 0 and c <= K1_WIDE_LOADS_MAX_C:
+        vec = 8
+    w, groups = k1_layout(c, vec, src.dtype)
     fn = getattr(library("seg_sum"), f"dgc_seg_sum_{_SUFFIX[src.dtype]}")
     rc = fn(src.data_ptr(), None if idx is None else idx.data_ptr(), ptr.data_ptr(),
-            out.data_ptr(), n_rows, c, _vec(c, src, out),
+            out.data_ptr(), n_rows, c, vec, w, groups,
             torch.cuda.current_stream(src.device).cuda_stream)
     csr_seg_sum.launches += 1
     _raise_on(rc, "K1 seg_sum_csr")

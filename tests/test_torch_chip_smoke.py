@@ -48,9 +48,12 @@ def test_kernel_times_mode_prints_one_time_per_kernel_form():
     positive time for K2, K2 with `ee` at C=40 and 64, K4 without dt at C=40
     and with dt at C=64, and K10, each in float32 and bfloat16, K7, K8 and K9
     at 3x128 (float32 and bfloat16), 3x256 and 1x40 (bfloat16), and K5 and
-    K6 at P=392 (float32 and bfloat16), 776 and 48 (bfloat16); with
-    `--output-hashes` a digest of each K5, K6 (dmsg and d_el apart), K7, K8
-    and K9 output; and prints no device result."""
+    K6 at P=392 (float32 and bfloat16), 776 and 48 (bfloat16), and K1 at
+    every shape of `K1_PATHS` (gathered at C=128 in float32 and bfloat16,
+    plain at C=128, the dense RevGAT leftover's 392, 776, 48 and 8, the
+    band leftover's gathered 128 and 256), K1's also as device times; with
+    `--output-hashes` a digest of each K1, K5, K6 (dmsg and d_el apart),
+    K7, K8 and K9 output; and prints no device result."""
     import json
     import subprocess
     import sys
@@ -65,11 +68,17 @@ def test_kernel_times_mode_prints_one_time_per_kernel_form():
     want |= {f"{k} {s}" for k in ("K7", "K8", "K9") for s in dense}
     csc = ("P=392 bf16", "P=776 bf16", "P=48 bf16", "P=392 f32")
     k5 = {f"K5 {s}" for s in csc}
-    assert set(last["kernel_ms"]) == want | k5 | {f"K6 {s}" for s in csc}
+    k1 = {f"K1 {s}" for s in ("gather C=128 bf16", "gather C=128 f32", "plain C=128 bf16",
+                              "lo C=392 bf16", "lo C=776 bf16", "lo C=48 bf16", "lo C=8 f32",
+                              "band-lo C=128 bf16", "band-lo C=256 bf16")}
+    assert set(last["kernel_ms"]) == want | k5 | {f"K6 {s}" for s in csc} | k1
     assert all(v > 0 for v in last["kernel_ms"].values())
+    assert set(last["kernel_device_ms"]) == k1
+    assert all(v > 0 for v in last["kernel_device_ms"].values())
     assert set(last["outputs_sha256"]) == k5 | {f"K7 {s}" for s in dense} | {
         f"K9 {o} {s}" for o in ("d_el", "d_feat") for s in dense} | {
-        f"K8 d_er {s}" for s in dense} | {f"K6 {o} {s}" for o in ("dmsg", "d_el") for s in csc}
+        f"K8 d_er {s}" for s in dense} | {
+        f"K6 {o} {s}" for o in ("dmsg", "d_el") for s in csc} | k1
     assert '"ok"' not in run.stdout
 
 
@@ -84,14 +93,15 @@ def test_kernel_forms_argument(monkeypatch, tmp_path):
     from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
 
     mod = _chip_smoke(monkeypatch, tmp_path)
-    assert mod.kernel_forms_arg(["--kernel-forms"]) == ["K7", "K9", "K5", "K8", "K6"]
+    assert mod.kernel_forms_arg(["--kernel-forms"]) == ["K7", "K9", "K5", "K8", "K6", "K1"]
+    assert mod.kernel_forms_arg(["--kernel-forms=K1"]) == ["K1"]
     assert mod.kernel_forms_arg(["--kernel-forms=K9,K5"]) == ["K9", "K5"]
     assert mod.kernel_forms_arg(["--kernel-forms=K8,K6"]) == ["K8", "K6"]
     assert mod.kernel_forms_arg(["--k7-forms"]) == ["K7"]
     assert mod.kernel_forms_arg(["--kernel-times"]) == []
     for kernel, (src, forms) in mod.KERNEL_FORMS.items():
         text = open(os.path.join(ROOT, "deep_gcns_torch_tpu_torch", "csrc", f"{src}.cu")).read()
-        module = tsp if kernel in ("K5", "K6") else tgd
+        module = tsp if kernel in ("K5", "K6", "K1") else tgd
         assert forms[0][1:] == ({}, {})
         for _, consts, attrs in forms:
             for k in consts:

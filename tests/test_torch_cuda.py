@@ -1049,3 +1049,46 @@ def test_gat_bwd_csc_corner_cases(cuda_device, dtype, h, d, keep):
     assert torch.equal(tsp.gat_bwd_csc(t, q, *args), dt)
     torch.cuda.synchronize()
     assert tsp.gat_bwd_csc.launches == before + 2
+
+
+def _k1_corner_graph(dev):
+    """3,000 nodes: a receiver of 5,000 edges and a sender of 5,000 (hub rows
+    of both forms), the last 100 nodes with no edge either way, and the edge
+    arrays padded with the sentinel N_pad, which K1 must never read."""
+    n, e = 3000, 30000
+    rng = np.random.default_rng(41)
+    s, r = rng.integers(0, n - 100, e), rng.integers(0, n - 100, e)
+    r[:5000] = 7
+    s[5000:10000] = 11
+    g = build_graph(None, s, r, num_nodes=n).to(dev)
+    assert int((g.row_ptr[8] - g.row_ptr[7]).item()) >= 5000
+    assert int((g.csc_col_ptr[12] - g.csc_col_ptr[11]).item()) >= 5000
+    assert g.num_edges_padded > e and int(g.csc_receivers[e:].min()) == g.num_nodes_padded
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [8, 30, 48, 128, 392, 776])
+def test_seg_sum_corner_cases(cuda_device, dtype, c):
+    """K1 in both forms on `_k1_corner_graph` at every layout it takes: C=8
+    (lane groups: 16 rows a warp of 2 lanes in f32, 32 of one lane with
+    16-byte loads in bf16), 30 (scalar loads, one warp a row), 48 (2 rows a
+    warp of 12 lanes in f32, 5 of 6 in bf16), 128 (one warp a row in f32, 2
+    rows a warp of 16 lanes in bf16), 392 and 776 (one walk over 4 and 7
+    slots a lane): against the plain version within TOL, rows with no edge
+    exactly 0, two launches bit for bit, one launch each."""
+    g = _k1_corner_graph(cuda_device)
+    n_pad = g.num_nodes_padded
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    msgs = torch.randn(g.num_edges_padded, c, device=cuda_device, generator=gen).to(dtype)
+    src = torch.randn(n_pad, c, device=cuda_device, generator=gen).to(dtype)
+    before = tsp.csr_seg_sum.launches
+    for args in ((msgs, g.row_ptr), (src, g.csc_col_ptr, g.csc_receivers)):
+        out = tsp.csr_seg_sum(*args)
+        _assert_close(out, tsp.csr_seg_sum_plain(*args), **TOL[dtype])
+        assert not out[2900:].any()
+        assert out[7].abs().sum() > 0 and out[11].abs().sum() > 0
+        assert torch.equal(tsp.csr_seg_sum(*args), out)
+    torch.cuda.synchronize()
+    assert tsp.csr_seg_sum.launches == before + 4

@@ -23,8 +23,11 @@ from deep_gcns_torch_tpu_torch.utils.optim import make_optimizer
 # f32 on both sides; the difference is summation order through 4 layers
 TOL = dict(rtol=1e-4, atol=1e-4)
 GOLD = os.path.join(os.path.dirname(__file__), "goldens")
+# mean and add take K1's route (`segment_sum_csr` over the graph's row_ptr,
+# the gather's backward over its CSC ranges), JAX its XLA route on the CPU
 CASES = [("res+", "softmax_sg", False), ("res+", "softmax", True),
-         ("res", "softmax_sg", False), ("res", "softmax", True)]
+         ("res", "softmax_sg", False), ("res", "softmax", True),
+         ("res+", "mean", False), ("res+", "add", False)]
 
 
 def _np_tree(tree):
@@ -162,3 +165,47 @@ def test_bf16_deeper_gcn_forward_matches_jax(monkeypatch):
     monkeypatch.setattr(Linear, "forward", old_forward)
     old = np.abs(model(gt.x, gt).detach().numpy()[:n] - want)
     assert old.mean() > 1.5e-3, old.mean()
+
+
+def test_bf16_mean_deeper_gcn_matches_jax_kernel_route(monkeypatch):
+    """ResGEN with `aggr="mean"` and bf16 compute, 4 layers at C=128, on a
+    graph without a band: the port takes K1's route (the plain form's sum of
+    the bf16 messages in float32, rounded once, over the clamped bf16
+    degree), and the JAX model is run on its TPU kernel route, whose
+    `segment_sum_csr` (the forward's sum and `gather_src`'s backward) runs
+    in interpret mode here. The logits agree within the tolerance of
+    `test_bf16_deeper_gcn_forward_matches_jax`, and the route is checked to
+    run (every layer one CSR sum)."""
+    import deep_gcns_torch_tpu.ops.gather as jgather
+    import deep_gcns_torch_tpu.ops.segment as jseg
+    import deep_gcns_torch_tpu.ops.spmm_pallas as jsp
+    from deep_gcns_torch_tpu_torch.ops import segment as tseg
+
+    seg_sum = jsp.segment_sum_csr
+
+    def interpreted(m, r, p, interpret=False):
+        return seg_sum(m, r, p, True)
+
+    monkeypatch.setattr(jseg, "_pallas_ok", lambda aggr, row_ptr, msgs, n: (
+        aggr in ("add", "sum", "mean") and row_ptr is not None))
+    monkeypatch.setattr(jsp, "segment_sum_csr", interpreted)
+    monkeypatch.setattr(jgather, "segment_sum_csr", interpreted)
+    kw = dict(in_channels=16, hidden_channels=128, num_tasks=7, num_layers=4, block="res+",
+              aggr="mean", norm="batch", mlp_layers=1, dropout=0.0, compute_dtype="bfloat16")
+    gj, _ = jax_random_graph(np.random.default_rng(0), 300, 6, 16, self_loops=True)
+    gt, _ = random_node_graph(np.random.default_rng(0), 300, 6, 16, self_loops=True)
+    jcfg = JaxConfig(**kw)
+    jmodel = JaxDeeperGCN(jcfg)
+    params, state = jmodel.init(jax.random.PRNGKey(0))
+    want = np.asarray(jmodel.apply(params, state, jnp.asarray(gj.x), gj, train=True)[0])[:300]
+
+    calls = []
+    seg_t = tseg.segment_sum_csr
+    monkeypatch.setattr(tseg, "segment_sum_csr", lambda *a: calls.append(1) or seg_t(*a))
+    model = DeeperGCN(DeeperGCNConfig(**kw))
+    model.load_state_dict(deeper_gcn_state_dict_from_jax(_np_tree(params), _np_tree(state),
+                                                         jcfg))
+    model.train()
+    err = np.abs(model(gt.x, gt).detach().numpy()[:300] - want)
+    assert len(calls) == 4
+    assert err.max() < 1e-2 and err.mean() < 1.2e-3, (err.max(), err.mean())

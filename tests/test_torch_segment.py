@@ -11,9 +11,11 @@ import torch
 
 from deep_gcns_torch_tpu.graph import build_graph as jax_build_graph
 from deep_gcns_torch_tpu.ops import segment as jseg
+from deep_gcns_torch_tpu.ops import spmm_pallas as sp
 from deep_gcns_torch_tpu_torch.convs.sparse import GENConv
 from deep_gcns_torch_tpu_torch.graph import build_graph
 from deep_gcns_torch_tpu_torch.ops import segment as tseg
+from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
 
 AGGRS = ("softmax", "softmax_sg", "softmax_sum", "power", "power_sum", "add", "mean",
          "max", "min")
@@ -24,10 +26,10 @@ FWD = dict(rtol=2e-5, atol=2e-5)
 GRAD = dict(rtol=5e-4, atol=1e-5)
 
 
-def _edges(seed, n=60, e=400, c=6, ties=False):
+def _edges(seed, n=60, e=400, c=6, ties=False, node_pad=64):
     rng = np.random.default_rng(seed)
     g = jax_build_graph(None, rng.integers(0, n, e), rng.integers(0, n, e), num_nodes=n,
-                        node_pad=64, edge_pad=512)
+                        node_pad=node_pad, edge_pad=512)
     msgs = np.abs(rng.standard_normal((g.num_edges_padded, c))).astype(np.float32) + 1e-3
     if ties:
         msgs = np.round(msgs, 1)
@@ -60,6 +62,45 @@ def test_generalized_aggregate_matches_jax(aggr):
     for (k, v), gj in zip(sc_t.items(), grads[1:]):
         gt = 0.0 if v.grad is None else float(v.grad)
         np.testing.assert_allclose(gt, float(gj), err_msg=k, **GRAD)
+
+
+@pytest.mark.parametrize("aggr", ["add", "mean"])
+def test_generalized_aggregate_csr_route_matches_jax(aggr, monkeypatch):
+    """With the receivers' ``row_ptr``, add and mean go through K1's Function
+    (`segment_sum_csr`, its plain version here): held against JAX's
+    `generalized_aggregate` on its XLA route (masked segment sum) and against
+    the JAX package's kernel route, `spmm_pallas.segment_sum_csr` in
+    interpret mode (divided by the same clamped degree for mean), forward
+    and gradient. The padded messages beyond ``row_ptr[-1]`` carry random
+    values that neither route may read."""
+    g, msgs, co = _edges(3, node_pad=128)
+    recv, mask, n_pad = jnp.asarray(g.receivers), jnp.asarray(g.edge_mask), g.num_nodes_padded
+    rp = jnp.asarray(g.row_ptr)
+
+    def xla(m):
+        return jseg.generalized_aggregate(m, recv, n_pad, aggr=aggr, mask=mask)
+
+    def kernel_route(m):
+        s = sp.segment_sum_csr(m, recv, rp, True)
+        if aggr == "mean":
+            cnt = jseg.segment_degree(recv, n_pad, mask, dtype=s.dtype)
+            s = s / jnp.maximum(cnt, 1)[:, None]
+        return s
+
+    calls = []
+    monkeypatch.setattr(tseg, "segment_sum_csr",
+                        lambda *a: calls.append(1) or tsp.segment_sum_csr(*a))
+    m_t = torch.from_numpy(msgs).requires_grad_(True)
+    got = tseg.generalized_aggregate(m_t, torch.from_numpy(np.asarray(g.receivers)), n_pad,
+                                     aggr=aggr, mask=torch.from_numpy(np.asarray(g.edge_mask)),
+                                     row_ptr=torch.from_numpy(np.asarray(g.row_ptr)))
+    (got * torch.from_numpy(co)).sum().backward()
+    assert calls == [1]
+    for f in (xla, kernel_route):
+        want, vjp = jax.vjp(f, jnp.asarray(msgs))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **FWD)
+        np.testing.assert_allclose(m_t.grad.numpy(), np.asarray(vjp(jnp.asarray(co))[0]),
+                                   **GRAD)
 
 
 @pytest.mark.parametrize("name", ["add", "mean", "max", "min"])

@@ -173,3 +173,25 @@ def test_k6_float32_takes_one_group(h, d, vec):
     each head's d_el sum their edges in edge order, as the first form did."""
     nch, w, groups = tsp.k6_layout(h, d, vec, torch.float32)
     assert (w, groups) == (32, 1) and nch * 32 * vec >= d
+
+
+@pytest.mark.parametrize("c, vec, dtype, want", [
+    (8, 4, torch.float32, (2, 16)), (48, 4, torch.bfloat16, (12, 2)),
+    (8, 4, torch.bfloat16, (2, 16)), (48, 4, torch.float32, (12, 2)),
+    (64, 4, torch.bfloat16, (16, 2)), (30, 1, torch.float32, (30, 1)),
+    (128, 4, torch.bfloat16, (32, 1)), (392, 4, torch.bfloat16, (32, 1)),
+    (776, 4, torch.bfloat16, (32, 1)), (3, 1, torch.float32, (3, 10))])
+def test_k1_layout(c, vec, dtype, want):
+    """K1's lane layout: a row of at most 16 vector slots takes a group of as
+    many lanes, G rows a warp (C=8 float32: 2 lanes, 16 rows; C=48 bf16: 12
+    lanes, 2 rows), in both dtypes, since each group walks its own row in
+    edge order; a wider row takes the whole warp. Every channel is covered
+    and no warp takes more than 32 lanes."""
+    w, groups = tsp.k1_layout(c, vec, dtype)
+    assert (w, groups) == want
+    assert w * groups <= 32 and (groups == 1 or w * vec >= c)
+    assert groups == 1 or w <= 16
+    # every channel lies in one of the row's slots: a group's w lanes, or a
+    # warp's 32 lanes over as many slots a lane as the row needs
+    slots = -(-c // vec)
+    assert (w == slots) if groups > 1 else (w == min(32, slots))
