@@ -7,7 +7,8 @@
         [--save_ckpt] [--pretrained_model PREFIX]
 
 Same defaults as the JAX app: ResGEN-28 (res+, softmax_sg t=0.1, batch
-norm, one-layer MLP), C=128, dropout 0.5, Adam lr 0.01. One train step per
+norm, one-layer MLP), C=128, dropout 0.5, Adam lr 0.01 (``--optimizer``
+and ``--weight_decay`` as in `apps/common.py`). One train step per
 epoch and an eval `predict` every 5 epochs and at the last. ``--reorder``
 relabels the graph by a locality pass (`data/reorder.py`) and ``--band auto``
 attaches the band adjacency, which moves GENConv's aggregation to the band
@@ -45,6 +46,7 @@ from ..utils.logger import create_exp_dir
 from ..utils.loss import cross_entropy
 from ..utils.metrics import accuracy
 from ..utils.optim import make_optimizer
+from .common import add_optimizer_flags
 
 
 def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -53,7 +55,7 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--epochs", type=int, default=500)
     p.add_argument("--lr", type=float, default=0.01)
-    p.add_argument("--weight_decay", type=float, default=0.0)
+    add_optimizer_flags(p)
     p.add_argument("--dropout", type=float, default=0.5)
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic SBM stand-in for ogbn-arxiv")
@@ -197,7 +199,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     train_mask = train_mask.to(dev)
 
     model = build_model(args, in_dim, torch.Generator().manual_seed(args.seed)).to(dev)
-    opt = make_optimizer("adam", model.parameters(), args.lr, args.weight_decay)
+    opt = make_optimizer(args.optimizer, model.parameters(), args.lr, args.weight_decay)
     start_epoch, best_valid = 0, -1.0
     if args.pretrained_model:
         meta = load_ckpt(args.pretrained_model, model=model, optimizer=opt)

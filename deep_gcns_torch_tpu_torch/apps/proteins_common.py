@@ -2,8 +2,9 @@
 (counterpart of `examples/proteins_common.py:13-199`): species one-hot and
 edge-aggregated node features, a per-epoch random (or locality) partition
 into clusters padded to one fixed bucket, cluster-wise training with the
-global-norm clip chained before Adam, and averaged multi-partition
-evaluation with ROC-AUC (`examples/ogb_eff/ogbn_proteins/main.py:158-173`).
+global-norm clip chained before the optimizer of ``--optimizer`` (Adam by
+default; ``--weight_decay`` as in `apps/common.py`), and averaged
+multi-partition evaluation with ROC-AUC (`examples/ogb_eff/ogbn_proteins/main.py:158-173`).
 
 The data is the JAX app's synthetic generator, made from ``--seed``, or
 ogbn-proteins from the local cache `{data_root}/ogbn_proteins.npz`
@@ -37,6 +38,7 @@ from ..utils.logger import create_exp_dir
 from ..utils.loss import bce_with_logits
 from ..utils.metrics import roc_auc
 from ..utils.optim import clip_grad_global_norm_, make_optimizer
+from .common import add_optimizer_flags
 
 MAX_GRAD_NORM = 1.0  # optax.clip_by_global_norm(1.0) of the JAX apps
 
@@ -50,6 +52,7 @@ def base_parser(description: str, *, num_layers: int, hidden: int, epochs: int,
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--epochs", type=int, default=epochs)
     p.add_argument("--lr", type=float, default=lr)
+    add_optimizer_flags(p)
     p.add_argument("--dropout", type=float, default=0.1)
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic proteins-shaped data instead of the ogbn-proteins cache")
@@ -131,7 +134,7 @@ def load_proteins(args, rng: np.random.Generator) -> dict:
 def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer, g: Graph,
                species: torch.Tensor, node_feats: torch.Tensor, labels: torch.Tensor,
                mask: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """One cluster step: masked multi-task BCE, the global-norm clip, Adam.
+    """One cluster step: masked multi-task BCE, the global-norm clip, the update.
     Returns the loss (still on the device)."""
     model.train()
     opt.zero_grad(set_to_none=True)
@@ -163,7 +166,7 @@ def run_proteins(args, build_model: Callable, name: str) -> dict:
     data = load_proteins(args, rng)
     n, labels = data["num_nodes"], data["labels"]
     model = build_model(args, torch.Generator().manual_seed(args.seed)).to(dev)
-    opt = make_optimizer("adam", model.parameters(), args.lr)
+    opt = make_optimizer(args.optimizer, model.parameters(), args.lr, args.weight_decay)
     drop_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
 
     # one padded bucket for every cluster, sized for the coarsest partition used

@@ -21,20 +21,19 @@ destination score, so on a band that passes `band_gat_dense_ok` it takes the
 dense route (`band_gat_dense_agg`: K7 forward, K8 and K9 backward), and
 otherwise the per-edge segment softmax with a combined per-receiver maximum.
 
-On a CPU tensor every kernel runs its plain version. The bond encoder
-(ogbg-mol) and the band max/min route (`band_extreme`) belong to later
-slices; the bond encoder raises `NotImplementedError`.
+On a CPU tensor every kernel runs its plain version. The band max/min
+route (`band_extreme`) belongs to a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..graph import Graph
-from ..nn.core import MLP, Linear, make_norm
+from ..nn.core import MLP, Linear, MultiEmbedding, PReLU, act_layer, make_norm
 from ..ops.band import (BAND_SOFTMAX_AGGRS, band_gat_dense_agg, band_gat_dense_ok, band_ok,
                         band_softmax_agg_auto, band_sum_auto)
 from ..ops.gather import gather_src_auto
@@ -70,21 +69,22 @@ def _scalar(module: nn.Module, name: str, value: float, learned: bool):
 class GENConv(nn.Module):
     """DeeperGCN generalized conv: msg = relu(x_j [+ e]) + ε, generalized
     softmax / power-mean aggregation, update h = MLP(x + m). With
-    ``encode_edge`` it owns the edge encoder Linear(edge_feat_dim, in_dim)
-    under the reference's name `edge_encoder`."""
+    ``encode_edge`` it owns the edge encoder under the reference's name
+    `edge_encoder`: Linear(edge_feat_dim, in_dim), or with ``bond_encoder``
+    the BondEncoder, a sum of embeddings of the integer bond features
+    (`MultiEmbedding(bond_feature_dims, in_dim)`, JAX
+    `convs/sparse.py:103-109`)."""
 
     def __init__(self, in_dim: int, emb_dim: int, aggr: str = "softmax",
                  t: float = 1.0, learn_t: bool = False, p: float = 1.0,
                  learn_p: bool = False, y: float = 0.0, learn_y: bool = False,
                  msg_norm: bool = False, learn_msg_scale: bool = True,
                  encode_edge: bool = False, bond_encoder: bool = False,
-                 edge_feat_dim: Optional[int] = None, norm: str = "batch",
+                 edge_feat_dim: Optional[int] = None,
+                 bond_feature_dims: Optional[Sequence[int]] = None, norm: str = "batch",
                  mlp_layers: int = 2, eps: float = 1e-7, compute_dtype: str = "float32",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if encode_edge and bond_encoder:
-            raise NotImplementedError("the bond encoder (ogbg-mol) comes with a later "
-                                      "slice of the port")
         self.aggr, self.eps = aggr, eps
         self.compute_dtype = _DTYPES[compute_dtype]
         self.grad_w = learn_t and aggr in ("softmax", "softmax_sum")
@@ -94,8 +94,14 @@ class GENConv(nn.Module):
         _scalar(self, "p", p, learn_p and aggr in ("power", "power_sum"))
         _scalar(self, "y", y, learn_y and aggr in ("softmax_sum", "power_sum"))
         self.msg_norm = MsgNorm(learn_msg_scale) if msg_norm else None
-        self.edge_encoder = (Linear(edge_feat_dim, in_dim, generator=generator)
-                             if encode_edge else None)
+        self.edge_encoder = None
+        if encode_edge and bond_encoder:
+            if bond_feature_dims is None:
+                raise ValueError("the bond encoder needs bond_feature_dims")
+            self.edge_encoder = MultiEmbedding(bond_feature_dims, in_dim,
+                                               "bond_embedding_list", generator)
+        elif encode_edge:
+            self.edge_encoder = Linear(edge_feat_dim, in_dim, generator=generator)
 
     def _edge_embeddings(self, g: Graph, edge_attr, edge_attr_csc, edge_emb, edge_emb_csc):
         """(edge_emb, edge_emb_csc) in the JAX package's order of precedence
@@ -208,9 +214,6 @@ class _PygGAT(nn.Module):
                 t.uniform_(-bound, bound, generator=generator)
 
 
-_ACTS = {"relu": nn.ReLU, "leakyrelu": lambda: nn.LeakyReLU(0.2)}
-
-
 class GATConv(nn.Module):
     """PyG-1.x GAT conv with activation and norm (reference
     `torch_vertex.py:117-133`): heads concatenated, then act, then norm.
@@ -220,8 +223,8 @@ class GATConv(nn.Module):
     ``self_loops`` True (PyG's default) softmaxes over the neighbours and
     exactly one self term, explicit self edges excluded; False over the edge
     list as it is (the reversible `GATBlock`), where a receiver with no edge
-    gets 0. ``act`` "relu", "leakyrelu" or None; "prelu" raises until the
-    conv zoo is ported, as the port's prelu MLPs do."""
+    gets 0. ``act`` "relu", "leakyrelu", "prelu" (one learned slope at
+    `unlinear.0.weight`, initialised to 0.2) or None."""
 
     def __init__(self, in_dim: int, out_dim: int, heads: int = 8, act: Optional[str] = "relu",
                  norm: Optional[str] = None, bias: bool = True, neg_slope: float = 0.2,
@@ -230,11 +233,8 @@ class GATConv(nn.Module):
         self.heads, self.out_dim = heads, out_dim
         self.neg_slope, self.self_loops = neg_slope, self_loops
         self.gconv = _PygGAT(in_dim, out_dim, heads, bias, generator)
-        act = None if act is None or str(act).lower() == "none" else str(act).lower()
-        if act is not None and act not in _ACTS:
-            raise NotImplementedError(f"GATConv act {act!r} comes with the conv zoo (the port "
-                                      "has relu and leakyrelu)")
-        layers = [] if act is None else [_ACTS[act]()]
+        a = act_layer(act)
+        layers = [] if a is None else [a]
         nrm = make_norm(norm, heads * out_dim)
         if nrm is not None:
             layers.append(nrm)
@@ -264,7 +264,7 @@ class GATConv(nn.Module):
         if self.gconv.bias is not None:
             out = out + self.gconv.bias
         for layer in self.unlinear:
-            out = layer(out) if isinstance(layer, (nn.ReLU, nn.LeakyReLU)) else \
+            out = layer(out) if isinstance(layer, (nn.ReLU, nn.LeakyReLU, PReLU)) else \
                 layer(out, g.node_mask)
         return out
 

@@ -1,5 +1,7 @@
-from .core import (MLP, BatchNorm, InstanceNorm, LayerNorm, Linear, dropout, make_norm,
-                   shared_dropout_mask)
+from .core import (MLP, BatchNorm, Embedding, Identity, InstanceNorm, LayerNorm, Linear,
+                   MultiEmbedding, PReLU, act_layer, activation, dropout, init_all,
+                   kaiming_reinit, make_norm, prelu_init, shared_dropout_mask)
 
-__all__ = ["MLP", "BatchNorm", "InstanceNorm", "LayerNorm", "Linear", "dropout",
-           "make_norm", "shared_dropout_mask"]
+__all__ = ["MLP", "BatchNorm", "Embedding", "Identity", "InstanceNorm", "LayerNorm", "Linear",
+           "MultiEmbedding", "PReLU", "act_layer", "activation", "dropout", "init_all",
+           "kaiming_reinit", "make_norm", "prelu_init", "shared_dropout_mask"]

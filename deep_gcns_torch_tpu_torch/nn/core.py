@@ -1,9 +1,11 @@
-"""Module core: Linear, MLP, norms and dropout as `torch.nn.Module`s.
+"""Module core: activations, Linear, embeddings, MLP, norms and dropout as
+`torch.nn.Module`s.
 
-Counterpart of `deep_gcns_torch_tpu/nn/core.py:42-410`. Parameter names follow
+Counterpart of `deep_gcns_torch_tpu/nn/core.py:42-440`. Parameter names follow
 the reference `state_dict` (`weight`/`bias`, `running_mean`/`running_var`,
-MLP children indexed like the reference's `nn.Sequential`), so reference
-checkpoints and goldens load with plain `load_state_dict`.
+MLP children indexed like the reference's `nn.Sequential`, the Atom/Bond
+encoders' `atom_embedding_list.{i}.weight`), so reference checkpoints and
+goldens load with plain `load_state_dict`.
 
 Two departures from `torch.nn`, both inherited from the JAX package:
 
@@ -19,7 +21,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +46,69 @@ def _frozen_running_stats():
 def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]):
     with torch.no_grad():
         t.uniform_(-bound, bound, generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# activations (reference `gcn_lib/sparse/torch_nn.py:9-20` act_layer)
+# ---------------------------------------------------------------------------
+
+def activation(act: Optional[str], x: torch.Tensor, *, neg_slope: float = 0.2,
+               prelu: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """relu / leakyrelu / prelu / none (`nn/core.py:57-77`). For "prelu" the
+    slope is ``prelu`` (a module's learned one) when given, else the static
+    ``neg_slope``."""
+    if act is None or act.lower() == "none":
+        return x
+    a = act.lower()
+    if a == "relu":
+        return torch.relu(x)
+    if a == "leakyrelu":
+        return F.leaky_relu(x, neg_slope)
+    if a == "prelu":
+        slope = neg_slope if prelu is None else prelu.to(x.dtype)
+        return torch.where(x >= 0, x, slope * x)
+    raise NotImplementedError(f"activation layer [{act}] is not found")
+
+
+def prelu_init(act: Optional[str], neg_slope: float = 0.2) -> Optional[nn.Parameter]:
+    """The learned PReLU slope of a module whose activation is "prelu" (the
+    reference's `nn.PReLU(num_parameters=1, init=neg_slope)`), else None."""
+    if act is not None and act.lower() == "prelu":
+        return nn.Parameter(torch.full((1,), neg_slope))
+    return None
+
+
+class PReLU(nn.Module):
+    """PReLU with one learned slope `weight` (torch's name), initialised to
+    ``init_slope``: where(x ≥ 0, x, a·x), as the JAX package computes it."""
+
+    def __init__(self, init_slope: float = 0.2):
+        super().__init__()
+        self.weight = prelu_init("prelu", init_slope)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return activation("prelu", x, prelu=self.weight)
+
+
+class Identity(nn.Module):
+    """x as it is; further arguments (a mask) are ignored."""
+
+    def forward(self, x: torch.Tensor, *args, **kw) -> torch.Tensor:
+        return x
+
+
+def act_layer(act: Optional[str], neg_slope: float = 0.2) -> Optional[nn.Module]:
+    """String → activation module (reference `act_layer`), None for none."""
+    if act is None or act.lower() == "none":
+        return None
+    a = act.lower()
+    if a == "relu":
+        return nn.ReLU()
+    if a == "leakyrelu":
+        return nn.LeakyReLU(neg_slope)
+    if a == "prelu":
+        return PReLU(neg_slope)
+    raise NotImplementedError(f"activation layer [{act}] is not found")
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -105,6 +170,43 @@ class Linear(nn.Module):
         else:
             y = F.linear(x, self.weight)
         return y if self.bias is None else y + self.bias
+
+
+class Embedding(nn.Module):
+    """A [num, dim] table `weight` (torch's name) with the reference
+    encoders' Xavier-uniform init (fan_in = num, fan_out = dim)."""
+
+    def __init__(self, num: int, dim: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num, dim))
+        _uniform_(self.weight, math.sqrt(6.0 / (num + dim)), generator)
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx.long(), self.weight)
+
+
+class MultiEmbedding(nn.Module):
+    """Sum of per-column categorical embeddings, the reference's AtomEncoder /
+    BondEncoder (`gcn_lib/sparse/torch_nn.py:74-113`): x [N, F] int → Σ_f
+    table_f[x[:, f]]. ``list_name`` is the reference's attribute for the
+    tables (`atom_embedding_list`, `bond_embedding_list`)."""
+
+    def __init__(self, dims: Sequence[int], emb_dim: int, list_name: str = "embedding_list",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.list_name = list_name
+        setattr(self, list_name, nn.ModuleList(Embedding(d, emb_dim, generator)
+                                               for d in dims))
+
+    @property
+    def tables(self) -> nn.ModuleList:
+        return getattr(self, self.list_name)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = 0
+        for i, emb in enumerate(self.tables):
+            out = out + emb(x[:, i])
+        return out
 
 
 class BatchNorm(nn.Module):
@@ -185,6 +287,7 @@ class InstanceNorm(nn.Module):
 
 
 _NORMS = {"batch": BatchNorm, "layer": LayerNorm, "instance": InstanceNorm}
+_NORM_TYPES = tuple(_NORMS.values())
 
 
 def make_norm(norm: Optional[str], dim: int) -> Optional[nn.Module]:
@@ -248,14 +351,14 @@ def shared_dropout_mask(shape, rate: float, generator: Optional[torch.Generator]
 
 
 class MLP(nn.Sequential):
-    """Lin → norm → ReLU per layer, a bare Lin last when ``last_lin``; child
-    indices match the reference `nn.Sequential` (`mlp.0`, `mlp.1`, `mlp.3`).
-
-    Only ReLU and no dropout inside: the configurations this slice runs use
-    no other (the reference's prelu/leakyrelu MLPs belong to later slices)."""
+    """Lin → norm → act per layer, a bare Lin last when ``last_lin``; child
+    indices match the reference `nn.Sequential` (`mlp.0`, `mlp.1`, `mlp.3`;
+    a PReLU's slope at `mlp.2.weight`). ``act`` relu (default), leakyrelu,
+    prelu or none; no dropout inside (the JAX package's MLP drops only with
+    ``drop`` > 0, which no ported configuration sets)."""
 
     def __init__(self, channels: Sequence[int], norm: Optional[str] = None,
-                 bias: bool = True, last_lin: bool = False,
+                 bias: bool = True, last_lin: bool = False, act: Optional[str] = "relu",
                  generator: Optional[torch.Generator] = None):
         layers = []
         n = len(channels)
@@ -266,7 +369,9 @@ class MLP(nn.Sequential):
             nm = make_norm(norm, channels[i])
             if nm is not None:
                 layers.append(nm)
-            layers.append(nn.ReLU())
+            a = act_layer(act)
+            if a is not None:
+                layers.append(a)
         super().__init__(*layers)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -274,8 +379,32 @@ class MLP(nn.Sequential):
         for layer in self:
             if isinstance(layer, Linear):
                 x = layer(x, compute_dtype)
-            elif isinstance(layer, nn.ReLU):
-                x = layer(x)
-            else:
+            elif isinstance(layer, _NORM_TYPES):
                 x = layer(x, mask)
+            else:
+                x = layer(x)
         return x
+
+
+@torch.no_grad()
+def kaiming_reinit(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Re-draw every Linear weight kaiming-normal (std = √(2/in_dim)) and zero
+    every Linear bias, the reference's `model_init` (`nn/core.py:414-433`);
+    norms and embedding tables stay as they are. (The JAX rule re-draws any
+    leaf named `w`, which is also a bare `Embedding`'s table; no model uses
+    one there: the Atom/Bond encoders' `tables` and the virtual node's
+    `vn_emb`, which it leaves alone, are its only tables.) Returns
+    ``module``."""
+    for m in module.modules():
+        if isinstance(m, Linear):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator,
+                                       device=m.weight.device) * math.sqrt(2.0 / m.in_dim))
+            if m.bias is not None:
+                m.bias.zero_()
+    return module
+
+
+def init_all(modules: Sequence[Tuple[str, nn.Module]]) -> nn.ModuleDict:
+    """Named modules → one `nn.ModuleDict` (`nn/core.py:436-440`: there a
+    dict of per-module params and state; here the modules own theirs)."""
+    return nn.ModuleDict(dict(modules))

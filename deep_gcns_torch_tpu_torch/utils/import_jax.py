@@ -40,14 +40,15 @@ def _norm(out, prefix, p: dict, s: dict, norm: str, layer):
         out[prefix + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
-def _mlp_seq(n_layers: int, norm: str) -> List[dict]:
+def _mlp_seq(n_layers: int, norm: str, last_lin: bool = True) -> List[dict]:
     """Sequential child index of each MLP entry's Linear and norm (the last
-    Linear is bare), as the port's and the reference's MLP number them."""
+    Linear is bare when ``last_lin``), as the port's and the reference's MLP
+    number them."""
     entries, seq = [], 0
     for i in range(1, n_layers + 1):
         e = {"lin": seq}
         seq += 1
-        if i < n_layers:
+        if i < n_layers or not last_lin:
             if norm != "none":
                 e["norm"] = seq
                 seq += 1
@@ -87,7 +88,19 @@ def _genconv(out, pre: str, gp: dict, gs: dict, cfg, norm: str, idx):
     if "msg_norm" in gp:
         out[f"{pre}.msg_norm.msg_scale"] = _t(np.asarray(gp["msg_norm"]["s"])[idx])
     if "edge_encoder" in gp:
-        _linear(out, f"{pre}.edge_encoder", gp["edge_encoder"], idx)
+        _encoder(out, f"{pre}.edge_encoder", gp["edge_encoder"], "bond_embedding_list", idx)
+
+
+def _encoder(out, prefix: str, p: dict, list_name: str, layer=None):
+    """A Linear ({w, b}) or a MultiEmbedding ({tables}: the Atom/Bond
+    encoder, tables under ``prefix.list_name.{k}.weight``), picked at
+    ``layer`` of the leading stacked axes when given."""
+    if "tables" not in p:
+        _linear(out, prefix, p, layer)
+        return
+    for k, tbl in enumerate(p["tables"]):
+        a = np.asarray(tbl) if layer is None else np.asarray(tbl)[layer]
+        out[f"{prefix}.{list_name}.{k}.weight"] = _t(a)
 
 
 def deeper_gcn_state_dict_from_jax(params: dict, state: dict, cfg
@@ -95,20 +108,53 @@ def deeper_gcn_state_dict_from_jax(params: dict, state: dict, cfg
     """`state_dict` of `models.DeeperGCN(cfg)` from the JAX `DeeperGCN(cfg)`'s
     (params, state) pytrees of numpy arrays; loads with `load_state_dict`.
     Fixed (not learned) t/p/y are buffers rebuilt from ``cfg``, not entries.
-    Covers the one-hot encoder, the model-level edge encoder ("one_time") and
-    the per-layer ones ("per_layer")."""
+    Covers the linear and atom node encoders, the one-hot encoder, the
+    model-level edge encoders ("one_time", "one_time_bond"), the per-layer
+    ones ("per_layer", "bond"), the virtual node (`vn_emb` and the stacked
+    `vn_mlps`) and the graph-level head."""
     out: Dict[str, torch.Tensor] = {}
     norm = str(cfg.norm).lower()
-    _linear(out, "node_features_encoder", params["encoder"], None)
-    _linear(out, "node_pred_linear", params["pred"], None)
+    if cfg.node_encoder == "atom":
+        _encoder(out, "atom_encoder", params["encoder"], "atom_embedding_list")
+    else:
+        _linear(out, "node_features_encoder", params["encoder"], None)
+    _linear(out, "graph_pred_linear" if cfg.graph_pooling else "node_pred_linear",
+            params["pred"], None)
     if "one_hot_encoder" in params:
         _linear(out, "node_one_hot_encoder", params["one_hot_encoder"], None)
     if "edge_encoder" in params:
-        _linear(out, "edge_encoder", params["edge_encoder"], None)
+        bond = cfg.edge_mode == "one_time_bond"
+        _encoder(out, "bond_encoder" if bond else "edge_encoder", params["edge_encoder"],
+                 "bond_embedding_list")
     gp, gs = params["gcns"], state.get("gcns", {})
     for l in range(cfg.num_layers):
         _genconv(out, f"gcns.{l}", gp, gs, cfg, norm, l)
         _norm(out, f"norms.{l}", params["norms"], state.get("norms", {}), norm, l)
+    if "vn_emb" in params:
+        out["virtualnode_embedding.weight"] = _t(params["vn_emb"])
+        vp, vs = params["vn_mlps"], state.get("vn_mlps", {})
+        for l in range(cfg.num_layers - 1):
+            for i, e in enumerate(_mlp_seq(2, norm, last_lin=False)):
+                pre = f"mlp_virtualnode_list.{l}.{{}}"
+                _linear(out, pre.format(e["lin"]), vp[i]["lin"], l)
+                if "norm" in e:
+                    _norm(out, pre.format(e["norm"]), vp[i]["norm"],
+                          _entry(vs, i).get("norm", {}), norm, l)
+    return out
+
+
+def link_predictor_state_dict_from_jax(params: dict, state: dict
+                                       ) -> Dict[str, torch.Tensor]:
+    """`state_dict` of `models.LinkPredictor` from the JAX `LinkPredictor`'s
+    (params, state) of numpy arrays: `lins.{i}` and, with a norm,
+    `norms.{i}` (batch or layer, told apart by the running statistics)."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, p in enumerate(params["lins"]):
+        _linear(out, f"lins.{i}", p, None)
+    states = state.get("norms", [])
+    for i, p in enumerate(params.get("norms", [])):
+        s = _entry(states, i)
+        _norm(out, f"norms.{i}", p, s, "batch" if "mean" in s else "layer", ())
     return out
 
 
@@ -144,12 +190,14 @@ def rev_gcn_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
 def gat_conv_entries(out: Dict[str, torch.Tensor], prefix: str, p: dict, idx=()):
     """One PyG GATConv (`convs.sparse.GATConv`) under ``prefix``: JAX's w
     [in, H·D] is PyG's `gconv.weight` as it is, att [H, 2D] → [1, H, 2D],
-    b → `gconv.bias`; ``idx`` picks from the leading stacked axes. A norm
-    (`unlinear.*`) is the caller's."""
+    b → `gconv.bias`, a prelu slope → `unlinear.0.weight`; ``idx`` picks
+    from the leading stacked axes. A norm (`unlinear.*`) is the caller's."""
     out[prefix + ".gconv.weight"] = _t(np.asarray(p["w"])[idx])
     out[prefix + ".gconv.att"] = _t(np.asarray(p["att"])[idx][None])
     if "b" in p:
         out[prefix + ".gconv.bias"] = _t(np.asarray(p["b"])[idx])
+    if "prelu" in p:
+        out[prefix + ".unlinear.0.weight"] = _t(np.asarray(p["prelu"])[idx])
 
 
 def _gat(out: Dict[str, torch.Tensor], prefix: str, p: dict, idx=()):

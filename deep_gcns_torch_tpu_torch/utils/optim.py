@@ -2,7 +2,12 @@
 
 `make_optimizer("adam", ...)` is the JAX package's `adam(lr, weight_decay)`:
 optax's `adam`, or `adamw` when there is weight decay. torch's Adam and AdamW
-place eps and apply the decoupled decay as optax does.
+place eps and apply the decoupled decay as optax does. `make_optimizer("adamw",
+...)` is the apps' `adamw_warmup(lr, warmup_steps=0, weight_decay)`
+(`examples/common.py:61-62`): AdamW whose first update has lr 0 (optax's
+one-step linear warm-up) and every later one ``lr``; the optimizer sets each
+update's lr from its own step count, so it needs no scheduler stepped beside
+it and resumes exactly from its `state_dict`.
 `make_optimizer("rmsprop", ...)` is its torch-exact `rmsprop` (RevGAT,
 `utils/optim.py:150-159`): torch's RMSprop with alpha 0.99, eps outside the
 square root and coupled weight decay, which is what optax's
@@ -41,9 +46,12 @@ def make_optimizer(name: str, params: Iterable[torch.nn.Parameter], lr: float,
         return RAdamRef(params, lr=lr, weight_decay=weight_decay)
     if name == "adamw_ref":
         return AdamWRef(params, lr=lr, weight_decay=weight_decay)
+    if name == "adamw":
+        return _with_schedule(torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay),
+                              linear_schedule(0.0, lr, 1))
     if name != "adam":
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet (the port has "
-                                  "'adam', 'rmsprop', 'radam' and 'adamw_ref')")
+        raise ValueError(f"unknown optimizer {name!r} (the port has 'adam', 'adamw', "
+                         "'radam', 'adamw_ref' and 'rmsprop')")
     if weight_decay:
         return torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay)
     return torch.optim.Adam(params, lr=lr)
@@ -169,6 +177,24 @@ class AdamWRef(torch.optim.Optimizer):
                     p.add_(p, alpha=-wd * sched_lr)
                 p.addcdiv_(m, v.sqrt().add_(eps), value=-step_size)
         return loss
+
+
+def _with_schedule(opt: torch.optim.Optimizer,
+                   sched: Callable[[int], float]) -> torch.optim.Optimizer:
+    """``opt`` with update k (k = 0 first) taken at lr ``sched(k)``, k read
+    from the optimizer's own step count: set before the first update, after
+    each update and after `load_state_dict`, so a resumed run continues the
+    schedule where the saved one stopped."""
+    def sync(*_):
+        steps = [st["step"] for st in opt.state.values() if "step" in st]
+        k = int(max(float(s) for s in steps)) if steps else 0
+        for grp in opt.param_groups:
+            grp["lr"] = sched(k)
+
+    sync()
+    opt.register_step_post_hook(sync)
+    opt.register_load_state_dict_post_hook(sync)
+    return opt
 
 
 def _scheduled(opt: torch.optim.Optimizer, sched: Callable[[int], float]) -> Scheduled:

@@ -107,3 +107,35 @@ def test_kernel_forms_argument(monkeypatch, tmp_path):
             for k in consts:
                 assert len(re.findall(rf"constexpr int {k} = \d+;", text)) == 1, (kernel, k)
             assert all(hasattr(module, a) for a in attrs), (kernel, attrs)
+
+
+def test_ogb_mode_rehearses_the_ogb_phases():
+    """`--ogb` (rehearsed on the CPU, tiny) runs phases 40-46: the OGB kernel
+    shapes against their plain versions, the small models card against CPU
+    (here CPU against CPU), the five app paths with their checkpoint
+    reproductions, and ends in one `kernels` line with a complete row for
+    each OGB shape; it prints no device result and leaves no run
+    directory."""
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rehearse-cpu",
+                          "--ogb"], capture_output=True, text=True, timeout=300, check=True)
+    for tag in ("ogb kernels", "ogb agreement", "molhiv-dyresgen-7", "molpcba-resgen-14-vn",
+                "ppa-resgen-28", "ogbl-collab", "ogbn-products", "ogb timing"):
+        assert f"[time] {tag} done" in run.stdout, tag
+    for tag in ("molhiv-dyresgen-7-ckpt", "molpcba-resgen-14-vn-ckpt", "ppa-resgen-28-ckpt",
+                "ogbl-collab-ckpt", "ogbn-products-ckpt"):
+        assert f"[{tag}]" in run.stdout, tag
+    rows = json.loads(run.stdout.strip().splitlines()[-1])["kernels"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    assert [r["name"].split(" (")[0] for r in rows] == [s[0] for s in _ogb_shapes()]
+    assert all(set(r) == keys and r["ms"] > 0 and r["bound_ms"] > 0 for r in rows)
+    assert '"ok"' not in run.stdout
+    assert not os.path.exists(os.path.join(ROOT, "chiprun_out", "smoke_runs"))
+
+
+def _ogb_shapes():
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.OGB_SHAPES

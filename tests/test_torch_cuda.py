@@ -1092,3 +1092,148 @@ def test_seg_sum_corner_cases(cuda_device, dtype, c):
         assert torch.equal(tsp.csr_seg_sum(*args), out)
     torch.cuda.synchronize()
     assert tsp.csr_seg_sum.launches == before + 4
+
+
+def _mol_batch(dev, batch=32, seed=0):
+    """A batch of the ogbg-mol app's synthetic molecules (10-29 atoms, 3n
+    bonds) with its fixed pads: N_pad 1024, E_pad 3072 at 32 molecules."""
+    import argparse
+
+    from deep_gcns_torch_tpu_torch.apps import ogbg_mol
+
+    args = argparse.Namespace(synthetic=True, num_tasks=1)
+    train, test = ogbg_mol.load_mol(args, np.random.default_rng(seed))
+    g, y = ogbg_mol.make_batcher(batch, train + test)(train[:batch])
+    return g.to(dev), y.to(dev)
+
+
+def _ogb_inputs(dev, shape):
+    """(graph, x, ee, ee_csc) at one of the OGB apps' kernel shapes: the
+    molecule batch's BondEncoder output (a sum of embedding rows; padded
+    edges carry attribute 0, so real rows) at C=256 and C=128, or the
+    ogbl-collab SBM without edge embeddings at C=64, float32 as the apps
+    run."""
+    from deep_gcns_torch_tpu_torch.data.synthetic import sbm_arxiv_like
+    from deep_gcns_torch_tpu_torch.nn.core import MultiEmbedding
+
+    kind, c = shape
+    gen = torch.Generator(device=dev).manual_seed(c)
+    if kind == "mol":
+        g, _ = _mol_batch(dev)
+        enc = MultiEmbedding((5, 6, 2), c, generator=torch.Generator().manual_seed(c)).to(dev)
+        with torch.no_grad():
+            ee, ee_csc = enc(g.edge_attr), enc(g.edge_attr_csc)
+        x = torch.randn(g.num_nodes_padded, c, device=dev, generator=gen)
+        return g, x, ee.contiguous(), ee_csc.contiguous()
+    g, _ = sbm_arxiv_like(np.random.default_rng(0), n=20000, num_classes=8, c=64, avg_degree=8)
+    g = g.to(dev)
+    return g, torch.randn(g.num_nodes_padded, c, device=dev, generator=gen), None, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [("mol", 256), ("mol", 128), ("collab", 64)])
+def test_ogb_kernel_shapes_match_plain(cuda_device, shape):
+    """The shapes the OGB apps give the kernels, in float32: K2 with `ee`
+    and K4 with and without dt at C=256 (ogbg-mol's BondEncoder in every
+    layer) and C=128 (ogbg-ppa) on a 32-molecule batch (N_pad 1024, E_pad
+    3072, padded edges outside every range: their d(ee) rows exact 0), and
+    K2 and K1's gathered form at C=64 (ogbl-collab) without edge
+    embeddings."""
+    g, x, ee, ee_csc = _ogb_inputs(cuda_device, shape)
+    tol = TOL[torch.float32]
+    t = torch.tensor([1.0], device=cuda_device)
+    cmax = tsp.fused_cmax(x, t, 1e-7, ee)
+    out, den = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+    out_p, den_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+    _assert_close(out, out_p, **tol)
+    _assert_close(den, den_p, **tol)
+    q = torch.randn(g.num_nodes_padded, x.shape[1], device=cuda_device)
+    if ee is None:
+        args = (q, g.csc_col_ptr, g.csc_receivers)
+        _assert_close(tsp.csr_seg_sum(*args), tsp.csr_seg_sum_plain(*args), **tol)
+        return
+    for gw in (False, True):
+        qo = torch.cat([q, out_p], 1).contiguous() if gw else q
+        args = (x, ee_csc, qo, g.csc_col_ptr, g.csc_receivers, t, cmax, 1e-7, gw)
+        dx, dee, dt = tsp.softmax_bwd_csc(*args)
+        dx_p, dee_p, dt_p = tsp.softmax_bwd_csc_plain(*args)
+        _assert_close(dx, dx_p, **tol)
+        _assert_close(dee, dee_p, **tol)
+        assert not dee[g.n_edge:].any()
+        if gw:
+            _assert_close(dt, dt_p, **TOL_DT[torch.float32])
+
+
+def _card_and_cpu(dev, build, run):
+    """(outputs, gradients by name) of ``run(model, device)`` on the card
+    and on the CPU from the same weights (``build()`` seeded)."""
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        model = build().to(d)
+        model.train()
+        out = run(model, d)
+        outs.append((out.detach().cpu(),
+                     {k: p.grad.detach().cpu() for k, p in model.named_parameters()}))
+    return outs
+
+
+def _assert_card_matches_cpu(outs):
+    # float32 through a few layers: summation order in the kernels, BatchNorm
+    # and matmuls; gradients above a floor set by the largest gradient
+    _assert_close(outs[0][0], outs[1][0], 1e-4, 1e-4)
+    g_max = max(float(v.abs().max()) for v in outs[1][1].values())
+    for k, want in outs[1][1].items():
+        _assert_close(outs[0][1][k], want, 1e-3, 1e-4, ref_max=g_max)
+
+
+@pytest.mark.cuda
+def test_small_mol_card_matches_cpu(cuda_device):
+    """A 3-layer ogbg-mol DeeperGCN (AtomEncoder, a BondEncoder in every
+    layer, learned t, the virtual node, mean pooling, C=64) on a
+    32-molecule batch: the kernels on the card against the plain versions
+    on the CPU, the logits and every gradient (the embedding tables' too)."""
+    from deep_gcns_torch_tpu_torch.data.ogb_features import ATOM_FEATURE_DIMS, BOND_FEATURE_DIMS
+
+    g, y = _mol_batch(torch.device("cpu"))
+    cfg = DeeperGCNConfig(in_channels=0, hidden_channels=64, num_tasks=1, num_layers=3,
+                          aggr="softmax", learn_t=True, node_encoder="atom",
+                          atom_feature_dims=ATOM_FEATURE_DIMS, edge_mode="bond",
+                          bond_feature_dims=BOND_FEATURE_DIMS, add_virtual_node=True,
+                          graph_pooling="mean", final_relu=False)
+
+    def run(model, d):
+        gd = g.to(d)
+        logits = model(gd.x, gd)
+        logits.sum().backward()
+        return logits
+
+    _assert_card_matches_cpu(_card_and_cpu(
+        cuda_device, lambda: DeeperGCN(cfg, generator=torch.Generator().manual_seed(0)), run))
+
+
+@pytest.mark.cuda
+def test_small_collab_card_matches_cpu(cuda_device):
+    """The ogbl-collab objective (3-layer encoder at C=64 and the
+    LinkPredictor, pos/neg log loss) on the card against the CPU: the loss
+    and every gradient of both models."""
+    from deep_gcns_torch_tpu_torch.apps import ogbl_collab
+
+    args = ogbl_collab.get_args(["--synthetic", "--synthetic_nodes", "3000"])
+    g, train_pos, _, n, in_dim = ogbl_collab.load_data(args, np.random.default_rng(0))
+    rng = np.random.default_rng(1)
+    sel = rng.integers(0, len(train_pos[0]), 1024)
+    pos = (torch.from_numpy(train_pos[0][sel]), torch.from_numpy(train_pos[1][sel]))
+    neg = (torch.from_numpy(rng.integers(0, n, 1024)), torch.from_numpy(rng.integers(0, n, 1024)))
+
+    def run(models, d):
+        gd = g.to(d)
+        h = models["model"](gd.x, gd)
+        p = models["predictor"](h[pos[0].to(d)], h[pos[1].to(d)])
+        q = models["predictor"](h[neg[0].to(d)], h[neg[1].to(d)])
+        loss = -torch.log(p + 1e-15).mean() - torch.log(1 - q + 1e-15).mean()
+        loss.backward()
+        return loss
+
+    _assert_card_matches_cpu(_card_and_cpu(
+        cuda_device,
+        lambda: ogbl_collab.build_models(args, in_dim, torch.Generator().manual_seed(0)), run))

@@ -113,12 +113,23 @@ def test_deepergcn2_reference_golden():
 
 
 def test_unported_options_raise():
+    """The graph-level options are ported (held against JAX in
+    `tests/test_torch_ogbg.py`) and build; values outside them, or the
+    bond and atom encoders without their feature dimensions, or the virtual
+    node outside res+, are refused."""
     base = dict(in_channels=4, hidden_channels=8, num_tasks=2, num_layers=2)
+    dims = dict(atom_feature_dims=(3, 4), bond_feature_dims=(5, 6))
     for opt in (dict(edge_mode="bond"), dict(edge_mode="one_time_bond"),
                 dict(add_virtual_node=True), dict(graph_pooling="mean"),
                 dict(node_encoder="atom")):
-        with pytest.raises(NotImplementedError):
+        DeeperGCN(DeeperGCNConfig(**base, **opt, **dims))
+    for opt in (dict(edge_mode="bogus"), dict(node_encoder="bogus"),
+                dict(graph_pooling="median"), dict(add_virtual_node=True, block="res"),
+                dict(node_encoder="atom"), dict(edge_mode="one_time_bond")):
+        with pytest.raises(ValueError):
             DeeperGCN(DeeperGCNConfig(**base, **opt))
+    with pytest.raises(NotImplementedError):
+        DeeperGCN(DeeperGCNConfig(**base, block="dense"))
 
 
 def test_bf16_deeper_gcn_forward_matches_jax(monkeypatch):

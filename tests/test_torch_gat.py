@@ -503,6 +503,7 @@ def _pyg_graphs(rng, n=512, hubby=False, self_edges=True):
     (True, True, "relu", None),
     (False, True, None, None),
     (True, False, "leakyrelu", "batch"),
+    (True, False, "prelu", "batch"),
 ])
 def test_pyg_gatconv_matches_jax(band_mode, band, self_loops, hubby, act, norm):
     """PyG's GATConv (destination and sender halves of one attention vector,
@@ -557,6 +558,9 @@ def test_pyg_gatconv_matches_jax(band_mode, band, self_loops, hubby, act, norm):
     if norm is not None:
         np.testing.assert_allclose(grads["unlinear.1.weight"].grad.numpy(),
                                    np.asarray(gp["norm"]["scale"]), **CONV)
+    if act == "prelu":
+        np.testing.assert_allclose(grads["unlinear.0.weight"].grad.numpy(),
+                                   np.asarray(gp["prelu"]), **CONV)
 
 
 @pytest.mark.parametrize("band", [False, True])
@@ -589,7 +593,12 @@ def test_pyg_gatconv_reference_golden(band):
 
 
 def test_pyg_gatconv_refuses_prelu():
+    """prelu is ported (one learned slope at `unlinear.0.weight`, 0.2 at
+    init, held against JAX in `test_pyg_gatconv_matches_jax`); an
+    activation the reference's `act_layer` lacks is still refused."""
     from deep_gcns_torch_tpu_torch.convs.sparse import GATConv
 
-    with pytest.raises(NotImplementedError, match="prelu"):
-        GATConv(8, 4, heads=2, act="prelu")
+    conv = GATConv(8, 4, heads=2, act="prelu")
+    assert conv.state_dict()["unlinear.0.weight"].tolist() == [pytest.approx(0.2)]
+    with pytest.raises(NotImplementedError, match="gelu"):
+        GATConv(8, 4, heads=2, act="gelu")

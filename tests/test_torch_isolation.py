@@ -36,7 +36,17 @@ MODULES = ["deep_gcns_torch_tpu_torch", "deep_gcns_torch_tpu_torch.device",
            "deep_gcns_torch_tpu_torch.utils.import_torch",
            "deep_gcns_torch_tpu_torch.utils.logger", "deep_gcns_torch_tpu_torch.utils.profiling",
            "deep_gcns_torch_tpu_torch.apps.ogbn_arxiv_test",
-           "deep_gcns_torch_tpu_torch.apps.ogbn_proteins_test"]
+           "deep_gcns_torch_tpu_torch.apps.ogbn_proteins_test",
+           "deep_gcns_torch_tpu_torch.data.ogb_features",
+           "deep_gcns_torch_tpu_torch.models.link_predictor",
+           "deep_gcns_torch_tpu_torch.apps.common", "deep_gcns_torch_tpu_torch.apps.ogbg_mol",
+           "deep_gcns_torch_tpu_torch.apps.ogbg_mol_test",
+           "deep_gcns_torch_tpu_torch.apps.ogbg_ppa",
+           "deep_gcns_torch_tpu_torch.apps.ogbg_ppa_test",
+           "deep_gcns_torch_tpu_torch.apps.ogbl_collab",
+           "deep_gcns_torch_tpu_torch.apps.ogbl_collab_test",
+           "deep_gcns_torch_tpu_torch.apps.ogbn_products",
+           "deep_gcns_torch_tpu_torch.apps.ogbn_products_test"]
 
 
 def test_import_leaves_jax_out():

@@ -157,12 +157,16 @@ def test_genconv_reference_golden(aggr):
 
 def test_genconv_rejects_edge_features():
     """Raw edge features of another width than the nodes' need an edge
-    encoder; the bond encoder is not ported yet."""
+    encoder; the bond encoder needs its feature dimensions (it is held
+    against JAX in `tests/test_torch_ogbg.py`)."""
     rng = np.random.default_rng(0)
     g = build_graph(rng.standard_normal((8, 4)).astype(np.float32), np.arange(8),
                     np.arange(8), edge_attr=np.ones((8, 2), np.float32))
     with pytest.raises(ValueError):
         GENConv(4, 4)(g.x, g)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         GENConv(4, 4, encode_edge=True, bond_encoder=True)
+    bond = GENConv(4, 4, encode_edge=True, bond_encoder=True, bond_feature_dims=(5, 6))
+    assert bond(g.x, g.replace(edge_attr=torch.ones((g.num_edges_padded, 2),
+                                                    dtype=torch.int32))).shape == (256, 4)
     assert GENConv(4, 4, encode_edge=True, edge_feat_dim=2)(g.x, g).shape == (256, 4)
