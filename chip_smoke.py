@@ -216,9 +216,54 @@ every check; nothing is caught):
    same accuracies);
 46. the OGB shapes' times in float32 (`time_fn`, `device_ms`, the plain
    version's, the bound and, for K1, `torch.sparse.mm`), one `kernels` row
-   each.
+   each;
+47. K2's message form against its plain version on phase 2's graph
+   and on phase 2's K2 corner graph, f32 and bf16, C=40, 64, 128 and 256,
+   messages of either sign with JAX's exact shift (rows with no edge exact
+   0, two launches bit for bit), and the message-form Function forward and
+   backward (softmax_sg, learned t, softmax_sum with learned y) against the
+   Function on the plain version;
+48. unfused agreement: phase 3's small DeeperGCN on a graph without its CSC
+   (GENConv's unfused branch: a plain gather, relu + ε, K2's message form)
+   on the card against the CPU;
+49. the unfused main path: phase 4's ResGEN-28 (same weights) on phase 4's
+   graph without its CSC: one warm-up, 2 timed steps and a `predict`, 28
+   message-form launches a forward and no other kernel, its step time and
+   peak beside phase 4's, a profiled step; then the message form's timing at
+   that shape;
+50. PPI at full width on PPI-shaped graphs from seed 0 (50 features, 121
+   labels, 2,245 nodes and 61,318 directed edges on average, padded by
+   `apps/ppi`'s batcher): ResMRGCN-14 x 64 in float32 (the app's defaults)
+   and ResMRGCN-28 x 256 in bf16, each through the app's `train_step` for
+   one warm-up and 3 timed steps, a timed `predict`, K1 2·(blocks − 1)
+   times a step (the gathers' backward) and never in `predict`, finite
+   losses, the peak and a profiled step; then K1's timing at PPI's shapes
+   (gathered and plain, C=64 f32 and C=256 bf16, beside `index_add_` and
+   `torch.segment_reduce`);
+51. `apps/ppi.main --synthetic --epochs 2 --save_ckpt` and `apps/ppi_test`
+   on its `ckpt_best`, whose valid micro-F1 must equal the run's best;
+52. zoo agreement: a 3-block `DeepGCNStatic` of each conv (edge, mr, gat,
+   gcn, gin, sage, rsage) and each block kind (res, dense, plain) on the
+   card against the CPU: the logits, and each graph layer (head conv and
+   blocks) on the same input, its output, input gradient and every
+   parameter gradient;
+53. (after phase 12, on phase 7's graph) the zoo's band routes card against
+   CPU: SemiGCN, GIN, SAGE and relative SAGE through `band_sum_auto` (K3
+   launched, `band_sum_ok` held), and MRConv and GENConv max/min on a
+   100,000-node hub-free graph of bandwidth 64 where `band_extreme_ok`
+   holds (phase 7's graph, with hubs, is refused): `band_extreme` on the
+   CPU against the gather + segment max on the card, where
+   `band_extreme_route` sends it; no route miss counted; then
+   `band_extreme` on the card against the gather + segment max there, and
+   both timed forward and backward (C=64 f32, C=256 bf16) on that graph
+   and on a PPI-shaped one;
+54. (after phase 18, on the proteins cluster) RevGCN with `GCNBlock` and
+   with `SAGEBlock` at L=101 (80 channels, group 2) through
+   `apps/ogbn_proteins_rev`'s `train_step`: one warm-up, 2 timed steps and
+   a `predict` each, K1 3·L·G a step and L·G a `predict`, the peak, a
+   profiled step.
 
-Every time and memory figure of phases 30-46 is printed beside the card's
+Every time and memory figure of phases 30-54 is printed beside the card's
 name and power limit. A failed comparison saves its tensors (K2's with its
 inputs) under `chiprun_out/check_failures/` for replay.
 
@@ -293,6 +338,11 @@ TOL_DT = {"f32": dict(rtol=1e-4, atol_rel=0.0), "bf16": dict(rtol=1e-2, atol_rel
 # quotient divides two such sums, so one ulp of a partial sum can move the
 # result by a few ulps of its own
 TOL_BAND_BF16 = dict(rtol=2.0 ** -5, atol_rel=1e-4)
+# a max's gradient in bf16 by two routes: the gather + segment max rounds
+# each edge's share g/ties to bf16 before K1 sums them, `band_extreme` sums
+# the float32 shares; at a tie of 3 (frequent among bf16 maxima) the terms
+# differ by one rounding of up to max|g|, which a sender's sum keeps
+TOL_TIES_BF16 = dict(rtol=2.0 ** -7, atol_rel=2.0 ** -8)
 BF16_TENSOR_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak, for information
 # the library yardstick (torch's bf16 sparse product) rounds its partial sums
 # to bf16: its error reaches an ulp of the largest partial sum, which this
@@ -569,12 +619,23 @@ def k4_corner_checks(chk, g, gen):
                     chk.equal(f"{name} two launches bit for bit (dt)", dt2, dt)
 
 
-def phase_agreement(dev, aggr="softmax"):
+def without_csc(g):
+    """``g`` without its CSC auxiliaries, what `build_graph(...,
+    with_csc=False)` gives: GENConv then takes its unfused branch."""
+    return g.replace(csc_perm=None, csc_senders=None, csc_col_ptr=None, csc_receivers=None,
+                     edge_attr_csc=None)
+
+
+def phase_agreement(dev, aggr="softmax", csc=True):
     """A small DeeperGCN on ``dev`` against the same weights on the CPU
-    (``aggr`` "softmax" with a learned t: K2 and K1; "mean": K1 both ways)."""
-    chk = Checks(f"agreement {aggr}")
+    (``aggr`` "softmax" with a learned t: K2 and K1; "mean": K1 both ways;
+    without ``csc`` the unfused branch: K2's message form)."""
+    tag = aggr if csc else f"{aggr} no-csc"
+    chk = Checks(f"agreement {tag}")
     gc, _ = random_node_graph(np.random.default_rng(2), 3000, 10, 32, num_classes=7,
                               self_loops=True)
+    if not csc:
+        gc = without_csc(gc)
     cfg = DeeperGCNConfig(in_channels=32, hidden_channels=64, num_tasks=7, num_layers=4,
                           block="res+", aggr=aggr, learn_t=aggr == "softmax", t=0.5,
                           norm="batch", mlp_layers=1, dropout=0.0)
@@ -593,11 +654,11 @@ def phase_agreement(dev, aggr="softmax"):
     # matmuls. The absolute floor of the gradients is set by the largest
     # gradient of all: a bias that feeds a BatchNorm has a true gradient of 0,
     # and what both devices return for it is rounding noise.
-    chk.close(f"small DeeperGCN {aggr} logits, card vs cpu", outs[0][0], outs[1][0], 1e-4,
+    chk.close(f"small DeeperGCN {tag} logits, card vs cpu", outs[0][0], outs[1][0], 1e-4,
               1e-4)
     g_max = max(float(v.abs().max()) for v in outs[1][1].values())
     for k in outs[1][1]:
-        chk.close(f"small DeeperGCN {aggr} grad {k}", outs[0][1][k], outs[1][1][k], 1e-3,
+        chk.close(f"small DeeperGCN {tag} grad {k}", outs[0][1][k], outs[1][1][k], 1e-3,
                   1e-4, ref_max=g_max)
     chk.raise_if_failed()
 
@@ -613,7 +674,8 @@ def main_model(dev, layers, aggr="softmax_sg"):
 
 def _counted():
     return {"K1": (tsp.csr_seg_sum, "launches"), "K2": (tsp.softmax_agg, "launches"),
-            "K2 ee": (tsp.softmax_agg, "launches_ee"), "K3": (tband.band_call, "launches"),
+            "K2 ee": (tsp.softmax_agg, "launches_ee"),
+            "K2 msgs": (tsp.softmax_agg_msgs, "launches"), "K3": (tband.band_call, "launches"),
             "K4": (tsp.softmax_bwd_csc, "launches"), "K5": (tsp.gat_fwd, "launches"),
             "K6": (tsp.gat_bwd_csc, "launches"), "K7": (tgd.win_fused, "launches"),
             "K8": (tgd.win_der, "launches"), "K9": (tgd.win_dsend, "launches"),
@@ -637,14 +699,20 @@ def expected_launches(g, layers, steps, aggr="softmax_sg"):
     """Kernel launches of (steps + 1) train steps and one `predict`: every
     forward runs one aggregation per layer, every backward one more. The
     gather route runs K2 forward and K1 backward (the mean route K1 both
-    ways: the CSR sum forward, the gather's CSC sum backward); the band route
-    K3 both ways, plus K1 wherever that direction's leftover is not empty."""
+    ways: the CSR sum forward, the gather's CSC sum backward; a graph without
+    its CSC the unfused branch: K2's message form forward, nothing backward);
+    the band route K3 both ways, plus K1 wherever that direction's leftover
+    is not empty."""
     want = no_launches()
     if g.senders.device.type != "cuda":
         return want  # CPU tensors never launch a kernel
     fwd, bwd = layers * (steps + 2), layers * (steps + 1)
     if g.band is None:
-        if aggr == "mean":
+        if g.csc_col_ptr is None:
+            # no CSC: the unfused branch, whose gather has a plain backward;
+            # the softmax family aggregates through K2's message form
+            want.update(K1=fwd) if aggr == "mean" else want.update({"K2 msgs": fwd})
+        elif aggr == "mean":
             want.update(K1=fwd + bwd)
         else:
             want.update(K1=bwd, K2=fwd)
@@ -3572,6 +3640,541 @@ def phase_ogb(dev, rehearse, iters):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# K2's message form, the unfused GENConv path, PPI, the zoo, RevGCN gcn/sage
+# ---------------------------------------------------------------------------
+
+MSGS_WIDTHS = (40, 64, 128, 256)
+
+
+def _msgs_agg(fn, m, g, t, y, aggr):
+    """``aggr`` (softmax_sg, softmax with a learned t, softmax_sum with a
+    learned t and y) through the message-form Function ``fn``, scaled as
+    `generalized_aggregate` scales softmax_sum."""
+    out = fn(m, g.receivers, g.row_ptr, t, aggr != "softmax_sg")
+    if aggr == "softmax_sum":
+        deg = tseg.segment_degree(g.receivers, g.num_nodes_padded, g.edge_mask,
+                                  out.dtype).float()
+        out = torch.pow(deg, torch.sigmoid(y))[:, None] * out.float()
+    return out
+
+
+def phase_msgs_kernels(g, corner):
+    """K2's message form against its plain version on phase 2's graph and on
+    the K2 corner graph, f32 and bf16, C = 40, 64, 128 and 256 (the lane
+    groups of the gather forms), messages of either sign with the exact
+    shift: rows with no edge exact 0, two launches bit for bit; then the
+    Function forward and backward (softmax_sg, learned t, softmax_sum)
+    against the Function on the plain version. Returns the largest error of
+    each dtype at phase 4's shape (C=128)."""
+    dev = g.senders.device
+    chk = Checks("msgs kernels")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    errs = {}
+    for gg, where in ((g, "main graph"), (corner, "corner graph")):
+        empty = (gg.row_ptr[1:] == gg.row_ptr[:-1]).nonzero()[:, 0]
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            t = torch.tensor([0.7], device=dev)
+            for c in MSGS_WIDTHS:
+                m = torch.randn(gg.num_edges_padded, c, device=dev, generator=gen).to(dtype)
+                cmax = tsp.msgs_cmax(m, gg.row_ptr, t)
+                out, den = tsp.softmax_agg_msgs(m, gg.row_ptr, t, cmax)
+                out_p, den_p = tsp.softmax_agg_msgs_plain(m, gg.row_ptr, t, cmax)
+                name = f"K2 msgs {where} C={c} {tag}"
+                e = max(chk.close(f"{name} out", out, out_p, **tol),
+                        chk.close(f"{name} den", den, den_p, **tol))
+                if where == "main graph" and c == 128:
+                    errs[tag] = e
+                zero = torch.zeros(len(empty), c, dtype=dtype, device=dev)
+                chk.equal(f"{name} rows with no edge exact 0 (out)", out[empty], zero)
+                chk.equal(f"{name} rows with no edge exact 0 (den)", den[empty], zero)
+                out2, den2 = tsp.softmax_agg_msgs(m, gg.row_ptr, t, cmax)
+                chk.equal(f"{name} two launches bit for bit (out)", out2, out)
+                chk.equal(f"{name} two launches bit for bit (den)", den2, den)
+                del m, out, den, out_p, den_p, out2, den2
+        log(f"[msgs kernels] {where}: {len(empty)} rows with no edge")
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        tol_b = TOL_F32 if dtype == torch.float32 else TOL_BWD_BF16
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        m0 = torch.randn(g.num_edges_padded, 128, device=dev, generator=gen).to(dtype)
+        for aggr in ("softmax_sg", "softmax", "softmax_sum"):
+            res = []
+            for fn in (tsp.gen_softmax_aggregate_csr, tsp.gen_softmax_aggregate_csr_plain):
+                m = m0.clone().requires_grad_(True)
+                t = torch.tensor([0.1], device=dev, requires_grad=aggr != "softmax_sg")
+                y = torch.tensor([0.3], device=dev, requires_grad=True)
+                o = _msgs_agg(fn, m, g, t, y, aggr)
+                (o.float() ** 2).sum().backward()
+                res.append((o.detach(), m.grad, t.grad, y.grad))
+            name = f"message-form Function {aggr} {tag}"
+            chk.close(f"{name} out", res[0][0], res[1][0], **tol)
+            chk.close(f"{name} d(msgs)", res[0][1], res[1][1], **tol_b)
+            if aggr != "softmax_sg":
+                chk.close(f"{name} dt", res[0][2], res[1][2], **TOL_DT[tag])
+            if aggr == "softmax_sum":
+                chk.close(f"{name} dy", res[0][3], res[1][3], **TOL_DT[tag])
+            del res
+        del m0
+    sync(dev)
+    chk.raise_if_failed()
+    return errs
+
+
+def phase_unfused_path(g, labels, layers, main_info):
+    """ResGEN-28 (phase 4's model, weights and seed) on phase 4's graph
+    without its CSC: the unfused branch (a plain gather, relu + ε, K2's
+    message form) through the app's `train_step`: one warm-up, 2 timed
+    steps and a `predict`, 28 message-form launches a forward and nothing
+    else; its step time and peak beside the fused route's (phase 4)."""
+    g_unfused = without_csc(g)
+    info, state = phase_main_path(g_unfused, labels, layers, 2, tag="unfused-main")
+    phase_profile(g.senders.device, arxiv_step(g_unfused, state), tag="unfused-profile")
+    del state
+    log(f"[unfused-main] unfused/fused step ratio on the same weights: "
+        f"{info['step_ms_median'] / main_info['step_ms_median']:.4f} "
+        f"({info['step_ms_median']:.3f} / {main_info['step_ms_median']:.3f} ms); peak "
+        f"{info.get('max_memory_allocated_bytes')} against "
+        f"{main_info.get('max_memory_allocated_bytes')} bytes; card: {CARD}")
+    return info
+
+
+# PyG's PPI: 24 graphs of 2,245 nodes and 61,318 directed edges on average
+PPI_NODES, PPI_EDGES = 2245, 61318
+
+
+def ppi_graphs(count, rehearse):
+    """``count`` PPI-shaped graphs from seed 0: 50 features, 121 labels (30 %
+    positive), nodes within ±20 % of the mean, uniform random edges at the
+    mean degree."""
+    rng = np.random.default_rng(0)
+    mean_n, mean_e = (200, 2000) if rehearse else (PPI_NODES, PPI_EDGES)
+    gs = []
+    for _ in range(count):
+        n = int(rng.integers(int(0.8 * mean_n), int(1.2 * mean_n)))
+        e = int(round(n * mean_e / mean_n))
+        gs.append(dict(x=rng.standard_normal((n, 50)).astype(np.float32),
+                       senders=rng.integers(0, n, e), receivers=rng.integers(0, n, e),
+                       y=(rng.random((n, 121)) < 0.3).astype(np.float32)))
+    return gs
+
+
+def phase_ppi_path(dev, tag, argv, steps, rehearse):
+    """A PPI model of the app's flags ``argv`` on PPI-shaped graphs padded by
+    the app's batcher, through `apps/ppi`'s `train_step`: one warm-up,
+    ``steps`` timed steps, a timed `predict`, K1 2·(blocks − 1) times a step
+    (each block's two gathers' backward: the gathered form over the CSC for
+    the sender gather, the plain form for the receiver gather; the head's
+    input takes no gradient) and never in `predict`, finite losses, the peak
+    and a profile of one more step. Returns (info, one padded graph)."""
+    args = ppi.get_args(["--device", dev.type] + argv)
+    gs = ppi_graphs(steps + 2, rehearse)
+    to_batch = ppi.make_batcher(args, gs)
+    batches = [(gr.to(dev), y.to(dev)) for gr, y in map(to_batch, gs)]
+    g0 = batches[0][0]
+    free_memory(dev)
+    model = ppi.build_model(args, torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer(args.optimizer, model.parameters(), args.lr, args.weight_decay)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    log(f"[{tag}] {args.n_blocks} blocks x {args.n_filters} ({args.conv}, "
+        f"{args.compute_dtype or 'float32'}): N_pad={g0.num_nodes_padded} "
+        f"E_pad={g0.num_edges_padded}, graphs of {[int(g.n_node) for g, _ in batches]} nodes "
+        f"and {[int(g.n_edge) for g, _ in batches]} edges")
+
+    def step(g, y):
+        return ppi.train_step(model, opt, g, y, gen)
+
+    reset_launches()
+    losses, times = [float(step(*batches[0]))], []
+    for g, y in batches[1:steps + 1]:
+        t0 = time.perf_counter()
+        loss = step(g, y)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    t0 = time.perf_counter()
+    logits = ppi.predict(model, batches[-1][0])
+    sync(dev)
+    score_s = time.perf_counter() - t0
+    launches = read_launches()
+    if logits.shape != (g0.num_nodes_padded, 121) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag}: predict gave {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    want = no_launches()
+    if dev.type == "cuda":
+        want.update(K1=2 * (args.n_blocks - 1) * (steps + 1))
+    info = _path_info(tag, dev, losses, times, score_s, launches, want,
+                      {"n_pad": g0.num_nodes_padded, "e_pad": g0.num_edges_padded})
+    phase_profile(dev, lambda: step(*batches[1]), tag=f"{tag}-profile")
+    g_keep = batches[1][0]
+    del batches, model, opt
+    free_memory(dev)
+    return info, g_keep
+
+
+def phase_ppi_app(dev, rehearse):
+    """`apps/ppi.main` on its synthetic graphs for 2 epochs with
+    `--save_ckpt` (the app's defaults, ResMRGCN-14 x 64), then
+    `apps/ppi_test` on `ckpt_best`, whose valid micro-F1 must equal the
+    run's best."""
+    base = ["--synthetic", "--device", dev.type]
+    if rehearse:
+        base += ["--n_blocks", "3", "--n_filters", "16"]
+    t0 = time.time()
+    res = ppi.main(base + ["--epochs", "2", "--save_ckpt", "--exp_root", RUNS])
+    t1 = time.time()
+    scored = ppi_test.main(base + ["--pretrained_model", os.path.join(res["exp"], "ckpt_best")])
+    log(f"[ppi-app] run {res}; test script valid {scored['valid']} test {scored['test']} "
+        f"(epoch {scored['meta']['epoch']}); train {t1 - t0:.1f}s, score "
+        f"{time.time() - t1:.1f}s; card: {CARD}")
+    if scored["valid"] != res["best"] or not all(map(math.isfinite, res["losses"])):
+        raise AssertionError(f"ppi-app: the test script scored {scored['valid']}, the run's "
+                             f"best {res['best']}")
+    free_memory(dev)
+
+
+ZOO_CONVS = ("edge", "mr", "gat", "gcn", "gin", "sage", "rsage")
+
+
+def _card_vs_cpu(chk, name, dev, build, run):
+    """``run(model, device)`` (which returns the output) on the card and on
+    the CPU from the same weights: the output and every gradient, float32,
+    summation order only (phase 3's tolerances)."""
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        model = build().to(d)
+        model.train()
+        out = run(model, d)
+        outs.append((out.detach().cpu(),
+                     {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                      if p.grad is not None}))
+    chk.close(f"{name} output, card vs cpu", outs[0][0], outs[1][0], 1e-4, 1e-4)
+    g_max = max(float(v.abs().max()) for v in outs[1][1].values())
+    for k in outs[1][1]:
+        chk.close(f"{name} grad {k}", outs[0][1][k], outs[1][1][k], 1e-3, 1e-4, ref_max=g_max)
+
+
+def phase_zoo_agreement(dev):
+    """A 3-block `DeepGCNStatic` of each conv and each block kind on the card
+    against the same weights on the CPU: the logits of the whole model, then
+    each graph layer (the head conv and each block) on the same input (the
+    CPU's) under a random cotangent: its output, the input's gradient (the
+    gathers' backward: K1) and every parameter gradient. Whole-model
+    gradients are not compared: relu and the maxima are kinks, and the two
+    devices' rounding differences move some pre-activation across one among
+    the head's millions (3000 nodes x 1,792 MLP channels); on the CPU alone
+    a 1e-6 relative perturbation of x moved the whole model's gradients by
+    up to 1.5e-2 of the largest, and a layer's by more than 1e-4 in 2 of the
+    63 layers (EdgeConv's edge-wise MLP and max). A layer's input is the
+    same on both sides, so MRConv's max over x_j − x_i picks the same edges;
+    EdgeConv's max over its MLP's messages may not, so the cotangent is 0 at
+    its near ties (`utils.agreement.layer_results`, shared with the card
+    tests). The fusion and prediction MLPs hold no graph op."""
+    chk = Checks("zoo agreement")
+    cpu = torch.device("cpu")
+    gc, _ = random_node_graph(np.random.default_rng(4), 1000, 10, 32, num_classes=7,
+                              self_loops=True)
+    gd = gc.to(dev)
+    gen = torch.Generator().manual_seed(5)
+    reset_launches()
+    for block in ("res", "dense", "plain"):
+        for conv in ZOO_CONVS:
+            cfg = DeepGCNConfig(in_channels=32, n_classes=7, n_filters=32, n_blocks=3,
+                                conv=conv, block=block, heads=4 if conv == "gat" else 1,
+                                dropout=0.0)
+            models = [DeepGCNStatic(cfg, torch.Generator().manual_seed(0)).to(d).train()
+                      for d in (dev, cpu)]
+            name = f"DeepGCNStatic {block} {conv}"
+            with torch.no_grad():
+                logits = [m(g.x, g) for m, g in zip(models, (gd, gc))]
+            chk.close(f"{name} logits, card vs cpu", logits[0][:gc.n_node].cpu(),
+                      logits[1][:gc.n_node], 1e-4, 1e-4)
+            for lname, outs in layer_results(models, (gd, gc), conv, block, gen):
+                tag = f"{name} {lname}"
+                chk.close(f"{tag} output", outs[0][0][:gc.n_node], outs[1][0][:gc.n_node],
+                          1e-4, 1e-4)
+                chk.close(f"{tag} input grad", outs[0][1], outs[1][1], 1e-3, 1e-4)
+                g_max = max(float(v.abs().max()) for v in outs[1][2].values())
+                for k in outs[1][2]:
+                    chk.close(f"{tag} grad {k}", outs[0][2][k], outs[1][2][k], 1e-3, 1e-4,
+                              ref_max=g_max)
+    launches = read_launches()
+    log(f"[zoo agreement] launches on the card {launches}")
+    if dev.type == "cuda" and launches["K1"] == 0:
+        raise AssertionError("zoo agreement: K1 never launched")
+    chk.raise_if_failed()
+
+
+def hub_free_band_graph(n, dev):
+    """A random graph of bandwidth 64 (each receiver within ±64 of its
+    sender, degree 10) with 0.5 % random edges for a leftover, its band
+    built with the window "auto" and no hubs: what `band_extreme_ok` takes."""
+    rng = np.random.default_rng(6)
+    e = n * 10
+    s = rng.integers(0, n, e)
+    r = np.clip(s + rng.integers(-64, 65, e), 0, n - 1)
+    cross = rng.random(e) < 0.005
+    r[cross] = rng.integers(0, n, int(cross.sum()))
+    g = attach_band(build_graph(rng.standard_normal((n, 32)).astype(np.float32), s, r,
+                                num_nodes=n), "auto", None)
+    f = g.band.fwd
+    log(f"[zoo band] hub-free graph N={g.n_node} E={g.n_edge}: window {f.window}, coverage "
+        f"{f.coverage:.4f}, leftover {f.n_lo}")
+    return g
+
+
+def extreme_routes(chk, name, g_host, dev, c, dtype, iters):
+    """A max of x over each receiver's senders on ``g_host`` moved to
+    ``dev``, forward and backward: `band_extreme` (the masked window reduce
+    and its tie-splitting gather) against the path MRConv and GENConv take
+    without it (`gather_src_auto`, then the segment max, whose gather's
+    backward is K1 over the CSC). Both are exact maxima with the same tie
+    rule: the outputs must be equal, the gradients close (their sums run in
+    another order; in bf16 the shares of a tie round apart,
+    `TOL_TIES_BF16`). Returns (window ms, scatter ms)."""
+    gd = g_host.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n = gd.num_nodes_padded
+    x = torch.randn(n, c, device=dev, generator=gen).to(dtype).requires_grad_(True)
+    co = torch.randn(n, c, device=dev, generator=gen).to(dtype)
+
+    def window():
+        x.grad = None
+        out = tband.band_extreme(x, gd.band, gd.senders, gd.receivers, gd.edge_mask, "max")
+        (out * co).sum().backward()
+        return out
+
+    def scatter():
+        x.grad = None
+        out = tseg.segment_max(gather_src_auto(x, gd), gd.receivers, n, gd.edge_mask)
+        (out * co).sum().backward()
+        return out
+
+    res = [(fn().detach(), x.grad.clone()) for fn in (window, scatter)]
+    chk.equal(f"{name} band_extreme = gather + segment max", res[0][0], res[1][0])
+    tol = TOL_F32 if dtype == torch.float32 else TOL_TIES_BF16
+    chk.close(f"{name} band_extreme grad", res[0][1], res[1][1], **tol)
+    return time_fn(window, dev, iters), time_fn(scatter, dev, iters)
+
+
+def phase_extreme_timing(free, dev, rehearse, iters):
+    """`band_extreme` against the gather + segment max on the card at PPI's
+    widths (C=64 float32, C=256 bf16), on the hub-free graph and on one
+    PPI-shaped graph whose band is forced to a 256-row window (uniform
+    random edges: its coverage is far below the gate's 0.98, which refuses
+    it; the leftover runs through the segment max): the same values, and
+    the times that keep the card off `band_extreme` (`band_extreme_route`)."""
+    chk = Checks("band extreme")
+    d = ppi_graphs(1, rehearse)[0]
+    ppi_g = attach_band(build_graph(d["x"], d["senders"], d["receivers"],
+                                    num_nodes=d["x"].shape[0]), 256, None)
+    for name, g in (("hub-free", free), ("PPI-shaped", ppi_g)):
+        f = g.band.fwd
+        for c, dtype in ((64, torch.float32), (256, torch.bfloat16)):
+            tag = f"{name} C={c} {str(dtype)[6:]}"
+            w_ms, s_ms = extreme_routes(chk, tag, g, dev, c, dtype, iters)
+            log(f"[zoo band] max over senders fwd+bwd, {name} N={g.n_node} E={g.n_edge} "
+                f"(window {f.window}, coverage {f.coverage:.4f}, gate "
+                f"{tband.band_extreme_ok(g)}), C={c} {str(dtype)[6:]}: window reduce "
+                f"{w_ms} ms, gather + segment max {s_ms} ms, ratio {w_ms / s_ms}; card: {CARD}")
+    chk.raise_if_failed()
+
+
+def phase_zoo_band(gb, dev, n_free):
+    """The zoo's band routes, card against CPU: SemiGCN, GIN and SAGE (plain
+    and relative) through `band_sum_auto` on phase 7's band graph (K3 must
+    launch: `band_sum_ok` holds there); MRConv and GENConv max/min on a
+    hub-free graph where `band_extreme_ok` holds (phase 7's has hubs and is
+    refused): `band_extreme` on the CPU, the gather + segment max on the
+    card (`band_extreme_route`); no route miss may be counted. Returns the
+    hub-free graph."""
+    chk = Checks("zoo band")
+    gcpu = gb.to("cpu")
+    free = hub_free_band_graph(n_free, dev)
+    if not tband.band_sum_ok(gb):
+        raise AssertionError("zoo band: band_sum_ok refused phase 7's graph")
+    if tband.band_extreme_ok(gcpu) or not tband.band_extreme_ok(free):
+        raise AssertionError("zoo band: band_extreme_ok should refuse phase 7's graph (hubs) "
+                             "and take the hub-free one")
+    misses = tseg.fastpath_misses()
+    gen = torch.Generator().manual_seed(7)
+    x_b = torch.randn(gb.num_nodes_padded, 32, generator=gen)
+    co_b = torch.randn(gb.num_nodes_padded, 32, generator=gen)
+    co_b[gb.n_node:] = 0.0
+    co_f = torch.randn(free.num_nodes_padded, 32, generator=gen)
+    co_f[free.n_node:] = 0.0
+
+    def seeded():
+        return torch.Generator().manual_seed(0)
+
+    cases = [(c, gcpu, x_b, co_b,
+              lambda c=c: graph_conv(32, 32, c, norm="batch", generator=seeded()))
+             for c in ("gcn", "gin", "sage", "rsage")]
+    cases.append(("mr", free, free.x, co_f,
+                  lambda: graph_conv(32, 32, "mr", norm="batch", generator=seeded())))
+    cases += [(f"gen-{a}", free, free.x, co_f,
+               lambda a=a: GENConv(32, 32, aggr=a, norm="batch", generator=seeded()))
+              for a in ("max", "min")]
+    for name, g_host, x, co, build in cases:
+        reset_launches()
+
+        def run(model, d, g_host=g_host, x=x, co=co):
+            gd = g_host.to(d)
+            xd = x.to(d).clone().requires_grad_(True)
+            out = model(xd, gd)
+            (out * co.to(d)).sum().backward()
+            return torch.cat([out[:gd.n_node], xd.grad[:gd.n_node]], 1)
+
+        _card_vs_cpu(chk, f"band route {name}", dev, build, run)
+        launches = read_launches()
+        log(f"[zoo band] {name}: launches on the card {launches}")
+        if dev.type == "cuda" and g_host is gcpu and launches["K3"] == 0:
+            raise AssertionError(f"zoo band: {name} did not launch K3")
+    if tseg.fastpath_misses() != misses:
+        raise AssertionError(f"zoo band: a route was refused: {tseg.fastpath_misses()}")
+    chk.raise_if_failed()
+    log(f"[zoo band] card: {CARD}")
+    return free
+
+
+def rev_zoo_app(conv):
+    """`apps/ogbn_proteins_rev` with its model's group function ``conv``
+    ("gcn" or "sage"; the app's flags otherwise)."""
+
+    def build_model(args, generator=None):
+        return RevGCN(RevGCNConfig(
+            in_channels=8, node_feat_dim=8, edge_feat_dim=8,
+            hidden_channels=args.hidden_channels, num_tasks=args.num_tasks,
+            num_layers=args.num_layers, group=args.group, norm=args.norm,
+            dropout=args.dropout, use_one_hot_encoding=args.use_one_hot_encoding, conv=conv),
+            generator=generator)
+
+    return SimpleNamespace(get_args=ogbn_proteins_rev.get_args, build_model=build_model,
+                           train_step=ogbn_proteins_rev.train_step,
+                           predict=ogbn_proteins_rev.predict)
+
+
+def rev_k1_expected(group):
+    """RevGCN with GCN or SAGE group functions: each evaluation of a group
+    function sums its messages with K1 (the plain CSR form); a train step
+    evaluates each once in the forward and once in the backward's fused
+    inverse+VJP, whose gather backward is K1's gathered form; `predict`
+    once."""
+    def want(layers, n):
+        lg = layers * group
+        out = no_launches()
+        out.update(K1=3 * lg * n + lg)
+        return out
+    return want
+
+
+def phase_rev_zoo_paths(g, feats, layers, steps):
+    """RevGCN with `GCNBlock` and with `SAGEBlock` at ``layers`` (80
+    channels, group 2) on the proteins cluster: one warm-up, ``steps`` timed
+    steps and a `predict` each, exact K1 launches, the peak, a profiled
+    step."""
+    infos = {}
+    for conv in ("gcn", "sage"):
+        tag = f"revgcn-{conv}-{layers}"
+        infos[conv], step = phase_proteins_path(rev_zoo_app(conv), ["--num_layers", str(layers)],
+                                                g, feats, steps, rev_k1_expected(2), tag)
+        phase_profile(g.senders.device, step, tag=f"{tag}-profile")
+        del step
+        free_memory(g.senders.device)
+    return infos
+
+
+def phase_msgs_timing(g, errs, unfused, iters):
+    """K2's message form in bf16 at phase 4's shape: the materialised
+    messages relu(x_j) + ε of C=128 that the unfused ResGEN-28 gives it;
+    `time_fn`'s and `device_ms`'s times, the plain version's and the bound
+    (no single PyTorch call computes it). Returns its `kernels` row."""
+    dev = g.senders.device
+    n_pad, e, c = g.num_nodes_padded, g.n_edge, 128
+    x = g.x.to(torch.bfloat16)
+    m = (torch.relu(x.index_select(0, torch.clamp(g.senders.long(), max=n_pad - 1)))
+         + torch.tensor(1e-7, dtype=torch.bfloat16)).contiguous()
+    t = torch.tensor([0.1], device=dev)
+    cmax = tsp.msgs_cmax(m, g.row_ptr, t)
+    ms = time_fn(lambda: tsp.softmax_agg_msgs(m, g.row_ptr, t, cmax), dev, iters)
+    d_ms = device_ms(lambda: tsp.softmax_agg_msgs(m, g.row_ptr, t, cmax), dev, iters)
+    plain_ms = time_fn(lambda: tsp.softmax_agg_msgs_plain(m, g.row_ptr, t, cmax), dev, 3)
+    # the real edges' messages read once, out and den written once (bf16),
+    # row_ptr, cmax and t; per (edge, channel): mul, sub, exp, mul, 2
+    # roundings, 2 adds
+    b = bound(e * c * 2 + 4 * (n_pad + 1) + 4 * c + 4 + 2 * n_pad * c * 2, 8 * e * c, e * c)
+    log(f"[msgs-timing] K2 msgs C=128 bf16 (N_pad={n_pad} E={e}): {ms:.4f} ms, device "
+        f"{d_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), plain {plain_ms:.3f} ms; no single "
+        f"PyTorch call computes it: library_ms is null; card: {CARD}")
+    return {"name": "K2 softmax_agg_msgs", "route": "cuda",
+            "source": f"{PKG}/csrc/softmax_agg.cu",
+            "replaces": "deep_gcns_torch_tpu/ops/spmm_pallas.py:322",
+            "launches": unfused["launches"]["K2 msgs"], "max_abs_err": errs["bf16"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None}
+
+
+def phase_ppi_k1_timing(gp, ppi_infos, iters):
+    """K1 at PPI's shapes: the edge cotangent [E_pad, C] of a PPI graph
+    through the sender gather's backward (the gathered form over the CSC)
+    and the receiver gather's (the plain CSR form), C=64 float32 (ResMRGCN-14
+    x 64) and C=256 bf16 (ResMRGCN-28 x 256): `time_fn`'s and `device_ms`'s
+    times, the plain version's, the bound and one PyTorch call beside it
+    (`index_add_` by sender for the gathered form, `torch.segment_reduce`
+    for the plain). Returns the `kernels` rows; each path's K1 launches are
+    half gathered, half plain."""
+    dev = gp.senders.device
+    chk = Checks("ppi k1 timing")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows = []
+    n_pad, e, e_pad = gp.num_nodes_padded, gp.n_edge, gp.num_edges_padded
+    for (c, dtype, tag), info in zip(((64, torch.float32, "C=64 f32"),
+                                      (256, torch.bfloat16, "C=256 bf16")), ppi_infos):
+        src = torch.randn(e_pad, c, device=dev, generator=gen).to(dtype)
+        size = src.element_size()
+        y = src if dev.type == "cuda" else src.float()  # the CPU's index_add_ in float32
+        for form, ptr, idx in (("gather", gp.csc_col_ptr, gp.csc_perm),
+                               ("plain", gp.row_ptr, None)):
+            out = tsp.csr_seg_sum(src, ptr, idx)
+            ms = time_fn(lambda: tsp.csr_seg_sum(src, ptr, idx), dev, iters)
+            d_ms = device_ms(lambda: tsp.csr_seg_sum(src, ptr, idx), dev, iters)
+            plain_ms = time_fn(lambda: tsp.csr_seg_sum_plain(src, ptr, idx), dev, 3)
+            err = chk.close(f"K1 ppi {form} {tag}", out, tsp.csr_seg_sum_plain(src, ptr, idx),
+                            **(TOL_F32 if dtype == torch.float32 else TOL_BF16))
+            # the real edges' rows read once, out written once, the index
+            # (gathered form) and the pointers; one add per (edge, channel)
+            b = bound(e * c * size + n_pad * c * size + 4 * (n_pad + 1)
+                      + (4 * e if idx is not None else 0), e * c)
+            if idx is None:
+                offsets = ptr.long()
+
+                def lib():
+                    return torch.segment_reduce(y[:e], "sum", offsets=offsets, axis=0)
+            else:
+                ids = gp.senders[:e].long()
+
+                def lib():
+                    return torch.zeros((n_pad, c), dtype=y.dtype, device=dev).index_add_(
+                        0, ids, y[:e])
+            lib_ms = time_fn(lib, dev, iters)
+            chk.close(f"library yardstick vs K1 ppi {form} {tag}", lib(), out, **TOL_LIBRARY)
+            rows.append({"name": f"K1 seg_sum_csr ppi {form} {tag}", "route": "cuda",
+                         "source": f"{PKG}/csrc/seg_sum.cu",
+                         "replaces": "deep_gcns_torch_tpu/ops/spmm_pallas.py:252",
+                         "launches": info["launches"]["K1"] // 2, "max_abs_err": err,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                         "library_ms": lib_ms})
+            log(f"[ppi-k1-timing] K1 {form} {tag} (N_pad={n_pad} E={e}): {ms:.4f} ms, "
+                f"device {d_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), plain {plain_ms:.3f} "
+                f"ms, {'torch.segment_reduce' if idx is None else 'index_add_'} "
+                f"{lib_ms:.4f} ms; card: {CARD}")
+        del src, y, out
+    chk.raise_if_failed()
+    return rows
+
+
 def main(argv):
     rehearse = "--rehearse-cpu" in argv
     if not rehearse and not torch.cuda.is_available():
@@ -3625,6 +4228,10 @@ def main(argv):
         f"{band_info['step_ms_median'] / gather_info['step_ms_median']:.4f} "
         f"({band_info['step_ms_median']:.3f} / {gather_info['step_ms_median']:.3f} ms)")
     k3_row = phase_band_timing(gb, errs_b, band_info["launches"], iters)
+    free = phase_zoo_band(gb, dev, 2000 if rehearse else 100_000)
+    phase_extreme_timing(free, dev, rehearse, min(iters, 10))
+    del free
+    mark("zoo band routes")
     k1_lo = {"band": (gb.band.fwd.lo_row_ptr, gb.band.fwd.lo_src)}  # phase 39's leftover
     del gb
     log(f"[done] band-route phases in {time.time() - t_all:.1f}s")
@@ -3646,6 +4253,8 @@ def main(argv):
     mark("rev and dyresgen paths")
     phase_proteins_app(dev, app_argv)
     mark("proteins app")
+    phase_rev_zoo_paths(gpr, feats, 3 if rehearse else 101, 2)
+    mark("revgcn gcn and sage")
     edge_rows = phase_edge_timing(gpr, errs_e, max(rev.values(),
                                                    key=lambda i: i["layers"])["launches"],
                                   iters)
@@ -3726,7 +4335,29 @@ def main(argv):
     mark("k1 corners")
     phase_k1_timing(g_main, k1_lo, iters)
     mark("k1 timing")
+    errs_m = phase_msgs_kernels(g_main, k2_corner_graph(dev))
+    mark("msgs kernels")
+    phase_agreement(dev, csc=False)
+    mark("unfused agreement")
+    unfused = phase_unfused_path(g_main, labels_main, layers, main_info)
+    mark("unfused path")
+    rows.append(phase_msgs_timing(g_main, errs_m, unfused, iters))
     del g_main
+    free_memory(dev)
+    ppi_infos, small = [], ["--n_blocks", "3", "--n_filters", "32"] if rehearse else []
+    for tag, argv in (("ppi-resmrgcn-14x64", []),
+                      ("ppi-resmrgcn-28x256-bf16", ["--n_blocks", "28", "--n_filters", "256",
+                                                    "--compute_dtype", "bfloat16"])):
+        ppi_info, g_ppi = phase_ppi_path(dev, tag, argv + small, 3, rehearse)
+        ppi_infos.append(ppi_info)
+        mark(tag)
+    rows += phase_ppi_k1_timing(g_ppi, ppi_infos, iters)
+    del g_ppi
+    mark("ppi k1 timing")
+    phase_ppi_app(dev, rehearse)
+    mark("ppi app")
+    phase_zoo_agreement(dev)
+    mark("zoo agreement")
     free_memory(dev)
     rows += phase_ogb(dev, rehearse, iters)
     shutil.rmtree(RUNS, ignore_errors=True)
@@ -3753,13 +4384,15 @@ if __name__ == "__main__":
     import torch
 
     from deep_gcns_torch_tpu_torch import native
+    from types import SimpleNamespace
+
     from deep_gcns_torch_tpu_torch.apps import (ogbg_mol, ogbg_mol_test, ogbg_ppa,
                                                 ogbg_ppa_test, ogbl_collab, ogbl_collab_test,
                                                 ogbn_arxiv, ogbn_arxiv_dgl, ogbn_arxiv_test,
                                                 ogbn_products, ogbn_products_test,
                                                 ogbn_proteins, ogbn_proteins_rev,
-                                                ogbn_proteins_test)
-    from deep_gcns_torch_tpu_torch.convs.sparse import GATConv
+                                                ogbn_proteins_test, ppi, ppi_test)
+    from deep_gcns_torch_tpu_torch.convs.sparse import GATConv, GENConv, graph_conv
     from deep_gcns_torch_tpu_torch.data.ogb_features import (ATOM_FEATURE_DIMS,
                                                              BOND_FEATURE_DIMS)
     from deep_gcns_torch_tpu_torch.data.partition import random_partition_graph
@@ -3768,14 +4401,18 @@ if __name__ == "__main__":
                                                           random_node_graph)
     from deep_gcns_torch_tpu_torch.graph import (add_self_loops, attach_band, build_graph,
                                                  to_undirected)
-    from deep_gcns_torch_tpu_torch.models import (DeeperGCN, DeeperGCNConfig, RevGAT,
-                                                  RevGATConfig, RevGCN, RevGCNConfig)
+    from deep_gcns_torch_tpu_torch.models import (DeepGCNConfig, DeepGCNStatic, DeeperGCN,
+                                                  DeeperGCNConfig, RevGAT, RevGATConfig,
+                                                  RevGCN, RevGCNConfig)
     from deep_gcns_torch_tpu_torch.nn.core import Linear
     from deep_gcns_torch_tpu_torch.ops import _build
     from deep_gcns_torch_tpu_torch.ops import band as tband
     from deep_gcns_torch_tpu_torch.ops import blocksparse as tbs
     from deep_gcns_torch_tpu_torch.ops import gat_dense as tgd
+    from deep_gcns_torch_tpu_torch.ops.gather import gather_src_auto
+    from deep_gcns_torch_tpu_torch.ops import segment as tseg
     from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
+    from deep_gcns_torch_tpu_torch.utils.agreement import layer_results
     from deep_gcns_torch_tpu_torch.utils.optim import linear_schedule, make_optimizer
 
     sys.exit(main(sys.argv[1:]))

@@ -1,28 +1,42 @@
-"""GENConv, MsgNorm and the PyG-1.x GATConv (counterpart of
-`deep_gcns_torch_tpu/convs/sparse.py:55-247, 342-468`).
+"""The sparse conv zoo: GENConv, MsgNorm, the PyG-1.x GATConv, MRConv,
+EdgeConv, (R)SAGEConv, SemiGCNConv, GINConv, `graph_conv` and the res/dense
+blocks (counterpart of `deep_gcns_torch_tpu/convs/sparse.py:41-764`).
 
-Routing of the aggregation, in the JAX package's order
+Routing of GENConv's aggregation, in the JAX package's order
 (`convs/sparse.py:167-236`):
 
 * without edge embeddings and with a band attached that passes `band_ok`
   (`ops/band.py`), the softmax family goes to `band_softmax_agg_auto` (K3,
   K1 for the leftover, dense hub products) and add, sum, mean, power and
-  power_sum to `band_sum_auto` on a node table;
-* otherwise the softmax family (softmax, softmax_sg, softmax_sum) goes to
+  power_sum to `band_sum_auto` on a node table; max and min go to
+  `band_extreme` (the masked window reduce) when `band_extreme_route`
+  holds (on the CPU only: on the card the gather path is faster);
+* otherwise, when the graph carries its CSR and CSC auxiliaries
+  (`fused_gather_ok`), the softmax family goes to
   `fused_softmax_gather_agg`, which launches K2 in the forward and K1 in the
   backward, or, with edge embeddings in both edge orders, K2 with `ee` and
   K4;
-* every other aggregator (max and min always), and the softmax family with
-  edge embeddings that lack their sender-ordered copy, gathers the messages
-  relu(x_j [+ e]) + ε and runs the plain `generalized_aggregate`.
+* everything else gathers the messages relu(x_j [+ e]) + ε (`gather_src_auto`:
+  K1's gathered form in the backward when the graph has its CSC) and runs
+  `generalized_aggregate`, whose kernel routes given ``row_ptr`` are K1 for
+  the sum family and K2's message form for the softmax family.
 
 GATConv scores s_ij = leaky_relu(a_l·x_i + a_r·x_j) per head, a
 destination score, so on a band that passes `band_gat_dense_ok` it takes the
 dense route (`band_gat_dense_agg`: K7 forward, K8 and K9 backward), and
 otherwise the per-edge segment softmax with a combined per-receiver maximum.
 
-On a CPU tensor every kernel runs its plain version. The band max/min
-route (`band_extreme`) belongs to a later slice.
+The other convs gather with `ops/gather.py` (K1 in the backward) and sum
+with `segment_sum(..., row_ptr=)` (K1 for rows of 32 or more); SemiGCN, GIN
+and SAGE sum through `band_sum_auto` (K3) on a band that passes
+`band_sum_ok`, MRConv's max/min through `band_extreme` where
+`band_extreme_route` holds (the CPU). Parameter names are
+the reference's `state_dict` names (`nn.0.weight`, `gconv.weight`,
+`unlinear.<i>`, ...), so its checkpoints and goldens load as they are.
+`DynConv` and the dynamic blocks need the kNN graph of the point-cloud
+slice and raise.
+
+On a CPU tensor every kernel runs its plain version.
 """
 
 from __future__ import annotations
@@ -34,14 +48,44 @@ from torch import nn
 
 from ..graph import Graph
 from ..nn.core import MLP, Linear, MultiEmbedding, PReLU, act_layer, make_norm
-from ..ops.band import (BAND_SOFTMAX_AGGRS, band_gat_dense_agg, band_gat_dense_ok, band_ok,
-                        band_softmax_agg_auto, band_sum_auto)
-from ..ops.gather import gather_src_auto
-from ..ops.segment import generalized_aggregate, segment_degree, segment_sum
+from ..ops.band import (BAND_SOFTMAX_AGGRS, band_extreme, band_extreme_route, band_gat_dense_agg,
+                        band_gat_dense_ok, band_ok, band_softmax_agg_auto, band_sum_auto,
+                        band_sum_ok)
+from ..ops.gather import gather_dst_auto, gather_src_auto
+from ..ops.segment import (fused_gather_ok, generalized_aggregate, scatter, segment_degree,
+                           segment_sum)
 from ..ops.spmm_cuda import fused_softmax_gather_agg_auto
 
-SOFTMAX_AGGRS = ("softmax", "softmax_sg", "softmax_sum")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """A conv's ``compute_dtype`` ("float32", "bfloat16" or None)."""
+    return None if name is None else _DTYPES[name]
+
+
+def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather with the sentinel indices clamped to the last row (their
+    rows are masked downstream)."""
+    return x.index_select(0, torch.clamp(idx.long(), max=x.shape[0] - 1))
+
+
+def _no_self_mask(g: Graph) -> torch.Tensor:
+    return g.edge_mask & (g.senders != g.receivers)
+
+
+def _post(out: torch.Tensor, layers: nn.ModuleList, mask: torch.Tensor) -> torch.Tensor:
+    """The reference's `unlinear` after a PyG conv: the activation, then the
+    norm (which reads the node mask)."""
+    for layer in layers:
+        out = layer(out) if isinstance(layer, (nn.ReLU, nn.LeakyReLU, PReLU)) else \
+            layer(out, mask)
+    return out
+
+
+def _unlinear(act: Optional[str], norm: Optional[str], dim: int) -> nn.ModuleList:
+    a, nrm = act_layer(act), make_norm(norm, dim)
+    return nn.ModuleList([m for m in (a, nrm) if m is not None])
 
 
 class MsgNorm(nn.Module):
@@ -138,7 +182,11 @@ class GENConv(nn.Module):
             raise ValueError(f"edge embeddings of width {edge_emb.shape[-1]} do not match "
                              f"{x.shape[1]} node channels (give the conv an edge encoder)")
         band = edge_emb is None and band_ok(g, self.aggr)
-        fused = self.aggr in SOFTMAX_AGGRS and (
+        band_ext = (edge_emb is None and self.aggr in ("max", "min")
+                    and band_extreme_route(g, x))
+        # the fused pair reads the CSR and CSC auxiliaries: without them the
+        # unfused branch runs, as in the JAX package
+        fused = fused_gather_ok(g, self.aggr) and (
             edge_emb is None or (edge_emb_csc is not None
                                  and edge_emb.shape == (g.num_edges_padded, x.shape[1])))
         t = self.t if self.grad_w else self.t.detach()
@@ -166,6 +214,11 @@ class GENConv(nn.Module):
                 s = band_sum_auto(msg.to(cd), g.band).float()
                 m = s / mean_div if self.aggr == "mean" else s
             m = m.to(cd)
+        elif band_ext:
+            # max/min of the node table relu(x) + ε over each receiver's
+            # senders: the masked window reduce, a tie-splitting backward
+            msg = (torch.relu(x.float()) + self.eps).to(cd)
+            m = band_extreme(msg, g.band, g.senders, g.receivers, g.edge_mask, self.aggr)
         elif fused:
             # the edge-embedding cotangent flows through the sender-ordered
             # copy only (the same values): `ee` enters detached
@@ -233,12 +286,7 @@ class GATConv(nn.Module):
         self.heads, self.out_dim = heads, out_dim
         self.neg_slope, self.self_loops = neg_slope, self_loops
         self.gconv = _PygGAT(in_dim, out_dim, heads, bias, generator)
-        a = act_layer(act)
-        layers = [] if a is None else [a]
-        nrm = make_norm(norm, heads * out_dim)
-        if nrm is not None:
-            layers.append(nrm)
-        self.unlinear = nn.ModuleList(layers)
+        self.unlinear = _unlinear(act, norm, heads * out_dim)
 
     def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
         n = x.shape[0]
@@ -263,10 +311,7 @@ class GATConv(nn.Module):
         out = out.reshape(n, h * d)
         if self.gconv.bias is not None:
             out = out + self.gconv.bias
-        for layer in self.unlinear:
-            out = layer(out) if isinstance(layer, (nn.ReLU, nn.LeakyReLU, PReLU)) else \
-                layer(out, g.node_mask)
-        return out
+        return _post(out, self.unlinear, g.node_mask)
 
     def _segment(self, xt, s_src, s_dst, self_score, g: Graph):
         """The per-edge route: softmax over the neighbours (and the self term)
@@ -291,7 +336,287 @@ class GATConv(nn.Module):
             denom = denom + self_exp
         alpha = e_exp / torch.clamp_min(denom[recv], 1e-16)
         msg = gather_src_auto(xt.reshape(n, h * d), g).reshape(-1, h, d) * alpha[..., None]
-        out = segment_sum(torch.where(emask[:, None, None], msg, 0.0), g.receivers, n)
+        out = segment_sum(torch.where(emask[:, None, None], msg, 0.0), g.receivers, n,
+                          row_ptr=g.row_ptr)
         if self.self_loops:
             out = out + xt * (self_exp / torch.clamp_min(denom, 1e-16))[..., None]
         return out
+
+
+class MRConv(nn.Module):
+    """Max-relative conv (reference `torch_vertex.py:91-103`): agg =
+    extreme_j (x_j − x_i), then nn([x ‖ agg]), nn = MLP([2·in, out]) under
+    the reference's name `nn`. ``compute_dtype`` "bfloat16" rounds x once
+    before the edge-wide gathers and runs the MLP's product in bf16 with
+    float32 accumulation. Where `band_extreme_route` holds the
+    extreme is the window reduce of x itself: extreme_j (x_j − x_i) =
+    (extreme_j x_j) − x_i for a receiver with an edge, 0 for one without."""
+
+    def __init__(self, in_dim: int, out_dim: int, act: Optional[str] = "relu",
+                 norm: Optional[str] = None, bias: bool = True, aggr: str = "max",
+                 compute_dtype: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.aggr, self.compute_dtype = aggr, _dtype(compute_dtype)
+        self.nn = MLP([in_dim * 2, out_dim], norm=norm, bias=bias, act=act,
+                      generator=generator)
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        cd = self.compute_dtype
+        xe = x if cd is None else x.to(cd)  # rounded before the E-wide gathers
+        n = x.shape[0]
+        if self.aggr in ("max", "min") and band_extreme_route(g, x):
+            ext = band_extreme(xe, g.band, g.senders, g.receivers, g.edge_mask, self.aggr)
+            deg = (g.row_ptr[1:] - g.row_ptr[:-1]) if g.row_ptr is not None else \
+                segment_degree(g.receivers, n, g.edge_mask)
+            agg = torch.where((deg > 0)[:, None], ext - xe, torch.zeros((), dtype=xe.dtype,
+                                                                        device=xe.device))
+        else:
+            rel = gather_src_auto(xe, g) - gather_dst_auto(xe, g)
+            agg = scatter(self.aggr, rel, g.receivers, n, mask=g.edge_mask, row_ptr=g.row_ptr)
+        return self.nn(torch.cat([xe, agg], 1), g.node_mask, cd)
+
+
+class EdgeConv(nn.Module):
+    """PyG EdgeConv (reference `torch_vertex.py:106-114`): msg_ij =
+    nn([x_i ‖ x_j − x_i]) per edge, its BatchNorm over the valid edges
+    (`edge_mask`), then the max (or ``aggr``) over each receiver's edges.
+    ``compute_dtype`` "bfloat16" keeps the edge-wide tensors in bf16 and
+    returns float32."""
+
+    def __init__(self, in_dim: int, out_dim: int, act: Optional[str] = "relu",
+                 norm: Optional[str] = None, bias: bool = True, aggr: str = "max",
+                 compute_dtype: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.aggr, self.compute_dtype = aggr, _dtype(compute_dtype)
+        self.nn = MLP([in_dim * 2, out_dim], norm=norm, bias=bias, act=act,
+                      generator=generator)
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        cd = self.compute_dtype
+        xe = x if cd is None else x.to(cd)
+        x_i = gather_dst_auto(xe, g)
+        x_j = gather_src_auto(xe, g)
+        msg = self.nn(torch.cat([x_i, x_j - x_i], 1), g.edge_mask, cd)
+        if cd is not None:
+            msg = msg.to(cd)  # the edge-wide aggregate reads bf16
+        out = scatter(self.aggr, msg, g.receivers, x.shape[0], mask=g.edge_mask,
+                      row_ptr=g.row_ptr)
+        return out.float() if cd is not None else out
+
+
+class RSAGEConv(nn.Module):
+    """The reference's (R)SAGEConv (`torch_vertex.py:136-205`): one self
+    loop, message (x_j [− x_i]) @ W, the mean over the neighbours (self
+    edges excluded) and the self term, update nn([x ‖ agg]) + b, nn =
+    MLP([out + in, out]); with a norm the output is L2-normalised. Names:
+    `weight` [in, out], `bias`, `nn.*`. On a band that passes `band_sum_ok`
+    the neighbour sum is one band product (K3) with the self edges' share
+    taken out in closed form."""
+
+    def __init__(self, in_dim: int, out_dim: int, act: Optional[str] = "relu",
+                 norm: Optional[str] = None, bias: bool = True, relative: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.out_dim, self.relative = out_dim, relative
+        self.normalize = norm is not None and str(norm).lower() != "none"
+        self.weight = nn.Parameter(torch.empty(in_dim, out_dim))
+        with torch.no_grad():
+            self.weight.uniform_(-in_dim ** -0.5, in_dim ** -0.5, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
+        self.nn = MLP([out_dim + in_dim, out_dim], norm=norm, bias=bias, act=act,
+                      generator=generator)
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        n = x.shape[0]
+        emask = _no_self_mask(g)
+        if band_sum_ok(g):
+            # relative messages vanish on self edges; a plain one adds xt_i
+            # per self edge, taken out before the one self term is added
+            if self.relative:
+                deg_all = segment_degree(g.receivers, n, g.edge_mask)
+                s = (band_sum_auto(x, g.band) - deg_all[:, None] * x) @ self.weight
+            else:
+                xt = x @ self.weight
+                c_self = segment_degree(g.receivers, n, g.edge_mask & (g.senders == g.receivers))
+                s = (band_sum_auto(xt, g.band) - c_self[:, None] * xt) + xt
+        else:
+            if self.relative:
+                msg = (gather_src_auto(x, g) - gather_dst_auto(x, g)) @ self.weight
+                self_msg = 0.0
+            else:
+                msg = gather_src_auto(x, g) @ self.weight
+                self_msg = x @ self.weight
+            s = segment_sum(msg, g.receivers, n, emask, g.row_ptr) + self_msg
+        cnt = segment_degree(g.receivers, n, emask) + 1.0
+        out = self.nn(torch.cat([x, s / cnt[:, None]], 1), g.node_mask)
+        if self.bias is not None:
+            out = out + self.bias
+        if self.normalize:
+            out = out / torch.clamp_min(torch.linalg.norm(out, dim=-1, keepdim=True), 1e-12)
+        return out
+
+
+class GCNConv(nn.Module):
+    """PyG 1.x's `GCNConv` under its names, `weight` [in, out] (glorot) and
+    `bias` (zeros): Kipf's symmetric normalisation with the remaining-self-
+    loops semantics (a node without a self edge gets one; the degree counts
+    the neighbours and that loop), the self term analytic. On a band that
+    passes `band_sum_ok` the normalised sum is dinv ⊙ (A @ (dinv ⊙ xW)), one
+    band product (K3)."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(in_dim, out_dim))
+        with torch.no_grad():
+            bound = (6.0 / (in_dim + out_dim)) ** 0.5
+            self.weight.uniform_(-bound, bound, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        n = x.shape[0]
+        xt = x @ self.weight
+        emask = g.edge_mask
+        has_self = torch.clamp_max(
+            segment_degree(g.receivers, n, emask & (g.senders == g.receivers)), 1.0)
+        deg = segment_degree(g.receivers, n, emask) + (1.0 - has_self)
+        dinv = torch.rsqrt(torch.clamp_min(deg, 1.0))
+        if band_sum_ok(g):
+            out = dinv[:, None] * band_sum_auto(dinv[:, None] * xt, g.band)
+        else:
+            coef = gather(dinv, g.receivers) * gather(dinv, g.senders)
+            msg = gather_src_auto(xt, g) * coef[:, None]
+            out = segment_sum(msg, g.receivers, n, emask, g.row_ptr)
+        out = out + xt * ((1.0 - has_self) * dinv * dinv)[:, None]
+        return out if self.bias is None else out + self.bias
+
+
+class SemiGCNConv(nn.Module):
+    """Kipf's GCN then act and norm (reference `torch_vertex.py:208-225`):
+    `gconv.weight`, `gconv.bias`, the act and norm at `unlinear.<i>`."""
+
+    def __init__(self, in_dim: int, out_dim: int, act: Optional[str] = "relu",
+                 norm: Optional[str] = None, bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.gconv = GCNConv(in_dim, out_dim, bias, generator)
+        self.unlinear = _unlinear(act, norm, out_dim)
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        return _post(self.gconv(x, g), self.unlinear, g.node_mask)
+
+
+class GINConv(nn.Module):
+    """GIN (reference `torch_vertex.py:228-236`): nn((1 + ε)·x + Σ_j x_j),
+    nn = MLP([in, out]) at `nn.*`; the neighbour sum is one band product
+    (K3) on a band that passes `band_sum_ok`."""
+
+    def __init__(self, in_dim: int, out_dim: int, act: Optional[str] = "relu",
+                 norm: Optional[str] = None, bias: bool = True, eps: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.eps = eps
+        self.nn = MLP([in_dim, out_dim], norm=norm, bias=bias, act=act, generator=generator)
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        if band_sum_ok(g):
+            agg = band_sum_auto(x, g.band)
+        else:
+            agg = segment_sum(gather_src_auto(x, g), g.receivers, x.shape[0], g.edge_mask,
+                              g.row_ptr)
+        return self.nn((1.0 + self.eps) * x + agg, g.node_mask)
+
+
+def graph_conv(in_dim: int, out_dim: int, conv: str = "edge", act: Optional[str] = "relu",
+               norm: Optional[str] = None, bias: bool = True, heads: int = 8,
+               compute_dtype: Optional[str] = None,
+               generator: Optional[torch.Generator] = None) -> nn.Module:
+    """The reference's `GraphConv` dispatch (`torch_vertex.py:239-264`): edge,
+    mr, gat (``heads`` heads of out_dim // heads), gcn, gin, sage, rsage.
+    ``compute_dtype`` reaches the convs that take it (edge, mr)."""
+    c = conv.lower()
+    kw = dict(act=act, norm=norm, bias=bias, generator=generator)
+    if c == "edge":
+        return EdgeConv(in_dim, out_dim, compute_dtype=compute_dtype, **kw)
+    if c == "mr":
+        return MRConv(in_dim, out_dim, compute_dtype=compute_dtype, **kw)
+    if c == "gat":
+        return GATConv(in_dim, out_dim // heads, heads=heads, **kw)
+    if c == "gcn":
+        return SemiGCNConv(in_dim, out_dim, **kw)
+    if c == "gin":
+        return GINConv(in_dim, out_dim, **kw)
+    if c in ("sage", "rsage"):
+        return RSAGEConv(in_dim, out_dim, relative=c == "rsage", **kw)
+    raise NotImplementedError(f"conv {conv} is not implemented")
+
+
+class GraphConv(nn.Module):
+    """The reference's `GraphConv` wrapper: the conv at `gconv`, so that a
+    model's names are the reference's (`head.gconv.nn.0.weight`)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        self.gconv = graph_conv(*args, **kwargs)
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        return self.gconv(x, g)
+
+
+class _Block(nn.Module):
+    """plain / res / dense wrapper of a `GraphConv` at `body`
+    (`torch_vertex.py:284-352`): res y + res_scale·x, dense [x ‖ y]."""
+
+    def __init__(self, body: nn.Module, kind: str, res_scale: float = 1.0):
+        super().__init__()
+        self.body, self.kind, self.res_scale = body, kind, res_scale
+
+    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
+        y = self.body(x, g)
+        if self.kind == "res":
+            return y + x * self.res_scale
+        if self.kind == "dense":
+            return torch.cat([x, y], 1)
+        return y
+
+
+def ResGraphBlock(channels: int, conv: str = "edge", act: Optional[str] = "relu",
+                  norm: Optional[str] = None, bias: bool = True, heads: int = 8,
+                  res_scale: float = 1.0, compute_dtype: Optional[str] = None,
+                  generator: Optional[torch.Generator] = None) -> _Block:
+    return _Block(GraphConv(channels, channels, conv, act, norm, bias, heads, compute_dtype,
+                            generator), "res", res_scale)
+
+
+def DenseGraphBlock(in_channels: int, out_channels: int, conv: str = "edge",
+                    act: Optional[str] = "relu", norm: Optional[str] = None, bias: bool = True,
+                    heads: int = 8, compute_dtype: Optional[str] = None,
+                    generator: Optional[torch.Generator] = None) -> _Block:
+    return _Block(GraphConv(in_channels, out_channels, conv, act, norm, bias, heads,
+                            compute_dtype, generator), "dense")
+
+
+def _needs_knn(name: str):
+    raise NotImplementedError(f"{name} builds a dilated kNN graph per forward "
+                              "(`ops/knn.py`): it comes with slice 9, the point-cloud slice")
+
+
+class DynConv(nn.Module):
+    """A graph conv on a per-forward dilated kNN graph: slice 9."""
+
+    def __init__(self, *args, **kwargs):
+        _needs_knn("DynConv")
+
+
+def PlainDynBlock(*args, **kwargs):
+    _needs_knn("PlainDynBlock")
+
+
+def ResDynBlock(*args, **kwargs):
+    _needs_knn("ResDynBlock")
+
+
+def DenseDynBlock(*args, **kwargs):
+    _needs_knn("DenseDynBlock")

@@ -60,21 +60,37 @@
 // roundings the contract fixes), so groups cannot help there.  Consecutive
 // edges' ee rows are contiguous, so the groups read one coalesced stretch a
 // step.  The wrapper (ops/spmm_cuda.py::k2_lane_groups) chooses w and G.
+//
+// The message form (SRC == kMsgs, `dgc_softmax_agg_msgs_*`) is the TPU
+// kernel's `relu_eps=None` path (spmm_pallas.py:345-346, launched by
+// `gen_softmax_aggregate_csr` at :416-459): the messages m [E_pad, C] are
+// materialised by the caller in receiver (CSR) order and used as they are,
+// with no sender gather, no relu and no eps.  cmax is then the EXACT
+// per-channel maximum of t*m over the valid edges (JAX's :402-409), not the
+// fused route's bound.  A row's messages are one contiguous stretch, so the
+// lane groups read consecutive rows: every load is coalesced and nothing is
+// a dependent chain.  The walk, the roundings and the order of the sums are
+// the gather forms'.
 #include "common.cuh"
 
 namespace dgc {
 
-// one edge's terms round_T(w * m) and round_T(w), per channel.  PAIRED
-// rounds bf16 two values at a time (one packing conversion a pair, the same
-// round-to-nearest-even as one at a time): fewer instructions, which the
-// one-group form (C=128, bound by instruction throughput) gains from and
-// the grouped forms measured slower with
-template <typename T, int VEC, bool PAIRED>
+// where an edge's message comes from: x[senders[e]], x[senders[e]] + ee[e],
+// or the materialised row msgs[e] (passed as x)
+enum Src { kGather = 0, kGatherEE = 1, kMsgs = 2 };
+
+// one edge's terms round_T(w * m) and round_T(w), per channel, with
+// m = relu(v) + eps (RELU_EPS, the gather forms) or m = v (the message
+// form).  PAIRED rounds bf16 two values at a time (one packing conversion a
+// pair, the same round-to-nearest-even as one at a time): fewer
+// instructions, which the one-group form (C=128, bound by instruction
+// throughput) gains from and the grouped forms measured slower with
+template <typename T, int VEC, bool PAIRED, bool RELU_EPS>
 __device__ __forceinline__ void edge_terms(const float* xv, const float* cm, float t, float eps,
                                            float* tn, float* td) {
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
-    const float m = fmaxf(xv[k], 0.f) + eps;
+    const float m = RELU_EPS ? fmaxf(xv[k], 0.f) + eps : xv[k];
     // explicit roundings keep nvcc from contracting t*m - cmax into one fma,
     // so each term is bit for bit the plain version's and only the order of
     // the sums differs
@@ -101,11 +117,11 @@ __device__ __forceinline__ void edge_terms(const float* xv, const float* cm, flo
   }
 }
 
-template <typename T, int VEC, bool PAIRED>
+template <typename T, int VEC, bool PAIRED, bool RELU_EPS>
 __device__ __forceinline__ void accumulate(const float* xv, const float* cm, float t,
                                            float eps, float* num, float* den) {
   float tn[VEC], td[VEC];
-  edge_terms<T, VEC, PAIRED>(xv, cm, t, eps, tn, td);
+  edge_terms<T, VEC, PAIRED, RELU_EPS>(xv, cm, t, eps, tn, td);
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
     num[k] += tn[k];
@@ -113,12 +129,17 @@ __device__ __forceinline__ void accumulate(const float* xv, const float* cm, flo
   }
 }
 
-// x[sender] (+ ee[e]) for one edge, widened to float32
-template <typename T, int VEC, bool EE>
+// x[sender] (+ ee[e]), or msgs[e] (x holds the messages), for one edge,
+// widened to float32
+template <typename T, int VEC, int SRC>
 __device__ __forceinline__ void load_message(const T* __restrict__ x, const T* __restrict__ ee,
                                              int sender, int e, int C, int c0, float* v) {
+  if constexpr (SRC == kMsgs) {
+    Rows<T, VEC>::load(x + (long long)e * C + c0, v);
+    return;
+  }
   Rows<T, VEC>::load(x + (long long)sender * C + c0, v);
-  if (EE) {
+  if constexpr (SRC == kGatherEE) {
     float ev[VEC];
     Rows<T, VEC>::load(ee + (long long)e * C + c0, ev);
 #pragma unroll
@@ -129,7 +150,7 @@ __device__ __forceinline__ void load_message(const T* __restrict__ x, const T* _
 // MULTI is false when the row takes one group (w = 32, G = 1): the layout is
 // then known at compile time and the kernel is the plain lanes-over-channels
 // walk, whose edge order is the sequential one.
-template <typename T, int VEC, bool EE, bool MULTI>
+template <typename T, int VEC, int SRC, bool MULTI>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 softmax_agg_kernel(const T* __restrict__ x, const T* __restrict__ ee,
                    const int* __restrict__ senders, const int* __restrict__ row_ptr,
@@ -163,14 +184,16 @@ softmax_agg_kernel(const T* __restrict__ x, const T* __restrict__ ee,
         float v[U][VEC];
 #pragma unroll
         for (int u = 0; u < U; ++u)
-          load_message<T, VEC, EE>(x, ee, senders[e + u * G], e + u * G, C, c0, v[u]);
+          load_message<T, VEC, SRC>(x, ee, SRC == kMsgs ? 0 : senders[e + u * G], e + u * G, C,
+                                    c0, v[u]);
 #pragma unroll
-        for (int u = 0; u < U; ++u) accumulate<T, VEC, !MULTI>(v[u], cm, t, eps, num, den);
+        for (int u = 0; u < U; ++u)
+          accumulate<T, VEC, !MULTI, SRC != kMsgs>(v[u], cm, t, eps, num, den);
       }
       for (; e < end; e += G) {
         float v[VEC];
-        load_message<T, VEC, EE>(x, ee, senders[e], e, C, c0, v);
-        accumulate<T, VEC, !MULTI>(v, cm, t, eps, num, den);
+        load_message<T, VEC, SRC>(x, ee, SRC == kMsgs ? 0 : senders[e], e, C, c0, v);
+        accumulate<T, VEC, !MULTI, SRC != kMsgs>(v, cm, t, eps, num, den);
       }
     }
     // the groups' partial sums, added in the order g = 0, 1, ..., G-1
@@ -197,14 +220,14 @@ softmax_agg_kernel(const T* __restrict__ x, const T* __restrict__ ee,
   }
 }
 
-template <typename T, int VEC, bool EE>
+template <typename T, int VEC, int SRC>
 void launch_one(const void* x, const void* ee, const void* senders, const void* row_ptr,
                 const void* t, const void* cmax, void* out, void* den, int n_rows, int C,
                 int w, int G, float eps, cudaStream_t s) {
   const dim3 grid(blocks_for_rows(n_rows)), block(kWarpsPerBlock * 32);
-  auto kernel = softmax_agg_kernel<T, VEC, EE, false>;
+  auto kernel = softmax_agg_kernel<T, VEC, SRC, false>;
   if constexpr (sizeof(T) == 2) {  // lane groups: bf16 only (see the head of this file)
-    if (G > 1) kernel = softmax_agg_kernel<T, VEC, EE, true>;
+    if (G > 1) kernel = softmax_agg_kernel<T, VEC, SRC, true>;
   }
   kernel<<<grid, block, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(ee), static_cast<const int*>(senders),
@@ -216,28 +239,34 @@ void launch_one(const void* x, const void* ee, const void* senders, const void* 
 template <typename T, int VEC>
 void launch_vec(const void* x, const void* ee, const void* senders, const void* row_ptr,
                 const void* t, const void* cmax, void* out, void* den, int n_rows, int C,
-                int w, int G, float eps, cudaStream_t s) {
-  if (ee)
-    launch_one<T, VEC, true>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps, s);
-  else
-    launch_one<T, VEC, false>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps,
+                int w, int G, float eps, bool msgs, cudaStream_t s) {
+  if (msgs)
+    launch_one<T, VEC, kMsgs>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps,
                               s);
+  else if (ee)
+    launch_one<T, VEC, kGatherEE>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G,
+                                  eps, s);
+  else
+    launch_one<T, VEC, kGather>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G,
+                                eps, s);
 }
 
 // vec: 4 or 1, as the wrapper found the rows aligned; w and G: the lane
-// groups (w * G <= 32, w * VEC >= C unless w == 32; float32 takes G = 1)
+// groups (w * G <= 32, w * VEC >= C unless w == 32; float32 takes G = 1);
+// msgs: x holds one materialised message row per edge (senders, ee and eps
+// are not read)
 template <typename T>
 int launch_softmax_agg(const void* x, const void* ee, const void* senders,
                        const void* row_ptr, const void* t, const void* cmax, void* out,
                        void* den, int n_rows, int C, int w, int G, float eps, int vec,
-                       void* stream) {
+                       bool msgs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w < 1 || w > 32 || G < 1 || w * G > 32 || (sizeof(T) == 4 && G != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec == 4)
-    launch_vec<T, 4>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps, s);
+    launch_vec<T, 4>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps, msgs, s);
   else if (vec == 1)
-    launch_vec<T, 1>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps, s);
+    launch_vec<T, 1>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps, msgs, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -254,7 +283,7 @@ extern "C" int dgc_softmax_agg_f32(const void* x, const void* ee, const void* se
                                    void* out, void* den, int n_rows, int C, int w, int G,
                                    float eps, int vec, void* stream) {
   return dgc::launch_softmax_agg<float>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows,
-                                        C, w, G, eps, vec, stream);
+                                        C, w, G, eps, vec, false, stream);
 }
 
 extern "C" int dgc_softmax_agg_bf16(const void* x, const void* ee, const void* senders,
@@ -262,5 +291,21 @@ extern "C" int dgc_softmax_agg_bf16(const void* x, const void* ee, const void* s
                                     void* out, void* den, int n_rows, int C, int w, int G,
                                     float eps, int vec, void* stream) {
   return dgc::launch_softmax_agg<__nv_bfloat16>(x, ee, senders, row_ptr, t, cmax, out, den,
-                                                n_rows, C, w, G, eps, vec, stream);
+                                                n_rows, C, w, G, eps, vec, false, stream);
+}
+
+// The message form: msgs [E_pad, C] of the output's type in receiver order,
+// the CSR row_ptr, t (a device float) and the exact per-channel cmax.
+extern "C" int dgc_softmax_agg_msgs_f32(const void* msgs, const void* row_ptr, const void* t,
+                                        const void* cmax, void* out, void* den, int n_rows,
+                                        int C, int w, int G, int vec, void* stream) {
+  return dgc::launch_softmax_agg<float>(msgs, nullptr, nullptr, row_ptr, t, cmax, out, den,
+                                        n_rows, C, w, G, 0.f, vec, true, stream);
+}
+
+extern "C" int dgc_softmax_agg_msgs_bf16(const void* msgs, const void* row_ptr, const void* t,
+                                         const void* cmax, void* out, void* den, int n_rows,
+                                         int C, int w, int G, int vec, void* stream) {
+  return dgc::launch_softmax_agg<__nv_bfloat16>(msgs, nullptr, nullptr, row_ptr, t, cmax, out,
+                                                den, n_rows, C, w, G, 0.f, vec, true, stream);
 }

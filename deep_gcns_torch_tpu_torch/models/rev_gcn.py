@@ -16,9 +16,10 @@ Parameter names follow the reference `state_dict` (`node_one_hot_encoder`,
 `node_features_encoder`, `edge_encoder`, `gcns.{l}.Fms.{g}.norm`,
 `gcns.{l}.Fms.{g}.gcn.*`, `last_norm`, `node_pred_linear`), except that the
 reference's invertible wrapper adds `_fn.` between `gcns.{l}.` and `Fms`.
-``conv`` "gen" (`GENBlock`) and "gat" (`GATBlock`, heads averaged, no edge
-encoder) are ported; the GCN and SAGE group functions need the convs of the
-conv-zoo slice and raise.
+``conv`` "gen" (`GENBlock`), "gcn" (`GCNBlock`), "sage" (`SAGEBlock`) or
+"gat" (`GATBlock`, heads averaged); the last three read no edge features, so
+the model has no edge encoder with them (`rev_gcn.py:91-94` of the JAX
+package).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from ..graph import Graph
 from ..nn.core import Linear, dropout, make_norm, shared_dropout_mask
 from ..rev.coupling import GroupAdditiveCoupling
 from ..rev.invertible import reversible_stack
-from ..rev.rev_layer import GATBlock, GENBlock
+from ..rev.rev_layer import GATBlock, GCNBlock, GENBlock, SAGEBlock
 
 
 @dataclass(frozen=True)
@@ -67,9 +68,8 @@ class RevGCNConfig:
 class RevGCN(nn.Module):
     def __init__(self, cfg: RevGCNConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.conv not in ("gen", "gat"):
-            raise NotImplementedError(f"RevGCN conv {cfg.conv!r} is not ported yet "
-                                      "(the port has 'gen' and 'gat')")
+        if cfg.conv not in ("gen", "gcn", "sage", "gat"):
+            raise NotImplementedError(f"RevGCN conv {cfg.conv!r} (gen/gcn/sage/gat)")
         if cfg.hidden_channels % cfg.group:
             raise ValueError(f"{cfg.hidden_channels} channels do not split into "
                              f"{cfg.group} groups")
@@ -80,14 +80,18 @@ class RevGCN(nn.Module):
                                                generator=generator)
         enc_in = c.node_feat_dim + (c.in_channels if c.use_one_hot_encoding else 0)
         self.node_features_encoder = Linear(enc_in, c.hidden_channels, generator=generator)
-        # no edge features in the task (edge_feat_dim 0), or a GAT group
-        # function, which reads none: no model-level encoder
+        # no edge features in the task (edge_feat_dim 0), or a GCN, SAGE or
+        # GAT group function, which reads none: no model-level encoder
         self.edge_encoder = (Linear(c.edge_feat_dim, c.hidden_channels, generator=generator)
                              if c.edge_feat_dim and c.conv == "gen" else None)
 
         def block():
             if c.conv == "gat":
                 return GATBlock(cg, cg, heads=c.heads, norm=c.norm, generator=generator)
+            if c.conv == "gcn":
+                return GCNBlock(cg, cg, norm=c.norm, generator=generator)
+            if c.conv == "sage":
+                return SAGEBlock(cg, cg, norm=c.norm, generator=generator)
             return GENBlock(cg, cg, aggr=c.aggr, t=c.t, learn_t=c.learn_t, p=c.p,
                             learn_p=c.learn_p, y=c.y, learn_y=c.learn_y, msg_norm=c.msg_norm,
                             learn_msg_scale=c.learn_msg_scale, encode_edge=c.conv_encode_edge,

@@ -40,8 +40,12 @@ _SIGNATURES = {
     "seg_sum": {name: [_P] * 4 + [_I] * 5 + [_P]
                 for name in ("dgc_seg_sum_f32", "dgc_seg_sum_bf16")},
     # x, ee, senders, row_ptr, t, cmax, out, den; n_rows, C, w, G; eps, vec, stream
-    "softmax_agg": {name: [_P] * 8 + [_I] * 4 + [_F, _I, _P]
-                    for name in ("dgc_softmax_agg_f32", "dgc_softmax_agg_bf16")},
+    # the message form: msgs, row_ptr, t, cmax, out, den; n_rows, C, w, G,
+    # vec, stream
+    "softmax_agg": {**{name: [_P] * 8 + [_I] * 4 + [_F, _I, _P]
+                       for name in ("dgc_softmax_agg_f32", "dgc_softmax_agg_bf16")},
+                    **{name: [_P] * 6 + [_I] * 5 + [_P]
+                       for name in ("dgc_softmax_agg_msgs_f32", "dgc_softmax_agg_msgs_bf16")}},
     # x, ee, qo, col_ptr, receivers, t, cmax, dx, dee, dt_part; n_rows, C,
     # e_pad, w, G; eps, grad_weights, vec, stream
     "softmax_bwd_csc": {name: [_P] * 10 + [_I, _I, _L, _I, _I, _F, _I, _I, _P]

@@ -26,7 +26,9 @@ they are, so that the port's arrays and routes match the JAX package's.
 `band_gat_agg` serves the sender-only-score GAT through `band_sum_auto`, and
 `band_gat_dense_agg` the destination-score GAT (and the per-receiver
 stabilizer) through `ops/gat_dense.py` (K7–K9 over the window band and its
-hub columns). Left for later: `band_extreme` (max/min).
+hub columns). `band_extreme` is the max/min of a node table over each
+receiver's edges on a hub-free band: a masked reduce over each block's
+window plus the leftover, plain PyTorch as it is XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from .. import native
 from ..graph import _tensor
 from ..nn.core import mm_f32
 from ._build import library
+from .route_misses import miss
 from .spmm_cuda import (_SUFFIX, _check_index, _raise_on, _require, csr_seg_sum,
                         csr_seg_sum_plain, fused_cmax)
 
@@ -712,10 +715,100 @@ def band_gat_dense_agg(feat_src: torch.Tensor, el: torch.Tensor, er: torch.Tenso
 
 
 # ---------------------------------------------------------------------------
+# band extreme (max/min): the masked window reduce
+# ---------------------------------------------------------------------------
+
+# bytes of the [blocks, BN, W, C] intermediate of one step of the window
+# reduce, which walks the receiver blocks in steps to stay under it
+_EXTREME_STEP_BYTES = 1 << 28
+
+
+def _window_extreme(x: torch.Tensor, band: Band, kind: str) -> torch.Tensor:
+    """Per receiver, the extreme of x over its window edges: each 128-row
+    block's window rows masked by count > 0 (`_window_extreme`,
+    `ops/band.py:855-873` of the JAX package); ±inf where a row has none."""
+    n_pad, c = x.shape
+    w = band.window
+    nb = n_pad // BN
+    fill = torch.tensor(float("-inf") if kind == "max" else float("inf"), dtype=x.dtype,
+                        device=x.device)
+    reduce = torch.amax if kind == "max" else torch.amin
+    mask = band.a.reshape(nb, BN, w) > 0
+    cols = torch.arange(w, device=x.device)
+    step = max(1, _EXTREME_STEP_BYTES // (BN * w * max(c, 1) * x.element_size()))
+    out = []
+    for b0 in range(0, nb, step):
+        idx = torch.clamp(band.w_lo[b0:b0 + step].long()[:, None] + cols, max=n_pad - 1)
+        win = x.index_select(0, idx.reshape(-1)).reshape(-1, 1, w, c)
+        out.append(reduce(torch.where(mask[b0:b0 + step, :, :, None], win, fill), dim=2))
+    return torch.cat(out).reshape(n_pad, c)
+
+
+def _band_extreme_fwd(x: torch.Tensor, band: Band, kind: str) -> torch.Tensor:
+    """The window extreme, combined with the leftover's segment extreme
+    (its sentinel rows add ±inf, the identity), then 0 where a receiver has
+    no edge (torch_scatter's empty-segment value)."""
+    n_pad, c = x.shape
+    out = _window_extreme(x, band, kind)
+    if band.n_lo:
+        fill = float("-inf") if kind == "max" else float("inf")
+        xg = x.index_select(0, torch.clamp(band.lo_src.long(), max=n_pad - 1))
+        vals = torch.where((band.lo_dst >= n_pad)[:, None],
+                           torch.tensor(fill, dtype=x.dtype, device=x.device), xg)
+        ids = torch.clamp(band.lo_dst.long(), max=n_pad - 1)[:, None].expand(-1, c)
+        lo = torch.full((n_pad, c), fill, dtype=x.dtype, device=x.device).scatter_reduce(
+            0, ids, vals, "amax" if kind == "max" else "amin", include_self=True)
+        out = torch.maximum(out, lo) if kind == "max" else torch.minimum(out, lo)
+    return torch.where(torch.isfinite(out), out, torch.zeros((), dtype=x.dtype,
+                                                             device=x.device))
+
+
+class _BandExtreme(torch.autograd.Function):
+    """Forward: `_band_extreme_fwd` on the forward band. Backward: the
+    tie-splitting gather of the segment max/min (`_band_extreme_bwd`,
+    `ops/band.py:922-939`): each edge whose sender's value equals its
+    receiver's extreme takes the receiver's cotangent divided by the number
+    of such edges, summed per sender."""
+
+    @staticmethod
+    def forward(ctx, x, band, senders, receivers, edge_mask, kind):
+        out = _band_extreme_fwd(x, band, kind)
+        ctx.save_for_backward(x, out, senders, receivers, edge_mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out, senders, receivers, edge_mask = ctx.saved_tensors
+        n_pad = x.shape[0]
+        ids = torch.clamp(receivers.long(), max=n_pad - 1)
+        sid = torch.clamp(senders.long(), max=n_pad - 1)
+        elig = (x.index_select(0, sid) == out.index_select(0, ids)) & edge_mask[:, None]
+        cnt = torch.zeros(out.shape, dtype=torch.float32, device=x.device).index_add_(
+            0, ids, elig.float())
+        cnt_e = torch.clamp_min(cnt, 1.0).index_select(0, ids)
+        dd = torch.where(elig, g.float().index_select(0, ids) / cnt_e, 0.0)
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device).index_add_(0, sid, dd)
+        return dx.to(x.dtype), None, None, None, None, None
+
+
+def band_extreme(x: torch.Tensor, bands: BandPair, senders: torch.Tensor,
+                 receivers: torch.Tensor, edge_mask: torch.Tensor,
+                 kind: str = "max") -> torch.Tensor:
+    """Gather-free segment max/min of the node table ``x`` over the graph's
+    edges: out[r] = extreme_{e: recv=r} x[send_e], 0 for a receiver with no
+    edge (`band_extreme`, `ops/band.py:892-910` of the JAX package). The
+    forward reads windows instead of edge rows; the backward reads the
+    graph's (sentinel-padded) edge arrays. Needs a hub-free band
+    (`band_extreme_ok`)."""
+    return _BandExtreme.apply(x, bands.fwd, senders, receivers, edge_mask, kind)
+
+
+# ---------------------------------------------------------------------------
 # gates
 # ---------------------------------------------------------------------------
 
-# aggregators with a node-factored band form (max/min wait for band_extreme)
+# aggregators with a node-factored band form (max/min take `band_extreme`
+# under its own gate)
 BAND_SOFTMAX_AGGRS = ("softmax", "softmax_sg", "softmax_sum")
 BAND_SUM_AGGRS = ("add", "sum", "mean", "power", "power_sum")
 
@@ -745,3 +838,42 @@ def band_gat_dense_ok(g, min_coverage: float = MIN_COVERAGE) -> bool:
     edges; hub structures are allowed. No platform check, as `band_sum_ok`."""
     band = getattr(g, "band", None)
     return band is not None and band.fwd.coverage >= min_coverage
+
+
+# the widest window the max/min route takes (the JAX package's, measured on
+# the TPU: the masked reduce pays a compare per window element)
+MAX_EXTREME_WINDOW = 256
+
+
+def band_extreme_ok(g, min_coverage: float = 0.98) -> bool:
+    """Gate of the max/min band route (`band_extreme_ok`, `ops/band.py:
+    945-964` of the JAX package): a band with no hub structures (the window
+    reduce serves the window band and the leftover only), a window of at
+    most `MAX_EXTREME_WINDOW` and coverage of at least ``min_coverage``. A
+    refused band is counted in `route_misses.FASTPATH_MISSES`. No platform
+    check, as `band_sum_ok`."""
+    band = getattr(g, "band", None)
+    if band is None:
+        return False
+    f = band.fwd
+    cuda = f.a.is_cuda
+    if f.hub_ids is not None or f.hub_row_ids is not None:
+        return miss("band_extreme", "hub structures present (max/min window reduce "
+                                    "serves the pure window band only)", warn=cuda)
+    if f.window > MAX_EXTREME_WINDOW:
+        return miss("band_extreme", f"window {f.window} > {MAX_EXTREME_WINDOW}", warn=cuda)
+    if f.coverage < min_coverage:
+        return miss("band_extreme", f"band coverage {f.coverage:.2f} < {min_coverage}",
+                    warn=cuda)
+    return True
+
+
+def band_extreme_route(g, x: torch.Tensor) -> bool:
+    """Whether MRConv's and GENConv's max/min take `band_extreme`: on the
+    CPU where `band_extreme_ok` holds, as the JAX package routes them; never
+    on the card, where the window reduce, which reads N·W rows where the
+    gather reads E, lost to the gather + segment max it replaces (2.4–2.8×
+    forward and backward on a hub-free graph at window 256, NVIDIA H100
+    80GB HBM3; `chip_smoke.py` phase 53 times both). Neither route has a
+    kernel of its own: the choice is no miss."""
+    return not x.is_cuda and band_extreme_ok(g)

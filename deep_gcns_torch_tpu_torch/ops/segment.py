@@ -1,5 +1,5 @@
-"""Segment reductions with the reference's torch_scatter semantics, in plain
-PyTorch (counterpart of `deep_gcns_torch_tpu/ops/segment.py:112-370`).
+"""Segment reductions with the reference's torch_scatter semantics
+(counterpart of `deep_gcns_torch_tpu/ops/segment.py:40-370`).
 
 * Out-of-range segment ids (the ``N_pad`` sentinel of padded edges) and
   masked entries contribute nothing.
@@ -8,12 +8,23 @@ PyTorch (counterpart of `deep_gcns_torch_tpu/ops/segment.py:112-370`).
 * `generalized_aggregate` is DeeperGCN's SoftMax/PowerMean family with the
   reference's stop-gradient softmax weights unless ``learn_t`` (for softmax
   and softmax_sum), the power clamps to [1e-7, 10] and the degree scaling
-  of the ``*_sum`` variants. Given the receivers' CSR ``row_ptr``, its sum
-  and mean go through K1 (`spmm_cuda.segment_sum_csr`), as the JAX
-  package's kernel route does.
+  of the ``*_sum`` variants.
 
-The other reductions are the CPU path and the oracle of the GENConv routes
-that have no kernel of their own.
+The kernel routes, taken as the JAX package takes them on a TPU, minus its
+platform clause (a CPU tensor runs each kernel's plain version) and its
+tile-alignment clauses (the port's kernels take any padding):
+
+* `segment_sum`, `segment_mean` and `scatter` given the receivers' CSR
+  ``row_ptr`` sum through K1 (`spmm_cuda.segment_sum_csr`) when the flat
+  width is at least 32 (JAX's `sum_pallas_ok_shape`);
+* `generalized_aggregate` given ``row_ptr`` sums add/sum and mean through
+  K1 and runs the softmax family through K2's message form
+  (`spmm_cuda.gen_softmax_aggregate_csr`).
+
+A route that a missing ``row_ptr`` (or, for GENConv's fused route, CSC)
+turns away is counted in the ledger of `route_misses` (read with
+`fastpath_misses()`, which this module re-exports as the JAX package's does),
+and logged once per reason when the tensors are on the card.
 """
 
 from __future__ import annotations
@@ -22,9 +33,24 @@ from typing import Optional, Union
 
 import torch
 
-from .spmm_cuda import segment_sum_csr
+from .route_misses import fastpath_misses, miss  # noqa: F401
+from .spmm_cuda import gen_softmax_aggregate_csr, segment_sum_csr
 
 Scalar = Union[torch.Tensor, float]
+
+
+def sum_k1_ok_shape(shape) -> bool:
+    """The gate of a segment sum's K1 route, given ``row_ptr``
+    (`sum_pallas_ok_shape` of the JAX package, `ops/segment.py:81-105`,
+    without its platform clause, its lane-padding clause, which refuses no
+    width of 32 or more, and its E_pad % 512 and N_pad % 128 clause: K1
+    reads CSR ranges, not tiles): a flat width of at least 32. Narrower
+    rows, and a sum without ``row_ptr`` (a degree, a sum over another
+    index), take the scatter path and are no miss."""
+    c = 1
+    for d in shape[1:]:
+        c *= d
+    return c >= 32
 
 
 def _valid(segment_ids: torch.Tensor, num_segments: int,
@@ -38,7 +64,18 @@ def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                row_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Σ data over each segment. Given the sorted ids' CSR ``row_ptr`` and a
+    flat width that passes `sum_k1_ok_shape`, the masked data is summed over
+    each CSR range by K1 (entries past ``row_ptr[-1]`` are not read)."""
+    if row_ptr is not None and sum_k1_ok_shape(data.shape):
+        if mask is not None:
+            data = torch.where(_bcast(mask, data), data,
+                               torch.zeros((), dtype=data.dtype, device=data.device))
+        flat = data.reshape(data.shape[0], -1)
+        out = segment_sum_csr(flat.contiguous(), segment_ids, row_ptr)
+        return out.reshape((num_segments,) + data.shape[1:])
     ok = _valid(segment_ids, num_segments, mask)
     data = torch.where(_bcast(ok, data), data, torch.zeros((), dtype=data.dtype,
                                                             device=data.device))
@@ -57,8 +94,9 @@ def segment_degree(segment_ids: torch.Tensor, num_segments: int,
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    s = segment_sum(data, segment_ids, num_segments, mask)
+                 mask: Optional[torch.Tensor] = None,
+                 row_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    s = segment_sum(data, segment_ids, num_segments, mask, row_ptr)
     cnt = segment_degree(segment_ids, num_segments, mask, s.dtype)
     return s / _bcast(torch.clamp_min(cnt, 1), s)
 
@@ -106,10 +144,14 @@ def segment_min(data, segment_ids, num_segments, mask=None):
 
 
 def scatter(name: str, data: torch.Tensor, segment_ids: torch.Tensor,
-            num_segments: int, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Named dispatch (reference `scatter_`)."""
-    fns = {"add": segment_sum, "sum": segment_sum, "mean": segment_mean,
-           "max": segment_max, "min": segment_min}
+            num_segments: int, mask: Optional[torch.Tensor] = None,
+            row_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Named dispatch (reference `scatter_`); sum and mean take ``row_ptr``
+    (the K1 route of `segment_sum`), max and min do not read it."""
+    if name in ("add", "sum", "mean"):
+        fn = segment_mean if name == "mean" else segment_sum
+        return fn(data, segment_ids, num_segments, mask, row_ptr)
+    fns = {"max": segment_max, "min": segment_min}
     return fns[name](data, segment_ids, num_segments, mask)
 
 
@@ -135,6 +177,36 @@ def segment_softmax(data: torch.Tensor, segment_ids: torch.Tensor, num_segments:
     return e / denom.index_select(0, ids)
 
 
+KERNEL_AGGRS = ("softmax", "softmax_sg", "softmax_sum", "add", "sum", "mean")
+
+
+def fused_gather_ok(g, aggr: str) -> bool:
+    """GENConv's fused gather + softmax aggregation (K2 forward, K1 or K4
+    backward) reads the graph's CSR ``row_ptr`` and its CSC ``csc_col_ptr``
+    and ``csc_receivers``: the gate of JAX's `fused_gather_ok`
+    (`ops/segment.py:269-294`) without its platform clause, its tile
+    alignment and its lane-padding clause (the port's kernels read CSR and
+    CSC ranges at any padding and width)."""
+    if aggr not in ("softmax", "softmax_sg", "softmax_sum"):
+        return False  # the fused pair covers the softmax family only: not a miss
+    if g.row_ptr is None or g.csc_col_ptr is None or g.csc_receivers is None:
+        return miss("fused_gather_agg", "graph lacks CSR/CSC aux indices",
+                    warn=g.senders.is_cuda)
+    return True
+
+
+def _kernel_route_ok(aggr: str, row_ptr, msgs: torch.Tensor) -> bool:
+    """`generalized_aggregate`'s kernel route (JAX's `_pallas_ok`,
+    `ops/segment.py:232-249`, without its platform clause and its tile
+    alignment): an aggregator with a kernel and ``row_ptr`` present."""
+    if aggr not in KERNEL_AGGRS:
+        return False  # no kernel covers this aggregator: not a miss
+    if row_ptr is None:
+        return miss("generalized_aggregate", "graph has no CSR row_ptr aux",
+                    warn=msgs.is_cuda)
+    return True
+
+
 def _deg_scale(out, segment_ids, num_segments, mask, y):
     deg = segment_degree(segment_ids, num_segments, mask, out.dtype)
     return torch.pow(deg, torch.sigmoid(torch.as_tensor(y)))[:, None] * out
@@ -157,17 +229,27 @@ def generalized_aggregate(
 
     aggr ∈ {softmax, softmax_sg, softmax_sum, power, power_sum, add/sum,
     mean, max, min}. With ``row_ptr`` (the receivers' CSR over the
-    receiver-sorted messages) add/sum is K1's segment sum and mean that sum
-    over the clamped degree, as the JAX package routes them
-    (`deep_gcns_torch_tpu/ops/segment.py:322-330`): each CSR range is summed
-    and ``mask`` is not read, so it may mark only the sentinel padding
-    beyond ``row_ptr[-1]``, as a graph's edge mask does."""
-    if row_ptr is not None and aggr in ("add", "sum", "mean"):
-        s = segment_sum_csr(msgs, receivers, row_ptr)
-        if aggr == "mean":
-            cnt = segment_degree(receivers, num_segments, mask, s.dtype)
-            s = s / torch.clamp_min(cnt, 1)[:, None]
-        return s
+    receiver-sorted messages), add/sum is K1's segment sum, mean that sum
+    over the clamped degree, and the softmax family K2's message form
+    (`gen_softmax_aggregate_csr`, the weights differentiated when
+    ``learn_t`` for softmax and softmax_sum), as the JAX package routes them
+    (`deep_gcns_torch_tpu/ops/segment.py:318-341`): each CSR range is
+    aggregated and ``mask`` is not read there, so it may mark only the
+    sentinel padding beyond ``row_ptr[-1]``, as a graph's edge mask does."""
+    if _kernel_route_ok(aggr, row_ptr, msgs):
+        if aggr in ("add", "sum", "mean"):
+            s = segment_sum_csr(msgs, receivers, row_ptr)
+            if aggr == "mean":
+                cnt = segment_degree(receivers, num_segments, mask, s.dtype)
+                s = s / torch.clamp_min(cnt, 1)[:, None]
+            return s
+        grad_w = learn_t and aggr in ("softmax", "softmax_sum")
+        out = gen_softmax_aggregate_csr(msgs, receivers, row_ptr, t, grad_w)
+        if aggr == "softmax_sum":
+            # JAX counts the degree in the output's dtype and scales in float32
+            deg = segment_degree(receivers, num_segments, mask, out.dtype).float()
+            out = torch.pow(deg, torch.sigmoid(torch.as_tensor(y)))[:, None] * out.float()
+        return out
     if aggr in ("add", "sum"):
         return segment_sum(msgs, receivers, num_segments, mask)
     if aggr == "mean":

@@ -1,9 +1,10 @@
 """CSR segment sum (K1), fused softmax aggregation (K2, with or without edge
-embeddings), its CSC backward with edge embeddings (K4), and the GAT
-attention SpMM (K5 forward, K6 CSC backward): CUDA kernels, their plain
-PyTorch versions and the autograd Functions around them.
+embeddings, and its form over materialised messages), its CSC backward with
+edge embeddings (K4), and the GAT attention SpMM (K5 forward, K6 CSC
+backward): CUDA kernels, their plain PyTorch versions and the autograd
+Functions around them.
 
-Counterpart of `deep_gcns_torch_tpu/ops/spmm_pallas.py:252-315, 322-412,
+Counterpart of `deep_gcns_torch_tpu/ops/spmm_pallas.py:252-315, 322-459,
 466-803, 805-996`. The kernels are hand-written CUDA C++ for Hopper
 (`csrc/seg_sum.cu`, `csrc/softmax_agg.cu`, `csrc/softmax_bwd_csc.cu`,
 `csrc/gat_fwd.cu`, `csrc/gat_bwd_csc.cu`, built by `ops/_build.py`); each
@@ -13,7 +14,8 @@ Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel (or raises). Each kernel
 wrapper counts its launches in a plain int attribute (`csr_seg_sum.launches`,
 `softmax_agg.launches` and, for its edge-embedding form,
-`softmax_agg.launches_ee`, `softmax_bwd_csc.launches`, `gat_fwd.launches`,
+`softmax_agg.launches_ee`, `softmax_agg_msgs.launches` for its message form,
+`softmax_bwd_csc.launches`, `gat_fwd.launches`,
 `gat_bwd_csc.launches`), so a run can show that its main path went through
 the kernels.
 
@@ -476,6 +478,144 @@ def fused_softmax_gather_agg_plain(x, senders, row_ptr, csc_receivers, csc_col_p
 
 # the call site's name in the JAX package; on the GPU there are no lanes to pad
 fused_softmax_gather_agg_auto = fused_softmax_gather_agg
+
+
+# ---------------------------------------------------------------------------
+# K2's message form: the softmax aggregation of materialised messages
+# ---------------------------------------------------------------------------
+
+def msgs_cmax(msgs: torch.Tensor, row_ptr: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The per-channel shift of the message form, JAX's exact maximum
+    (spmm_pallas.py:402-409): max over the valid edges of t·m, 0 where
+    nothing is finite, float32 [C], no gradient. The messages are in CSR
+    order, so JAX's valid edges (receiver < N_pad) are the first
+    ``row_ptr[-1]``, read in place (one host read of that count). Rounding
+    is monotone, so the maximum of the products is the product of t with
+    the channel's largest (t > 0) or smallest (t < 0) message, bit for bit;
+    both extremes come from one pass in the messages' dtype."""
+    n_valid = int(row_ptr[-1])
+    if n_valid == 0:
+        return torch.zeros(msgs.shape[1], dtype=torch.float32, device=msgs.device)
+    lo, hi = torch.aminmax(msgs.detach()[:n_valid], dim=0)
+    lo, hi = lo.float(), hi.float()
+    c = torch.where(t > 0, t * hi, torch.where(t < 0, t * lo, torch.zeros_like(hi)))
+    return torch.where(torch.isfinite(c), c, 0.0)
+
+
+def softmax_agg_msgs_plain(msgs: torch.Tensor, row_ptr: torch.Tensor, t: torch.Tensor,
+                           cmax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, den) of K2's message form: per receiver row of the CSR ranges
+    and channel, num = Σ round(w·m) and den = Σ round(w) in float32 with
+    w = exp(t·m − cmax) and round() the rounding to the messages' dtype;
+    out = num/den (0 where den = 0). Both outputs in the messages' dtype."""
+    edges, rows = _edge_rows(row_ptr)
+    m = msgs.index_select(0, edges).float()
+    w = torch.exp(m * t - cmax)
+    shape = (row_ptr.shape[0] - 1, msgs.shape[1])
+    num = torch.zeros(shape, dtype=torch.float32, device=msgs.device)
+    den = torch.zeros(shape, dtype=torch.float32, device=msgs.device)
+    num.index_add_(0, rows, (w * m).to(msgs.dtype).float())
+    den.index_add_(0, rows, w.to(msgs.dtype).float())
+    pos = den > 0
+    out = torch.where(pos, num / torch.where(pos, den, 1.0), 0.0)
+    return out.to(msgs.dtype), den.to(msgs.dtype)
+
+
+def softmax_agg_msgs(msgs: torch.Tensor, row_ptr: torch.Tensor, t: torch.Tensor,
+                     cmax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's message form (`csrc/softmax_agg.cu`, `dgc_softmax_agg_msgs_*`) on
+    a CUDA tensor; the plain version on a CPU one. ``msgs`` [E_pad, C] are in
+    receiver (CSR) order; ``t`` is a one-element float32 tensor read on the
+    device."""
+    if msgs.device.type == "cpu":
+        return softmax_agg_msgs_plain(msgs, row_ptr, t, cmax)
+    _check_rows("msgs", msgs)
+    _check_index("row_ptr", row_ptr, msgs.device)
+    _check_t_cmax(t, cmax, msgs)
+    n_rows, c = row_ptr.shape[0] - 1, msgs.shape[1]
+    out = torch.empty((n_rows, c), dtype=msgs.dtype, device=msgs.device)
+    den = torch.empty((n_rows, c), dtype=msgs.dtype, device=msgs.device)
+    if n_rows == 0 or c == 0:
+        return out, den
+    t = t.contiguous()
+    vec = _vec(c, msgs, out, den)
+    w, groups = k2_lane_groups(c, vec, msgs.dtype)
+    fn = getattr(library("softmax_agg"), f"dgc_softmax_agg_msgs_{_SUFFIX[msgs.dtype]}")
+    rc = fn(msgs.data_ptr(), row_ptr.data_ptr(), t.data_ptr(), cmax.data_ptr(),
+            out.data_ptr(), den.data_ptr(), n_rows, c, w, groups, vec,
+            torch.cuda.current_stream(msgs.device).cuda_stream)
+    softmax_agg_msgs.launches += 1
+    _raise_on(rc, "K2 softmax_agg_msgs")
+    return out, den
+
+
+softmax_agg_msgs.launches = 0  # K2's message form, counted apart from the gather forms
+
+
+class _SoftmaxAggMsgs(torch.autograd.Function):
+    """Forward: K2's message form with JAX's exact shift (`_softmax_fwd`,
+    spmm_pallas.py:425-435). Backward: JAX's `_softmax_bwd` (:438-456), which
+    is XLA there too: per edge w = exp(t·m − cmax)/den[r] from the saved den
+    (in the messages' dtype) and cmax, dm = g[r]·w, or with ``grad_weights``
+    dm = g[r]·w·(1 + t·(m − out[r])) and dt = Σ g[r]·w·m·(m − out[r]);
+    padding edges get 0."""
+
+    @staticmethod
+    def forward(ctx, msgs, t, receivers, row_ptr, grad_weights, agg):
+        t32 = t.detach().float().reshape(1)
+        cmax = msgs_cmax(msgs, row_ptr, t32)
+        out, den = agg(msgs.contiguous(), row_ptr, t32, cmax)
+        ctx.save_for_backward(msgs, receivers, t32, den, cmax,
+                              out if grad_weights else None)
+        ctx.grad_weights, ctx.t_shape = grad_weights, t.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        msgs, receivers, t, den, cmax, out = ctx.saved_tensors
+        n_pad = den.shape[0]
+        r = torch.clamp(receivers.long(), max=n_pad - 1)
+        valid = (receivers < n_pad)[:, None]
+        m = msgs.float()
+        den_e = den.index_select(0, r).float()
+        w = torch.exp(m * t - cmax).div_(torch.where(den_e > 0, den_e, 1.0))
+        del den_e
+        w = torch.where(valid, w, 0.0)
+        g_e = g.float().index_select(0, r)
+        dt = None
+        if ctx.grad_weights:
+            dl = m - out.float().index_select(0, r)
+            gw = g_e.mul_(w)
+            dm = gw * (1.0 + t * dl)
+            dt = (gw * m * dl).sum().reshape(ctx.t_shape)
+        else:
+            dm = g_e.mul_(w)
+        dm = torch.where(valid, dm, 0.0).to(msgs.dtype)
+        return dm, dt, None, None, None, None
+
+
+def _msgs_fn(agg, msgs, receivers, row_ptr, t, grad_weights):
+    if not isinstance(t, torch.Tensor):
+        t = torch.tensor([float(t)], dtype=torch.float32, device=msgs.device)
+    return _SoftmaxAggMsgs.apply(msgs, t, receivers, row_ptr, grad_weights, agg)
+
+
+def gen_softmax_aggregate_csr(msgs: torch.Tensor, receivers: torch.Tensor,
+                              row_ptr: torch.Tensor, t, grad_weights: bool = False
+                              ) -> torch.Tensor:
+    """out[n] = Σ_{e→n} softmax_e(t·m_e)·m_e per channel over the receiver
+    sorted messages ``msgs`` [E_pad, C] and their CSR ``row_ptr``
+    (`gen_softmax_aggregate_csr`, spmm_pallas.py:416-459): K2's message form
+    forward. ``grad_weights`` False keeps the reference's stop-gradient
+    softmax weights (d out/d m = w, no gradient for ``t``); True
+    differentiates through them and through ``t`` (a tensor or a float)."""
+    return _msgs_fn(softmax_agg_msgs, msgs, receivers, row_ptr, t, grad_weights)
+
+
+def gen_softmax_aggregate_csr_plain(msgs, receivers, row_ptr, t, grad_weights: bool = False):
+    """The same Function on the plain version, on any device: the oracle the
+    kernel's forward and backward are held against."""
+    return _msgs_fn(softmax_agg_msgs_plain, msgs, receivers, row_ptr, t, grad_weights)
 
 
 # ---------------------------------------------------------------------------

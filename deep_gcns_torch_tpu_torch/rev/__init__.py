@@ -1,5 +1,6 @@
 from .coupling import GroupAdditiveCoupling
 from .invertible import reversible_stack
-from .rev_layer import GENBlock
+from .rev_layer import GATBlock, GCNBlock, GENBlock, SAGEBlock
 
-__all__ = ["GENBlock", "GroupAdditiveCoupling", "reversible_stack"]
+__all__ = ["GATBlock", "GCNBlock", "GENBlock", "GroupAdditiveCoupling", "SAGEBlock",
+           "reversible_stack"]

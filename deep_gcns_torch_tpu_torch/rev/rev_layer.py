@@ -4,8 +4,9 @@
 conv. The shared dropout mask is an explicit chunk argument, so the forward
 and the inverse see the same mask by construction.
 
-`GENBlock` and `GATBlock` are ported. `GCNBlock` and `SAGEBlock` need the
-SemiGCN and SAGE convs of the conv-zoo slice and raise until then.
+`GENBlock` (GENConv), `GCNBlock` (Kipf's GCN), `SAGEBlock` (the
+reference's SAGE) and `GATBlock` (PyG's GATConv without self loops). The
+GCN and SAGE blocks read no edge features, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,9 +16,17 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from ..convs.sparse import GATConv, GENConv
+from ..convs.sparse import GATConv, GENConv, RSAGEConv, GCNConv
 from ..graph import Graph
 from ..nn.core import make_norm
+
+
+def _pre(norm: nn.Module, x: torch.Tensor, g: Graph, chunk_args: Tuple,
+         training: bool) -> torch.Tensor:
+    """norm → relu → the shared dropout mask (the first chunk argument)."""
+    mask = (tuple(chunk_args) + (None,))[0]
+    h = torch.relu(norm(x, g.node_mask))
+    return h * mask if training and mask is not None else h
 
 
 class GENBlock(nn.Module):
@@ -41,25 +50,38 @@ class GENBlock(nn.Module):
                            generator=generator)
 
     def forward(self, x: torch.Tensor, g: Graph, chunk_args: Tuple = ()) -> torch.Tensor:
-        mask, edge_attr, edge_attr_csc = (tuple(chunk_args) + (None,) * 3)[:3]
-        h = torch.relu(self.norm(x, g.node_mask))
-        if self.training and mask is not None:
-            h = h * mask
+        _, edge_attr, edge_attr_csc = (tuple(chunk_args) + (None,) * 3)[:3]
+        h = _pre(self.norm, x, g, chunk_args, self.training)
         return self.gcn(h, g, edge_attr=edge_attr, edge_attr_csc=edge_attr_csc)
 
 
 class GCNBlock(nn.Module):
-    """Not ported yet: needs the SemiGCNConv of a later slice."""
+    """norm → relu → shared dropout → Kipf's GCN (`rev_layer.py:81-104` of
+    the JAX package, reference `rev_layer.py:80-85`), its PyG `GCNConv`
+    parameters at `gcn.weight` and `gcn.bias`."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("GCNBlock needs the SemiGCNConv of a later slice")
+    def __init__(self, in_dim: int, out_dim: int, norm: str = "layer", generator=None):
+        super().__init__()
+        self.norm = make_norm(norm, in_dim)
+        self.gcn = GCNConv(in_dim, out_dim, generator=generator)
+
+    def forward(self, x: torch.Tensor, g: Graph, chunk_args: Tuple = ()) -> torch.Tensor:
+        return self.gcn(_pre(self.norm, x, g, chunk_args, self.training), g)
 
 
 class SAGEBlock(nn.Module):
-    """Not ported yet: needs the RSAGEConv of a later slice."""
+    """norm → relu → shared dropout → the reference's SAGE, plain messages,
+    no act and no norm inside (`rev_layer.py:107-132` of the JAX package):
+    `gcn.weight`, `gcn.bias`, `gcn.nn.0.*`."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("SAGEBlock needs the RSAGEConv of a later slice")
+    def __init__(self, in_dim: int, out_dim: int, norm: str = "layer", generator=None):
+        super().__init__()
+        self.norm = make_norm(norm, in_dim)
+        self.gcn = RSAGEConv(in_dim, out_dim, act=None, norm=None, relative=False,
+                             generator=generator)
+
+    def forward(self, x: torch.Tensor, g: Graph, chunk_args: Tuple = ()) -> torch.Tensor:
+        return self.gcn(_pre(self.norm, x, g, chunk_args, self.training), g)
 
 
 class GATBlock(nn.Module):
@@ -77,9 +99,5 @@ class GATBlock(nn.Module):
                            generator=generator)
 
     def forward(self, x: torch.Tensor, g: Graph, chunk_args: Tuple = ()) -> torch.Tensor:
-        mask = (tuple(chunk_args) + (None,))[0]
-        h = torch.relu(self.norm(x, g.node_mask))
-        if self.training and mask is not None:
-            h = h * mask
-        out = self.gcn(h, g)
+        out = self.gcn(_pre(self.norm, x, g, chunk_args, self.training), g)
         return out.reshape(out.shape[0], self.heads, self.out_dim).mean(1)

@@ -1,6 +1,7 @@
-"""Carry weights from the JAX package's DeeperGCN, RevGCN (GEN or GAT group
-functions), RevGAT and PyG GATConv into the port's `state_dict` (the inverse
-direction of `deep_gcns_torch_tpu/utils/import_torch.py`).
+"""Carry weights from the JAX package's DeeperGCN, RevGCN (GEN, GCN, SAGE or
+GAT group functions), RevGAT, the sparse conv zoo (`zoo_conv_entries`) and
+DeepGCNStatic into the port's `state_dict` (the inverse direction of
+`deep_gcns_torch_tpu/utils/import_torch.py`).
 
 The JAX model keeps per-layer parameters stacked on a leading L axis for
 `lax.scan`, `Linear.w` as [in, out], and norms as `scale`/`bias` params plus
@@ -163,8 +164,8 @@ def rev_gcn_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
     (numpy arrays). The JAX layers are stacked [L, G, ...] (one `lax.scan`
     over L couplings of G group functions); here they unstack into
     `gcns.{l}.Fms.{g}.norm.*` and `gcns.{l}.Fms.{g}.gcn.*`, the reference
-    coupling's names without the `_fn` of its wrapper; ``conv`` "gen" or
-    "gat"."""
+    coupling's names without the `_fn` of its wrapper; ``conv`` "gen",
+    "gcn", "sage" or "gat"."""
     out: Dict[str, torch.Tensor] = {}
     norm = str(cfg.norm).lower()
     if "one_hot_encoder" in params:
@@ -182,6 +183,10 @@ def rev_gcn_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
             _norm(out, f"{pre}.norm", layers["norm"], {}, norm, (l, g))
             if cfg.conv == "gat":
                 gat_conv_entries(out, f"{pre}.gcn", layers["gcn"], (l, g))
+            elif cfg.conv in ("gcn", "sage"):
+                _weight_bias(out, f"{pre}.gcn", layers["gcn"], (l, g))
+                if cfg.conv == "sage":
+                    _mlp(out, f"{pre}.gcn.nn", layers["gcn"]["nn"], [], "none", None, (l, g))
             else:
                 _genconv(out, f"{pre}.gcn", layers["gcn"], {}, cfg, norm, (l, g))
     return out
@@ -231,4 +236,79 @@ def rev_gat_state_dict_from_jax(params: dict, cfg) -> Dict[str, torch.Tensor]:
     out["norm.weight"] = _t(params["norm"]["scale"])
     out["norm.bias"] = _t(params["norm"]["bias"])
     out["bias_last.bias"] = _t(params["bias_last"])
+    return out
+
+
+def _norm_name(norm) -> str:
+    return "none" if norm is None else str(norm).lower()
+
+
+def _weight_bias(out: Dict[str, torch.Tensor], prefix: str, p: dict, idx=()):
+    """A PyG conv's raw `weight` [in, out] (JAX's w as it is) and `bias`."""
+    out[prefix + ".weight"] = _t(np.asarray(p["w"])[idx])
+    if "b" in p:
+        out[prefix + ".bias"] = _t(np.asarray(p["b"])[idx])
+
+
+def _mlp(out: Dict[str, torch.Tensor], prefix: str, p: list, s, norm: str, act, idx=()):
+    """An MLP with no bare last layer (the zoo's): per layer Linear, the norm
+    (unless "none") and the activation, a PReLU's slope at its index."""
+    seq = 0
+    for i, e in enumerate(p):
+        _linear(out, f"{prefix}.{seq}", e["lin"], idx)
+        seq += 1
+        if norm != "none":
+            _norm(out, f"{prefix}.{seq}", e["norm"], _entry(s, i).get("norm", {}), norm, idx)
+            seq += 1
+        if act is not None and str(act).lower() != "none":
+            if "prelu" in e:
+                out[f"{prefix}.{seq}.weight"] = _t(np.asarray(e["prelu"])[idx])
+            seq += 1
+
+
+def zoo_conv_entries(out: Dict[str, torch.Tensor], prefix: str, p: dict, s: dict, conv: str,
+                     norm=None, act="relu", idx=()):
+    """One conv of `convs.sparse.graph_conv(..., conv, act, norm)` under
+    ``prefix`` from the JAX conv's (params, state): edge, mr and gin own an
+    MLP at `nn`; (r)sage `weight`, `bias` and `nn`; gcn `gconv.weight`,
+    `gconv.bias` and `unlinear.*`; gat PyG's GATConv and `unlinear.*`."""
+    c, norm = conv.lower(), _norm_name(norm)
+    s = s or {}
+    if c in ("edge", "mr", "gin"):
+        _mlp(out, f"{prefix}.nn", p["nn"], s.get("nn", []), norm, act, idx)
+        return
+    if c in ("sage", "rsage"):
+        _weight_bias(out, prefix, p, idx)
+        _mlp(out, f"{prefix}.nn", p["nn"], s.get("nn", []), norm, act, idx)
+        return
+    if c == "gcn":
+        _weight_bias(out, f"{prefix}.gconv", p, idx)
+        if "prelu" in p:
+            out[prefix + ".unlinear.0.weight"] = _t(np.asarray(p["prelu"])[idx])
+    elif c == "gat":
+        gat_conv_entries(out, prefix, p, idx)
+    else:
+        raise NotImplementedError(f"conv {conv} is not implemented")
+    if norm != "none":
+        at = int(act is not None and str(act).lower() != "none")
+        _norm(out, f"{prefix}.unlinear.{at}", p["norm"], s.get("norm", {}), norm, idx)
+
+
+def deepgcn_static_state_dict_from_jax(params: dict, state: dict, cfg
+                                       ) -> Dict[str, torch.Tensor]:
+    """`state_dict` of `models.DeepGCNStatic(cfg)` from the JAX
+    `DeepGCNStatic(cfg)`'s (params, state) of numpy arrays: the head at
+    `head.gconv`, block i at `backbone.{i}.body.gconv`, the fusion MLP at
+    `fusion_block` and the prediction MLPs at `prediction.{0,2,4}`."""
+    out: Dict[str, torch.Tensor] = {}
+    conv, norm, act = cfg.conv, _norm_name(cfg.norm), cfg.act
+    zoo_conv_entries(out, "head.gconv", params["head"], state.get("head", {}), conv, norm, act)
+    for i, bp in enumerate(params["blocks"]):
+        zoo_conv_entries(out, f"backbone.{i}.body.gconv", bp,
+                         _entry(state.get("blocks", []), i), conv, norm, act)
+    _mlp(out, "fusion_block", params["fusion"], state.get("fusion", []), "none", act)
+    heads = ((0, norm, act), (2, norm, act), (4, "none", None))
+    for j, (at, nrm, a) in enumerate(heads):
+        _mlp(out, f"prediction.{at}", params["pred"][j], _entry(state.get("pred", []), j),
+             nrm, a)
     return out

@@ -21,6 +21,8 @@ What differs from the reference's names:
   DeeperGCN       the proteins variant names its norms `layer_norms`
                   (`examples/ogb/ogbn_proteins/model.py:63`); the port's are
                   `norms`.
+  DeepGCN (PPI)   nothing: `head.gconv`, `backbone.{i}.body.gconv`,
+                  `fusion_block`, `prediction.{0,2,4}`, as the reference's.
 
 An export is the model's `state_dict` as numpy under the reference's names.
 """
@@ -86,6 +88,15 @@ def import_deepergcn(sd: Mapping[str, torch.Tensor], model: torch.nn.Module,
     return _load(model, sd, strict)
 
 
+def import_deepgcn(sd: Mapping[str, torch.Tensor], model: torch.nn.Module,
+                   strict: bool = True):
+    """Load a reference PPI DeepGCN `state_dict` (`examples/ppi/
+    architecture.py`) into ``model`` (`models.DeepGCNStatic`): the names are
+    the reference's, so nothing is renamed. A single zoo conv loads the same
+    way (`ref_mrconv`'s `nn.0.weight`, `ref_semigcn`'s `gconv.weight`)."""
+    return _load(model, sd, strict)
+
+
 def import_revgcn(sd: Mapping[str, torch.Tensor], model: torch.nn.Module,
                   strict: bool = True):
     """Load a reference RevGCN `state_dict` into ``model`` (`models.RevGCN`)."""
@@ -112,6 +123,11 @@ def export_deepergcn(model: torch.nn.Module, norm_prefix: str = "norms"
     "layer_norms" for the proteins variant."""
     return {re.sub(r"^norms\.", norm_prefix + ".", k): v
             for k, v in _numpy(model.state_dict()).items()}
+
+
+def export_deepgcn(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The reference PPI DeepGCN's `state_dict` as numpy."""
+    return _numpy(model.state_dict())
 
 
 def export_revgcn(model: torch.nn.Module) -> Dict[str, np.ndarray]:

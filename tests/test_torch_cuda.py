@@ -1237,3 +1237,127 @@ def test_small_collab_card_matches_cpu(cuda_device):
     _assert_card_matches_cpu(_card_and_cpu(
         cuda_device,
         lambda: ogbl_collab.build_models(args, in_dim, torch.Generator().manual_seed(0)), run))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [40, 64, 128, 256, 41])
+def test_softmax_agg_msgs_matches_plain(cuda_device, dtype, c):
+    """K2's message form against its plain version on the corner graph (a
+    hub row of 5,000 edges, rows with no edge exact 0), messages of either
+    sign with the exact shift, two launches bit for bit; counted apart from
+    the gather forms."""
+    g = _k2_corner_graph(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    msgs = torch.randn(g.num_edges_padded, c, device=cuda_device, generator=gen).to(dtype)
+    t = torch.tensor([0.7], device=cuda_device)
+    cmax = tsp.msgs_cmax(msgs, g.row_ptr, t)
+    before = (tsp.softmax_agg_msgs.launches, tsp.softmax_agg.launches)
+    out, den = tsp.softmax_agg_msgs(msgs, g.row_ptr, t, cmax)
+    out_p, den_p = tsp.softmax_agg_msgs_plain(msgs, g.row_ptr, t, cmax)
+    _assert_close(out, out_p, **TOL[dtype])
+    _assert_close(den, den_p, **TOL[dtype])
+    empty = (g.row_ptr[1:] == g.row_ptr[:-1]).nonzero()[:, 0]
+    assert empty.numel() >= 100
+    assert not out[empty].any() and not den[empty].any()
+    out2, den2 = tsp.softmax_agg_msgs(msgs, g.row_ptr, t, cmax)
+    assert torch.equal(out, out2) and torch.equal(den, den2)
+    torch.cuda.synchronize()
+    assert (tsp.softmax_agg_msgs.launches - before[0],
+            tsp.softmax_agg.launches - before[1]) == (2, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad_weights", [False, True])
+def test_message_form_function_matches_plain(cuda_device, dtype, grad_weights):
+    """`gen_softmax_aggregate_csr` on the card (the message form forward)
+    against the Function on the plain version: out, d(msgs) and dt."""
+    g = _graph(cuda_device, 64, seed=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    msgs = torch.randn(g.num_edges_padded, 64, device=cuda_device, generator=gen).to(dtype)
+    res = []
+    for fn in (tsp.gen_softmax_aggregate_csr, tsp.gen_softmax_aggregate_csr_plain):
+        m = msgs.detach().clone().requires_grad_(True)
+        tt = torch.tensor([0.4], device=cuda_device, requires_grad=grad_weights)
+        o = fn(m, g.receivers, g.row_ptr, tt, grad_weights)
+        (o.float() ** 2).sum().backward()
+        res.append((o.detach(), m.grad, tt.grad))
+    _assert_close(res[0][0], res[1][0], **TOL[dtype])
+    _assert_close(res[0][1], res[1][1], **TOL_BWD[dtype])
+    if grad_weights:
+        _assert_close(res[0][2], res[1][2], **TOL_DT[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("conv", ["edge", "mr", "gat", "gcn", "gin", "sage", "rsage"])
+def test_small_deepgcn_static_card_matches_cpu(cuda_device, conv):
+    """A 3-block res DeepGCNStatic of each zoo conv on the card against the
+    CPU: the logits, then each graph layer (head conv and blocks) on the
+    same input under a random cotangent: its output, the input's gradient
+    (the gathers' backward, K1) and every parameter gradient. The whole
+    model's gradients pass kinks (relu, the maxima) in millions of elements,
+    where the devices' rounding differences may take another branch; a
+    layer's input is the same on both sides, and EdgeConv's near-tied maxima
+    (`utils.agreement.edge_max_near_ties`) get no cotangent."""
+    from deep_gcns_torch_tpu_torch.models import DeepGCNConfig, DeepGCNStatic
+    from deep_gcns_torch_tpu_torch.utils.agreement import layer_results
+
+    gc = _graph(torch.device("cpu"), 16, seed=3, n=1000, e=10000)
+    gd = gc.to(cuda_device)
+    cfg = DeepGCNConfig(in_channels=16, n_classes=9, n_filters=32, n_blocks=3, conv=conv,
+                        heads=4 if conv == "gat" else 1, dropout=0.0)
+    models = [DeepGCNStatic(cfg, torch.Generator().manual_seed(0)).to(d).train()
+              for d in (cuda_device, torch.device("cpu"))]
+    n = gc.n_node
+    with torch.no_grad():
+        _assert_close(models[0](gd.x, gd)[:n], models[1](gc.x, gc)[:n], 1e-4, 1e-4)
+    gen = torch.Generator().manual_seed(4)
+    for _, outs in layer_results(models, (gd, gc), conv, "res", gen):
+        _assert_close(outs[0][0][:n], outs[1][0][:n], 1e-4, 1e-4)
+        _assert_close(outs[0][1], outs[1][1], 1e-3, 1e-4)
+        g_max = max(float(v.abs().max()) for v in outs[1][2].values())
+        for k, want in outs[1][2].items():
+            _assert_close(outs[0][2][k], want, 1e-3, 1e-4, ref_max=g_max)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_csc", [True, False])
+def test_unaligned_padding_launches_kernels(cuda_device, with_csc):
+    """Padding that is no multiple of the JAX package's tiles (N_pad 3001,
+    E_pad 30007) turns no route away on the card: GENConv softmax launches
+    K2's fused form once a forward with CSC and its message form without,
+    a segment sum given ``row_ptr`` launches K1 once, and both match the
+    CPU."""
+    from deep_gcns_torch_tpu_torch.convs.sparse import GENConv
+    from deep_gcns_torch_tpu_torch.ops import segment as tseg
+
+    rng = np.random.default_rng(8)
+    n, e = 3000, 30000
+    x = rng.standard_normal((n, 32)).astype(np.float32)
+    gc = build_graph(x, rng.integers(0, n, e), rng.integers(0, n, e), num_nodes=n,
+                     node_pad=3001, edge_pad=30007, with_csc=with_csc)
+    assert (gc.num_nodes_padded, gc.num_edges_padded) == (3001, 30007)
+    data = torch.from_numpy(rng.standard_normal((gc.num_edges_padded, 32)).astype(np.float32))
+    res, counts = [], []
+    for g in (gc.to(cuda_device), gc):
+        dev = g.senders.device
+        conv = GENConv(32, 32, aggr="softmax", learn_t=True,
+                       generator=torch.Generator().manual_seed(0)).to(dev)
+        xx = g.x.clone().requires_grad_(True)
+        before = (tsp.softmax_agg.launches, tsp.softmax_agg_msgs.launches,
+                  tsp.csr_seg_sum.launches)
+        out = conv(xx, g)
+        mid = tsp.csr_seg_sum.launches
+        s = tseg.segment_sum(data.to(dev), g.receivers, g.num_nodes_padded, g.edge_mask,
+                             row_ptr=g.row_ptr)
+        counts.append((tsp.softmax_agg.launches - before[0],
+                       tsp.softmax_agg_msgs.launches - before[1],
+                       tsp.csr_seg_sum.launches - mid))
+        (out ** 2).sum().backward()
+        res.append((out.detach(), xx.grad, s))
+    assert counts[0] == ((1, 0, 1) if with_csc else (0, 1, 1))
+    assert counts[1] == (0, 0, 0)
+    _assert_close(res[0][0], res[1][0], 1e-4, 1e-5)
+    _assert_close(res[0][1], res[1][1], 1e-3, 1e-4)
+    _assert_close(res[0][2], res[1][2], 1e-5, 1e-6)

@@ -13,6 +13,8 @@ MODULES = ["deep_gcns_torch_tpu_torch", "deep_gcns_torch_tpu_torch.device",
            "deep_gcns_torch_tpu_torch.data.synthetic", "deep_gcns_torch_tpu_torch.nn.core",
            "deep_gcns_torch_tpu_torch.native", "deep_gcns_torch_tpu_torch.data.reorder",
            "deep_gcns_torch_tpu_torch.ops.segment", "deep_gcns_torch_tpu_torch.ops.spmm_cuda",
+           "deep_gcns_torch_tpu_torch.ops.route_misses",
+           "deep_gcns_torch_tpu_torch.utils.agreement",
            "deep_gcns_torch_tpu_torch.ops.band", "deep_gcns_torch_tpu_torch.ops.gat_dense",
            "deep_gcns_torch_tpu_torch.convs.sparse",
            "deep_gcns_torch_tpu_torch.models.deeper_gcn",
@@ -46,7 +48,9 @@ MODULES = ["deep_gcns_torch_tpu_torch", "deep_gcns_torch_tpu_torch.device",
            "deep_gcns_torch_tpu_torch.apps.ogbl_collab",
            "deep_gcns_torch_tpu_torch.apps.ogbl_collab_test",
            "deep_gcns_torch_tpu_torch.apps.ogbn_products",
-           "deep_gcns_torch_tpu_torch.apps.ogbn_products_test"]
+           "deep_gcns_torch_tpu_torch.apps.ogbn_products_test",
+           "deep_gcns_torch_tpu_torch.models.deepgcn", "deep_gcns_torch_tpu_torch.data.ppi",
+           "deep_gcns_torch_tpu_torch.apps.ppi", "deep_gcns_torch_tpu_torch.apps.ppi_test"]
 
 
 def test_import_leaves_jax_out():
