@@ -261,9 +261,39 @@ every check; nothing is caught):
    with `SAGEBlock` at L=101 (80 channels, group 2) through
    `apps/ogbn_proteins_rev`'s `train_step`: one warm-up, 2 timed steps and
    a `predict` each, K1 3·L·G a step and L·G a `predict`, the peak, a
-   profiled step.
+   profiled step;
+55. point-cloud kernels (after phase 46): a dilated kNN (k=16, d=4) of
+   random points at the S3DIS shape (B=8 × N=4,096) and its transpose (one
+   point made no one's neighbour): K1's gathered form at C=64 in f32 and
+   bf16 against its plain version, two launches bit for bit, that point
+   exact 0; `gather_neighbors` forward (bit for bit) and backward against
+   the plain index_select and autograd's scatter, K1 once a backward at
+   C=64 and never at C=9;
+56. kNN on the card: the exact dilated kNN at d = 1, 4 and 27 against a
+   float64 recomputation (each neighbour within 1e-5 of the largest
+   distance of the true rank's; self first), the approximate form's rules,
+   and the kNN's times;
+57. point-cloud agreement: small DenseDeepGCN, DeepGCNCls and SparseDeepGCN
+   on the card against the CPU: logits on the CPU's kNN graphs replayed on
+   the card, each graph layer's output and gradients on the CPU's input
+   and graph, every flip of the card's own kNN named (a flip that is not a
+   near tie fails);
+58. main path: `apps/sem_seg_dense`'s `train_step` at its defaults
+   (ResGCN-28 EdgeConv, k=16, dilation 1 + i, C=64, B=8 × N=4,096 with 9
+   channels, float32, Adam 1e-3, dropout 0.3): one warm-up, 3 timed steps,
+   a timed `predict`, K1 exactly 27 times a backward and never in a
+   forward, the peak, a profiled step; then one bf16-compute step; then
+   `apps/modelnet_cls` the same way at its defaults (ResGCN-14, k=9,
+   stochastic dilation, B=32 × N=1,024, SGD): K1 13 times a backward;
+59. the four point-cloud apps (`sem_seg_dense` at 14 blocks, `sem_seg_sparse`
+   at 7, `modelnet_cls` and `part_sem_seg` at their defaults) for 2 epochs
+   on `--synthetic` data with `--save_ckpt`, and each test or eval script,
+   whose score must equal the run's best;
+60. K1's timing at the point-cloud shapes (S3DIS d=1 and d=27 f32, d=1
+   bf16, ModelNet f32): time, device time, plain, bound, `index_add_` (the
+   `library_ms`) and `torch.sparse.mm` of the transposed selection.
 
-Every time and memory figure of phases 30-54 is printed beside the card's
+Every time and memory figure of phases 30-60 is printed beside the card's
 name and power limit. A failed comparison saves its tensors (K2's with its
 inputs) under `chiprun_out/check_failures/` for replay.
 
@@ -287,7 +317,8 @@ columns apart), K7, K8 and K9 output to that line, so that the two
 commits' kernels compare bit for bit.
 
 `--ogb` runs phase 1 and then only phases 40-46, printing their `kernels`
-rows as one JSON line and no device result.
+rows as one JSON line and no device result; `--pointcloud` likewise runs
+phase 1 and phases 55-60.
 
 `--kernel-forms[=K7,K9,K5,K8,K6,K1]` (card only; `--k7-forms` is
 `--kernel-forms=K7`) runs phase 1 and then times the named kernels' forms
@@ -4175,6 +4206,384 @@ def phase_ppi_k1_timing(gp, ppi_infos, iters):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# point clouds (phases 55-60)
+# ---------------------------------------------------------------------------
+
+# (B, N, k, C) of the two point-cloud training shapes: S3DIS blocks
+# (sem_seg_dense's defaults) and ModelNet40 clouds (modelnet_cls's)
+PC_S3DIS = (8, 4096, 16, 64)
+PC_MODELNET = (32, 1024, 9, 64)
+PC_TINY = (2, 256, 4, 32)   # --rehearse-cpu
+
+
+def pc_knn_transpose(dev, shape, d, seed):
+    """A dilated kNN (k, d) of uniform random xyz points at ``shape`` and its
+    transpose; point 0 of cloud 0 is made no one's neighbour (its ids,
+    its own included, moved to point 1), so its cotangent sum must be an
+    exact 0."""
+    b, n, k, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(b, n, 3, device=dev, generator=gen)
+    idx, _ = tknn.dilated_knn_graph_dense(x, k, d)
+    idx[0][idx[0] == 0] = 1
+    perm, _, ptr = tgather.neighbor_transpose(idx)
+    deg = (ptr[1:] - ptr[:-1]).float()
+    log(f"[pc] kNN transpose B={b} N={n} k={k} d={d}: E={idx.numel()}, in-degree mean "
+        f"{float(deg.mean()):.2f} max {int(deg.max())} zero {int((deg == 0).sum())}")
+    return idx, perm, ptr
+
+
+def phase_pc_kernels(dev, shape):
+    """(a) K1's gathered form on a real kNN transpose (d = 4) in f32 and
+    bf16 against `csr_seg_sum_plain`, two launches bit for bit, the point
+    with no in-edge exact 0; `gather_neighbors` forward (bit for bit) and
+    backward (K1, launched once) against the plain index_select and its
+    autograd scatter, and below 32 channels no launch."""
+    chk = Checks("pc kernels")
+    b, n, k, c = shape
+    idx, perm, ptr = pc_knn_transpose(dev, shape, 4, 55)
+    gen = torch.Generator(device=dev).manual_seed(56)
+    e = idx.numel()
+    for dtype, tag, tol in ((torch.float32, "f32", TOL_F32), (torch.bfloat16, "bf16", TOL_BF16)):
+        g = torch.randn(e, c, device=dev, generator=gen).to(dtype)
+        out = tsp.csr_seg_sum(g, ptr, perm)
+        chk.close(f"K1 kNN transpose C={c} {tag}", out, tsp.csr_seg_sum_plain(g, ptr, perm),
+                  **tol)
+        chk.equal(f"K1 kNN transpose {tag} two launches bit for bit",
+                  tsp.csr_seg_sum(g, ptr, perm), out)
+        chk.equal(f"K1 kNN transpose {tag} point with no in-edge exact 0", out[0],
+                  torch.zeros(c, dtype=dtype, device=dev))
+    flat = (idx + (torch.arange(b, device=dev) * n)[:, None, None]).reshape(-1)
+    for cc in (c, 9):
+        x = torch.randn(b, n, cc, device=dev, generator=gen, requires_grad=True)
+        co = torch.randn(b, n, k, cc, device=dev, generator=gen)
+        reset_launches()
+        out = tgather.gather_neighbors(x, idx)
+        fwd = read_launches()["K1"]
+        (out * co).sum().backward()
+        launched = read_launches()["K1"]
+        want_launches = (0, 1) if dev.type == "cuda" and cc >= 32 else (0, 0)
+        xr = x.detach().clone().requires_grad_(True)
+        ref = xr.reshape(b * n, cc).index_select(0, flat).reshape(b, n, k, cc)
+        (ref * co).sum().backward()
+        chk.equal(f"gather_neighbors C={cc} forward", out.detach(), ref.detach())
+        chk.close(f"gather_neighbors C={cc} backward vs autograd's scatter", x.grad, xr.grad,
+                  **TOL_F32)
+        chk.equal(f"gather_neighbors C={cc} point with no in-edge exact 0", x.grad[0, 0],
+                  torch.zeros(cc, device=dev))
+        log(f"[pc kernels] gather_neighbors C={cc}: K1 launches forward {fwd}, backward "
+            f"{launched - fwd} (want {want_launches})")
+        if (fwd, launched - fwd) != want_launches:
+            chk.failed.append(f"gather_neighbors C={cc} launches")
+    sync(dev)
+    chk.raise_if_failed()
+
+
+def phase_pc_knn(dev, shape, iters):
+    """(b) the exact dilated kNN on the card at d = 1, 4 and 27 against a
+    float64 recomputation, tie-aware: each returned neighbour's distance
+    within 1e-5 of the largest distance (the scale of the float32 matrix
+    form's error) of the true rank r·d's, self at rank 0; the approximate
+    form (d = 4) against its own rules: self first, no duplicate, the rest
+    from the offset-0 subsample; and the kNN's time at each dilation (the
+    largest topk is k·d of N)."""
+    chk = Checks("pc knn")
+    b, n, k, _ = shape
+    x = torch.rand(b, n, 3, device=dev, generator=torch.Generator(device=dev).manual_seed(57))
+    ar = torch.arange(n, device=dev)
+    for d in (1, 4, 27):
+        if k * d > n:
+            continue
+        nn_idx, _ = tknn.dilated_knn_graph_dense(x, k, d)
+        worst = 0.0
+        for i in range(b):
+            x64 = x[i].double()
+            dist = ((x64[:, None, :] - x64[None, :, :]) ** 2).sum(-1)
+            want = torch.sort(dist, -1).values[:, : k * d: d]
+            got = dist.gather(-1, nn_idx[i])
+            worst = max(worst, float((got - want).abs().max()) / float(dist.max()))
+            del dist
+        ok = worst <= 1e-5 and bool((nn_idx[..., 0] == ar).all())
+        log(f"[check] exact kNN k={k} d={d} vs float64: worst |d - d_true| / max d = "
+            f"{worst:.3e} (limit 1e-5), self first {bool((nn_idx[..., 0] == ar).all())} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            chk.failed.append(f"exact kNN d={d}")
+        ms = time_fn(lambda: tknn.dilated_knn_graph_dense(x, k, d), dev, iters)
+        log(f"[pc knn] exact dilated kNN B={b} N={n} k={k} d={d} (topk {k * d} of {n}): "
+            f"{ms:.3f} ms; card: {CARD}")
+    d = 4
+    ap, _ = tknn.dilated_knn_graph_dense(x, k, d, method="approx")
+    srt = torch.sort(ap, -1).values
+    ok = (bool((ap[..., 0] == ar).all()) and bool((srt[..., 1:] != srt[..., :-1]).all())
+          and bool((ap[..., 1:] % d == 0).all()))
+    log(f"[check] approx kNN k={k} d={d}: self first, no duplicate, ids from the subsample "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        chk.failed.append("approx kNN rules")
+    ms = time_fn(lambda: tknn.dilated_knn_graph_dense(x, k, d, method="approx"), dev, iters)
+    log(f"[pc knn] approx kNN d={d}: {ms:.3f} ms; card: {CARD}")
+    chk.raise_if_failed()
+
+
+def _pc_small_models(dev):
+    """(kind, model builder, input) of the agreement models: 3 blocks, 32
+    channels, k = 8, a few hundred points."""
+    gen = torch.Generator().manual_seed(58)
+    return [
+        ("DenseDeepGCN", lambda: DenseDeepGCN(DeepGCNConfig(
+            in_channels=9, n_classes=13, n_filters=32, n_blocks=3, conv="edge", k=8,
+            dropout=0.0), torch.Generator().manual_seed(0)), torch.rand(2, 384, 9, generator=gen)),
+        ("DeepGCNCls", lambda: DeepGCNCls(DeepGCNConfig(
+            in_channels=3, n_classes=40, n_filters=32, n_blocks=3, conv="edge", k=8,
+            dropout=0.0, emb_dims=128, stochastic=False), torch.Generator().manual_seed(0)),
+         torch.rand(8, 256, 3, generator=gen)),
+        ("SparseDeepGCN", lambda: SparseDeepGCN(DeepGCNConfig(
+            in_channels=9, n_classes=13, n_filters=32, n_blocks=3, conv="edge", k=8,
+            dropout=0.0, num_points=384), torch.Generator().manual_seed(0)),
+         torch.rand(2 * 384, 9, generator=gen))]
+
+
+def _named_flips(chk, tag, flips):
+    """Logs each flip of the card's own kNN against the CPU's; one that is
+    not a near tie (float64 gap above 1e-5 of the largest distance) fails."""
+    for f in flips:
+        near = f["rel_gap"] <= 1e-5
+        log(f"[pc agreement] {tag}: kNN flip {f} ({'near tie' if near else 'NOT a near tie'})")
+        if not near:
+            chk.failed.append(f"{tag} kNN flip")
+
+
+def phase_pc_agreement(dev):
+    """(c) small DenseDeepGCN, DeepGCNCls and SparseDeepGCN on the card
+    against the same weights on the CPU: the logits with the CPU's kNN
+    graphs replayed on the card (`utils.agreement.KnnReplay`), then each
+    graph layer on the CPU's input to it and the CPU's graph of it
+    (`point_layer_results`): output, input gradient (K1 in the dense
+    gathers' backward) and every parameter gradient. Where the card's own
+    kNN differs from the CPU's, the flip is named; a flip that is not a near
+    tie fails; the tolerances are phase 52's."""
+    chk = Checks("pc agreement")
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(59)
+    reset_launches()
+    for name, build, x in _pc_small_models(dev):
+        models = [build().to(d).train() for d in (dev, cpu)]
+        sparse = name == "SparseDeepGCN"
+        args = () if name == "DeepGCNCls" else (None,)
+        with torch.no_grad():
+            with KnnReplay() as rec:
+                want = models[1](x, *args)
+            with KnnReplay(rec.graphs) as rep:
+                got = models[0](x.to(dev), *args)
+        for i, flips in enumerate(rep.flips):
+            _named_flips(chk, f"{name} logits kNN call {i}", flips)
+        chk.close(f"{name} logits, card vs cpu (the CPU's graphs)", got.cpu(), want, 1e-4, 1e-4)
+        for lname, outs, flips in point_layer_results(models, x, gen, sparse=sparse):
+            tag = f"{name} {lname}"
+            _named_flips(chk, tag, flips)
+            chk.close(f"{tag} output", outs[0][0], outs[1][0], 1e-4, 1e-4)
+            chk.close(f"{tag} input grad", outs[0][1], outs[1][1], 1e-3, 1e-4)
+            g_max = max(float(v.abs().max()) for v in outs[1][2].values())
+            for k in outs[1][2]:
+                chk.close(f"{tag} grad {k}", outs[0][2][k], outs[1][2][k], 1e-3, 1e-4,
+                          ref_max=g_max)
+    launches = read_launches()
+    log(f"[pc agreement] launches on the card {launches}")
+    if dev.type == "cuda" and launches["K1"] == 0:
+        raise AssertionError("pc agreement: K1 never launched")
+    chk.raise_if_failed()
+
+
+def pc_batch(app, args, dev, seed):
+    """One batch of the app's synthetic data (S3DIS blocks or ModelNet
+    clouds), on the card."""
+    draw = (data_pointcloud.synthetic_modelnet if app is modelnet_cls
+            else data_pointcloud.synthetic_s3dis)
+    x, y = draw(np.random.default_rng(seed), args.batch_size, args.num_points, args.n_classes)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def phase_pc_main(dev, tag, app, argv, steps, profile=True):
+    """(d) ``app``'s `train_step` and `predict` (`apps/sem_seg_dense` or
+    `apps/modelnet_cls`) at the app's defaults and ``argv``: one warm-up
+    step, ``steps`` timed steps and a timed `predict`; K1 exactly
+    n_blocks − 1 times in every backward (the head gathers 9 or 3 channels,
+    below K1's gate) and never in a forward; finite losses, the peak, a
+    profile of one more step."""
+    args = app.get_args(["--device", dev.type] + argv)
+    model = app.build_model(args, torch.Generator().manual_seed(0)).to(dev)
+    opt, sched = app.make_optimizer(args, model, 6)
+    x, y = pc_batch(app, args, dev, 60)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    per_bwd = (args.n_blocks - 1) if dev.type == "cuda" and args.n_filters >= 32 else 0
+    free_memory(dev)
+    reset_launches()
+    losses, times = [], []
+    for i in range(steps + 1):
+        t0 = time.perf_counter()
+        loss = app.train_step(model, opt, x, y, gen)
+        sched.step()
+        sync(dev)
+        if i:
+            times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    after_steps = read_launches()
+    t0 = time.perf_counter()
+    pred = app.predict(model, x)
+    sync(dev)
+    predict_s = time.perf_counter() - t0
+    if pred.shape != y.shape or int(pred.min()) < 0 or int(pred.max()) >= args.n_classes:
+        raise AssertionError(f"{tag}: predict gave shape {tuple(pred.shape)}")
+    launches = read_launches()
+    want = no_launches()
+    want["K1"] = per_bwd * (steps + 1)
+    if after_steps != launches:
+        raise AssertionError(f"{tag}: predict launched {launches} after {after_steps}")
+    b, n = x.shape[:2]
+    info = _path_info(tag, dev, losses, times, predict_s, launches, want,
+                      {"points_per_s": b * n / (sorted(times)[len(times) // 2]),
+                       "k1_per_backward": launches["K1"] // (steps + 1),
+                       "n_blocks": args.n_blocks, "batch": [b, n]})
+    if profile:
+        phase_profile(dev, lambda: app.train_step(model, opt, x, y, gen), tag=f"{tag}-profile")
+    del model, opt
+    free_memory(dev)
+    return info
+
+
+def phase_pc_apps(dev, rehearse):
+    """(e) each point-cloud app's `main` with `--synthetic --save_ckpt` for
+    2 epochs, then its test or eval script on `ckpt_best`, whose score must
+    equal the run's best (PartNet's eval on the validation shapes the run
+    scored). Depths are cut to fit the time limit. Returns {app: (result,
+    K1 launches)}."""
+    small = (["--n_blocks", "3", "--n_filters", "32", "--num_points", "256", "--k", "4"]
+             if rehearse else [])
+    base = ["--synthetic", "--device", dev.type, "--epochs", "2"] + small
+    depth = {} if rehearse else {"sem_seg_dense": ["--n_blocks", "14"],
+                                 "sem_seg_sparse": ["--n_blocks", "7"],
+                                 "modelnet_cls": [], "part_sem_seg": []}
+    runs = {}
+    for name, app, test_app, extra in (
+            ("sem_seg_dense", sem_seg_dense, sem_seg_dense_test, []),
+            ("sem_seg_sparse", sem_seg_sparse, sem_seg_sparse_test, []),
+            ("modelnet_cls", modelnet_cls, None, ["--batch_size", "16"] if rehearse else []),
+            ("part_sem_seg", part_sem_seg, part_sem_seg_eval, [])):
+        argv = base + depth.get(name, []) + extra
+        t0 = time.time()
+        reset_launches()
+        res = app.main(argv + ["--save_ckpt", "--exp_root", RUNS])
+        k1 = read_launches()["K1"]
+        t1 = time.time()
+        ckpt = ["--pretrained_model", os.path.join(res["exp"], "ckpt_best")]
+        if name == "modelnet_cls":
+            scored = app.main(argv + ["--phase", "test"] + ckpt)["oa"]
+        elif name == "part_sem_seg":
+            scored = test_app.main(argv + ["--eval_phase", "val", "--res_dir",
+                                           os.path.join(RUNS, "partseg")] + ckpt)["part_iou"]
+        else:
+            scored = test_app.main(argv + ckpt)["miou"]
+        log(f"[pc-apps] {name} {' '.join(argv)}: losses {res['losses']} best {res['best']}, "
+            f"scored {scored}; K1 launches {k1}; train {t1 - t0:.1f}s, score "
+            f"{time.time() - t1:.1f}s; card: {CARD}")
+        if scored != res["best"] or not all(map(math.isfinite, res["losses"])):
+            raise AssertionError(f"pc-apps {name}: scored {scored}, the run's best {res['best']}")
+        runs[name] = (res, k1)
+        free_memory(dev)
+    return runs
+
+
+def phase_pc_k1_timing(dev, shapes, iters):
+    """(f) K1's gathered form at the point-cloud shapes, as the gathers'
+    backward calls it: the time (`time_fn`), the device time, the plain
+    version's, the bound, `index_add_` of the [E, C] cotangent by the flat
+    neighbour ids (autograd's scatter, which the K1 route replaces; the
+    `library_ms`) and `torch.sparse.mm` of the transposed selection matrix.
+    ``shapes``: (tag, shape, d, dtype, launches). Returns the rows."""
+    chk = Checks("pc k1 timing")
+    rows = []
+    for tag, shape, d, dtype, launches in shapes:
+        b, n, k, c = shape
+        idx, perm, ptr = pc_knn_transpose(dev, shape, d, 61)
+        e, rows_n = idx.numel(), b * n
+        g = torch.randn(e, c, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(62)).to(dtype)
+        size = g.element_size()
+        out = tsp.csr_seg_sum(g, ptr, perm)
+        err = chk.close(f"K1 {tag}", out, tsp.csr_seg_sum_plain(g, ptr, perm),
+                        **(TOL_F32 if dtype == torch.float32 else TOL_BF16))
+        ms = time_fn(lambda: tsp.csr_seg_sum(g, ptr, perm), dev, iters)
+        d_ms = device_ms(lambda: tsp.csr_seg_sum(g, ptr, perm), dev, iters)
+        plain_ms = time_fn(lambda: tsp.csr_seg_sum_plain(g, ptr, perm), dev, 3)
+        # the cotangent read once, the permutation and pointers, the output
+        # written once; one add per (edge, channel)
+        bnd = bound(e * c * size + 4 * e + 4 * (rows_n + 1) + rows_n * c * size, e * c)
+        flat = (idx + (torch.arange(b, device=dev) * n)[:, None, None]).reshape(-1)
+
+        def lib():
+            return torch.zeros((rows_n, c), dtype=dtype, device=dev).index_add_(0, flat, g)
+
+        lib_ms = time_fn(lib, dev, iters)
+        chk.close(f"index_add_ vs K1 {tag}", lib(), out, **TOL_LIBRARY)
+        gs = g if dev.type == "cuda" else g.float()  # the CPU's sparse product in float32
+        st = torch.sparse_coo_tensor(torch.stack([flat, torch.arange(e, device=dev)]),
+                                     torch.ones(e, dtype=gs.dtype, device=dev), (rows_n, e),
+                                     check_invariants=False).to_sparse_csr()
+        sp_ms = time_fn(lambda: torch.sparse.mm(st, gs), dev, iters)
+        chk.close(f"torch.sparse.mm vs K1 {tag}", torch.sparse.mm(st, gs), out, **TOL_LIBRARY)
+        rows.append({"name": f"K1 seg_sum_csr pc {tag}", "route": "cuda",
+                     "source": f"{PKG}/csrc/seg_sum.cu",
+                     "replaces": "deep_gcns_torch_tpu/ops/spmm_pallas.py:252",
+                     "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms})
+        log(f"[pc-k1-timing] K1 {tag} (E={e} rows={rows_n} C={c}): {ms:.4f} ms, device "
+            f"{d_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; {d_ms / bnd[0]:.2f}x), plain "
+            f"{plain_ms:.3f} ms, index_add_ {lib_ms:.4f} ms, torch.sparse.mm {sp_ms:.4f} ms; "
+            f"card: {CARD}")
+        del g, out, st
+        free_memory(dev)
+    chk.raise_if_failed()
+    return rows
+
+
+def phase_pointcloud(dev, rehearse, iters):
+    """Phases 55-60; returns the `kernels` rows of phase 60."""
+    s3dis, modelnet = (PC_TINY, PC_TINY) if rehearse else (PC_S3DIS, PC_MODELNET)
+    phase_pc_kernels(dev, s3dis)
+    mark("pc kernels")
+    phase_pc_knn(dev, s3dis, 2 if rehearse else 5)
+    mark("pc knn")
+    phase_pc_agreement(dev)
+    mark("pc agreement")
+    small = ["--n_blocks", "4", "--num_points", "256", "--k", "4"] if rehearse else []
+    main_info = phase_pc_main(dev, "sem-seg-dense-resgcn28", sem_seg_dense, small,
+                              2 if rehearse else 3)
+    mark("pc main path")
+    bf16_info = phase_pc_main(dev, "sem-seg-dense-resgcn28-bf16", sem_seg_dense,
+                              small + ["--compute_dtype", "bfloat16"], 1, profile=False)
+    mark("pc main path bf16")
+    cls_info = phase_pc_main(dev, "modelnet-resgcn14", modelnet_cls,
+                             small + (["--batch_size", "8", "--emb_dims", "64"]
+                                      if rehearse else []), 2 if rehearse else 3)
+    mark("pc modelnet path")
+    runs = phase_pc_apps(dev, rehearse)
+    shutil.rmtree(RUNS, ignore_errors=True)
+    mark("pc apps")
+    d_last = 4 if rehearse else 27
+    c = s3dis[3]
+    rows = phase_pc_k1_timing(dev, (
+        (f"S3DIS d=1 C={c} f32", s3dis, 1, torch.float32, main_info["launches"]["K1"]),
+        (f"S3DIS d={d_last} C={c} f32", s3dis, d_last, torch.float32,
+         main_info["launches"]["K1"]),
+        (f"S3DIS d=1 C={c} bf16", s3dis, 1, torch.bfloat16, bf16_info["launches"]["K1"]),
+        (f"ModelNet d=1 C={modelnet[3]} f32", modelnet, 1, torch.float32,
+         cls_info["launches"]["K1"])), iters)
+    mark("pc k1 timing")
+    return rows
+
+
 def main(argv):
     rehearse = "--rehearse-cpu" in argv
     if not rehearse and not torch.cuda.is_available():
@@ -4191,6 +4600,11 @@ def main(argv):
         return 0
     if "--ogb" in argv:
         rows = phase_ogb(dev, rehearse, iters)
+        shutil.rmtree(RUNS, ignore_errors=True)
+        print(json.dumps({"kernels": rows}))
+        return 0
+    if "--pointcloud" in argv:
+        rows = phase_pointcloud(dev, rehearse, iters)
         shutil.rmtree(RUNS, ignore_errors=True)
         print(json.dumps({"kernels": rows}))
         return 0
@@ -4361,6 +4775,8 @@ def main(argv):
     free_memory(dev)
     rows += phase_ogb(dev, rehearse, iters)
     shutil.rmtree(RUNS, ignore_errors=True)
+    free_memory(dev)
+    rows += phase_pointcloud(dev, rehearse, iters)
     log(f"[done] all phases in {time.time() - t_all:.1f}s")
     if rehearse:
         print(json.dumps({"kernels": rows}))
@@ -4386,12 +4802,15 @@ if __name__ == "__main__":
     from deep_gcns_torch_tpu_torch import native
     from types import SimpleNamespace
 
-    from deep_gcns_torch_tpu_torch.apps import (ogbg_mol, ogbg_mol_test, ogbg_ppa,
+    from deep_gcns_torch_tpu_torch.apps import (modelnet_cls, ogbg_mol, ogbg_mol_test, ogbg_ppa,
                                                 ogbg_ppa_test, ogbl_collab, ogbl_collab_test,
                                                 ogbn_arxiv, ogbn_arxiv_dgl, ogbn_arxiv_test,
                                                 ogbn_products, ogbn_products_test,
                                                 ogbn_proteins, ogbn_proteins_rev,
-                                                ogbn_proteins_test, ppi, ppi_test)
+                                                ogbn_proteins_test, part_sem_seg,
+                                                part_sem_seg_eval, ppi, ppi_test, sem_seg_dense,
+                                                sem_seg_dense_test, sem_seg_sparse,
+                                                sem_seg_sparse_test)
     from deep_gcns_torch_tpu_torch.convs.sparse import GATConv, GENConv, graph_conv
     from deep_gcns_torch_tpu_torch.data.ogb_features import (ATOM_FEATURE_DIMS,
                                                              BOND_FEATURE_DIMS)
@@ -4401,18 +4820,23 @@ if __name__ == "__main__":
                                                           random_node_graph)
     from deep_gcns_torch_tpu_torch.graph import (add_self_loops, attach_band, build_graph,
                                                  to_undirected)
-    from deep_gcns_torch_tpu_torch.models import (DeepGCNConfig, DeepGCNStatic, DeeperGCN,
-                                                  DeeperGCNConfig, RevGAT, RevGATConfig,
-                                                  RevGCN, RevGCNConfig)
+    from deep_gcns_torch_tpu_torch.data import pointcloud as data_pointcloud
+    from deep_gcns_torch_tpu_torch.models import (DeepGCNCls, DeepGCNConfig, DeepGCNStatic,
+                                                  DeeperGCN, DeeperGCNConfig, DenseDeepGCN,
+                                                  RevGAT, RevGATConfig, RevGCN, RevGCNConfig,
+                                                  SparseDeepGCN)
     from deep_gcns_torch_tpu_torch.nn.core import Linear
     from deep_gcns_torch_tpu_torch.ops import _build
     from deep_gcns_torch_tpu_torch.ops import band as tband
     from deep_gcns_torch_tpu_torch.ops import blocksparse as tbs
     from deep_gcns_torch_tpu_torch.ops import gat_dense as tgd
+    from deep_gcns_torch_tpu_torch.ops import gather as tgather
+    from deep_gcns_torch_tpu_torch.ops import knn as tknn
     from deep_gcns_torch_tpu_torch.ops.gather import gather_src_auto
     from deep_gcns_torch_tpu_torch.ops import segment as tseg
     from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
-    from deep_gcns_torch_tpu_torch.utils.agreement import layer_results
+    from deep_gcns_torch_tpu_torch.utils.agreement import (KnnReplay, layer_results,
+                                                           point_layer_results)
     from deep_gcns_torch_tpu_torch.utils.optim import linear_schedule, make_optimizer
 
     sys.exit(main(sys.argv[1:]))

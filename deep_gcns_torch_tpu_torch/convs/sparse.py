@@ -33,8 +33,10 @@ and SAGE sum through `band_sum_auto` (K3) on a band that passes
 `band_extreme_route` holds (the CPU). Parameter names are
 the reference's `state_dict` names (`nn.0.weight`, `gconv.weight`,
 `unlinear.<i>`, ...), so its checkpoints and goldens load as they are.
-`DynConv` and the dynamic blocks need the kNN graph of the point-cloud
-slice and raise.
+`DynConv` and the dynamic blocks build a flat dilated kNN graph per forward
+(`ops.knn.dilated_knn_graph_flat`) with no CSR or CSC auxiliaries, so, as
+in the JAX package, whose `_pallas_ok` refuses a graph without `row_ptr`,
+they launch no kernel.
 
 On a CPU tensor every kernel runs its plain version.
 """
@@ -52,6 +54,7 @@ from ..ops.band import (BAND_SOFTMAX_AGGRS, band_extreme, band_extreme_route, ba
                         band_gat_dense_ok, band_ok, band_softmax_agg_auto, band_sum_auto,
                         band_sum_ok)
 from ..ops.gather import gather_dst_auto, gather_src_auto
+from ..ops.knn import dilated_knn_graph_flat
 from ..ops.segment import (fused_gather_ok, generalized_aggregate, scatter, segment_degree,
                            segment_sum)
 from ..ops.spmm_cuda import fused_softmax_gather_agg_auto
@@ -573,8 +576,8 @@ class _Block(nn.Module):
         super().__init__()
         self.body, self.kind, self.res_scale = body, kind, res_scale
 
-    def forward(self, x: torch.Tensor, g: Graph) -> torch.Tensor:
-        y = self.body(x, g)
+    def forward(self, x: torch.Tensor, g: Optional[Graph] = None, *args) -> torch.Tensor:
+        y = self.body(x, g, *args)
         if self.kind == "res":
             return y + x * self.res_scale
         if self.kind == "dense":
@@ -598,25 +601,60 @@ def DenseGraphBlock(in_channels: int, out_channels: int, conv: str = "edge",
                             compute_dtype, generator), "dense")
 
 
-def _needs_knn(name: str):
-    raise NotImplementedError(f"{name} builds a dilated kNN graph per forward "
-                              "(`ops/knn.py`): it comes with slice 9, the point-cloud slice")
+def knn_graph(senders: torch.Tensor, receivers: torch.Tensor, n: int) -> Graph:
+    """The Graph of a flat kNN edge list over n nodes: every node and edge
+    valid, no CSR or CSC auxiliaries (JAX `convs/sparse.py:718-725`)."""
+    dev = senders.device
+    return Graph(x=None, senders=senders, receivers=receivers, edge_attr=None,
+                 node_mask=torch.ones(n, dtype=torch.bool, device=dev),
+                 edge_mask=torch.ones(senders.shape, dtype=torch.bool, device=dev),
+                 n_node=n, n_edge=int(senders.shape[0]))
 
 
-class DynConv(nn.Module):
-    """A graph conv on a per-forward dilated kNN graph: slice 9."""
+class DynConv(GraphConv):
+    """A `GraphConv` on the dilated kNN graph of its input, built per forward
+    over equally sized graphs of ``num_points`` nodes stacked flat
+    (`torch_vertex.py:267-281`); kNN draws its stochastic choices from the
+    forward's generator in training mode."""
 
-    def __init__(self, *args, **kwargs):
-        _needs_knn("DynConv")
+    def __init__(self, in_dim: int, out_dim: int, kernel_size: int = 9, dilation: int = 1,
+                 conv: str = "edge", act: Optional[str] = "relu", norm: Optional[str] = None,
+                 bias: bool = True, heads: int = 8, stochastic: bool = False,
+                 epsilon: float = 0.0, num_points: int = 1024, knn_method: str = "exact",
+                 compute_dtype: Optional[str] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_dim, out_dim, conv, act, norm, bias, heads, compute_dtype, generator)
+        self.k, self.dilation, self.num_points = kernel_size, dilation, num_points
+        self.stochastic, self.epsilon, self.knn_method = stochastic, epsilon, knn_method
+
+    def forward(self, x: torch.Tensor, g: Optional[Graph] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if g is None:
+            senders, receivers = dilated_knn_graph_flat(
+                x, self.k, self.dilation, num_nodes_per_graph=self.num_points,
+                stochastic=self.stochastic, epsilon=self.epsilon, train=self.training,
+                generator=generator, method=self.knn_method)
+            g = knn_graph(senders, receivers, x.shape[0])
+        return self.gconv(x, g)
 
 
-def PlainDynBlock(*args, **kwargs):
-    _needs_knn("PlainDynBlock")
+def PlainDynBlock(channels: int, kernel_size: int = 9, dilation: int = 1, conv: str = "edge",
+                  act: Optional[str] = "relu", norm: Optional[str] = None, bias: bool = True,
+                  num_points: int = 1024, **kw) -> _Block:
+    return _Block(DynConv(channels, channels, kernel_size, dilation, conv, act, norm, bias,
+                          num_points=num_points, **kw), "plain")
 
 
-def ResDynBlock(*args, **kwargs):
-    _needs_knn("ResDynBlock")
+def ResDynBlock(channels: int, kernel_size: int = 9, dilation: int = 1, conv: str = "edge",
+                act: Optional[str] = "relu", norm: Optional[str] = None, bias: bool = True,
+                res_scale: float = 1.0, num_points: int = 1024, **kw) -> _Block:
+    return _Block(DynConv(channels, channels, kernel_size, dilation, conv, act, norm, bias,
+                          num_points=num_points, **kw), "res", res_scale)
 
 
-def DenseDynBlock(*args, **kwargs):
-    _needs_knn("DenseDynBlock")
+def DenseDynBlock(in_channels: int, out_channels: int = 64, kernel_size: int = 9,
+                  dilation: int = 1, conv: str = "edge", act: Optional[str] = "relu",
+                  norm: Optional[str] = None, bias: bool = True, num_points: int = 1024,
+                  **kw) -> _Block:
+    return _Block(DynConv(in_channels, out_channels, kernel_size, dilation, conv, act, norm,
+                          bias, num_points=num_points, **kw), "dense")

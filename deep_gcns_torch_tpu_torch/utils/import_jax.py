@@ -1,6 +1,7 @@
 """Carry weights from the JAX package's DeeperGCN, RevGCN (GEN, GCN, SAGE or
-GAT group functions), RevGAT, the sparse conv zoo (`zoo_conv_entries`) and
-DeepGCNStatic into the port's `state_dict` (the inverse direction of
+GAT group functions), RevGAT, the sparse conv zoo (`zoo_conv_entries`),
+DeepGCNStatic, SparseDeepGCN, and the dense point-cloud models
+(`basic_conv_entries`: DenseDeepGCN, DeepGCNCls) into the port's `state_dict` (the inverse direction of
 `deep_gcns_torch_tpu/utils/import_torch.py`).
 
 The JAX model keeps per-layer parameters stacked on a leading L axis for
@@ -311,4 +312,98 @@ def deepgcn_static_state_dict_from_jax(params: dict, state: dict, cfg
     for j, (at, nrm, a) in enumerate(heads):
         _mlp(out, f"prediction.{at}", params["pred"][j], _entry(state.get("pred", []), j),
              nrm, a)
+    return out
+
+
+def sparse_deepgcn_state_dict_from_jax(params: dict, state: dict, cfg
+                                       ) -> Dict[str, torch.Tensor]:
+    """`state_dict` of `models.SparseDeepGCN(cfg)` from the JAX model's
+    (params, state): the head at `head.gconv`, block i at
+    `backbone.{i}.body.gconv`, the fusion MLP (with its norm) at
+    `fusion_block`, the prediction MLPs at `prediction.{0,1,2}`."""
+    out: Dict[str, torch.Tensor] = {}
+    conv, norm, act = cfg.conv, _norm_name(cfg.norm), cfg.act
+    zoo_conv_entries(out, "head.gconv", params["head"], state.get("head", {}), conv, norm, act)
+    for i, bp in enumerate(params["blocks"]):
+        zoo_conv_entries(out, f"backbone.{i}.body.gconv", bp,
+                         _entry(state.get("blocks", []), i), conv, norm, act)
+    _mlp(out, "fusion_block", params["fusion"], state.get("fusion", []), norm, act)
+    for j, (nrm, a) in enumerate(((norm, act), (norm, act), ("none", None))):
+        _mlp(out, f"prediction.{j}", params["pred"][j], _entry(state.get("pred", []), j),
+             nrm, a)
+    return out
+
+
+def basic_conv_entries(out: Dict[str, torch.Tensor], prefix: str, p: list, s, act, norm,
+                       drop: float = 0.0):
+    """A dense `BasicConv` under ``prefix``: per stage the 1×1 conv's weight
+    [out, in, 1, 1] (JAX's w [in, out] transposed) and bias, a PReLU's
+    slope, the norm (batch: with its running statistics), at the child
+    indices of the reference's `Seq` (conv, act, norm, dropout)."""
+    norm = _norm_name(norm)
+    has_act = act is not None and str(act).lower() != "none"
+    seq = 0
+    for i, e in enumerate(p):
+        w = np.asarray(e["w"]).T
+        out[f"{prefix}.{seq}.weight"] = _t(w[:, :, None, None])
+        if "b" in e:
+            out[f"{prefix}.{seq}.bias"] = _t(e["b"])
+        seq += 1
+        if has_act:
+            if "prelu" in e:
+                out[f"{prefix}.{seq}.weight"] = _t(e["prelu"])
+            seq += 1
+        if norm != "none":
+            if norm == "batch":
+                st = _entry(s, i).get("norm", {})
+                out[f"{prefix}.{seq}.weight"] = _t(e["norm"]["scale"])
+                out[f"{prefix}.{seq}.bias"] = _t(e["norm"]["bias"])
+                out[f"{prefix}.{seq}.running_mean"] = _t(st["mean"])
+                out[f"{prefix}.{seq}.running_var"] = _t(st["var"])
+                out[f"{prefix}.{seq}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+            seq += 1
+        if drop > 0:
+            seq += 1
+
+
+def _dense_backbone(out, params: dict, state: dict, cfg, head_act):
+    basic_conv_entries(out, "head.gconv.nn", params["head"], state.get("head", []), head_act,
+                       cfg.norm)
+    for i, bp in enumerate(params["blocks"]):
+        basic_conv_entries(out, f"backbone.{i}.body.gconv.nn", bp,
+                           _entry(state.get("blocks", []), i), cfg.act, cfg.norm)
+
+
+def dense_deepgcn_state_dict_from_jax(params: dict, state: dict, cfg
+                                      ) -> Dict[str, torch.Tensor]:
+    """`state_dict` of `models.DenseDeepGCN(cfg)` from the JAX model's
+    (params, state): head `head.gconv.nn`, block i `backbone.{i}.body.gconv.nn`,
+    `fusion_block`, and the prediction convs at `prediction.{0,1,3}` (the
+    reference's dropout sits at 2)."""
+    out: Dict[str, torch.Tensor] = {}
+    _dense_backbone(out, params, state, cfg, cfg.act)
+    basic_conv_entries(out, "fusion_block", params["fusion"], state.get("fusion", []),
+                       cfg.act, cfg.norm)
+    for j, (at, a, nrm) in enumerate(((0, cfg.act, cfg.norm), (1, cfg.act, cfg.norm),
+                                      (3, None, None))):
+        basic_conv_entries(out, f"prediction.{at}", params["pred"][j],
+                           _entry(state.get("pred", []), j), a, nrm)
+    return out
+
+
+def deepgcn_cls_state_dict_from_jax(params: dict, state: dict, cfg
+                                    ) -> Dict[str, torch.Tensor]:
+    """`state_dict` of `models.DeepGCNCls(cfg)` from the JAX model's
+    (params, state): the backbone as `DenseDeepGCN`'s, the LeakyReLU fusion
+    at `fusion_block`, the head convs at `prediction.{0,1,2}` (dropout
+    after the norm of the first two)."""
+    out: Dict[str, torch.Tensor] = {}
+    _dense_backbone(out, params, state, cfg, cfg.act)
+    basic_conv_entries(out, "fusion_block", params["fusion"], state.get("fusion", []),
+                       "leakyrelu", cfg.norm)
+    for j, (a, nrm, drop) in enumerate((("leakyrelu", cfg.norm, cfg.dropout),
+                                        ("leakyrelu", cfg.norm, cfg.dropout),
+                                        (None, None, 0.0))):
+        basic_conv_entries(out, f"prediction.{j}", params["pred"][j],
+                           _entry(state.get("pred", []), j), a, nrm, drop)
     return out

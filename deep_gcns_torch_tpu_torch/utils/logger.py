@@ -6,10 +6,9 @@ after the reference's conventions:
 * Python logging to `log.txt` and to the console (`config.py:135-159`);
 * scalars and histograms as JSON lines (`scalars.jsonl`), the headless
   stand-in for the reference's TensorBoard writer;
+* point-cloud summaries as PLY files (`log_mesh`, the stand-in for the
+  reference's `mesh_summary`);
 * the CSV dump of the best result (`utils/logger.py:6-14`).
-
-The point-cloud summaries of the JAX logger (`log_mesh`) come with the
-point-cloud slice, which ports their PLY writer.
 """
 
 from __future__ import annotations
@@ -81,6 +80,14 @@ class ScalarLogger:
                "counts": counts.tolist(), "edges": np.round(edges, 6).tolist()}
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+
+    def log_mesh(self, step: int, tag: str, points, colors=None, labels=None) -> str:
+        """Write the point cloud (coloured, or by ``labels`` through the
+        palette) to `{exp}/meshes/{tag}_{step}.ply`; returns the path."""
+        from .pc_export import write_ply
+
+        path = os.path.join(self.exp_dir, "meshes", f"{tag}_{step}.ply")
+        return write_ply(path, points, colors=colors, labels=labels)
 
 
 def save_best_result(csv_path: str, name: str, **metrics):

@@ -1361,3 +1361,99 @@ def test_unaligned_padding_launches_kernels(cuda_device, with_csc):
     _assert_close(res[0][0], res[1][0], 1e-4, 1e-5)
     _assert_close(res[0][1], res[1][1], 1e-3, 1e-4)
     _assert_close(res[0][2], res[1][2], 1e-5, 1e-6)
+
+
+def _knn_transpose(dev, b, n, k, d, seed):
+    """A dilated kNN of uniform random points and its transpose; point 0 of
+    cloud 0 is no one's neighbour."""
+    from deep_gcns_torch_tpu_torch.ops import gather as tgather
+    from deep_gcns_torch_tpu_torch.ops import knn as tknn
+
+    x = torch.rand(b, n, 3, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    idx, _ = tknn.dilated_knn_graph_dense(x, k, d)
+    idx[0][idx[0] == 0] = 1
+    return idx, tgather.neighbor_transpose(idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 4])
+def test_seg_sum_on_knn_transpose(cuda_device, dtype, d):
+    """K1's gathered form over a kNN transpose (uneven in-degrees) against
+    the plain version; the point with no in-edge exact 0; two launches bit
+    for bit."""
+    idx, (perm, _, ptr) = _knn_transpose(cuda_device, 4, 2048, 16, d, 7)
+    g = torch.randn(idx.numel(), 64, device=cuda_device).to(dtype)
+    out = tsp.csr_seg_sum(g, ptr, perm)
+    _assert_close(out, tsp.csr_seg_sum_plain(g, ptr, perm), **TOL[dtype])
+    assert not out[0].float().abs().any()
+    assert torch.equal(tsp.csr_seg_sum(g, ptr, perm), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [9, 64])
+def test_gather_neighbors_launches(cuda_device, c):
+    """At 64 channels the dense gather's backward launches K1 once and its
+    forward never; at 9 (the S3DIS head's width) neither does. Both agree
+    with the plain index_select and its autograd scatter."""
+    from deep_gcns_torch_tpu_torch.ops import gather as tgather
+
+    b, n, k = 4, 1024, 16
+    idx, _ = _knn_transpose(cuda_device, b, n, k, 2, 8)
+    x = torch.randn(b, n, c, device=cuda_device, requires_grad=True)
+    co = torch.randn(b, n, k, c, device=cuda_device)
+    tsp.csr_seg_sum.launches = 0
+    out = tgather.gather_neighbors(x, idx)
+    assert tsp.csr_seg_sum.launches == 0
+    (out * co).sum().backward()
+    assert tsp.csr_seg_sum.launches == (1 if c >= 32 else 0)
+    flat = (idx + (torch.arange(b, device=cuda_device) * n)[:, None, None]).reshape(-1)
+    xr = x.detach().clone().requires_grad_(True)
+    ref = xr.reshape(b * n, c).index_select(0, flat).reshape(b, n, k, c)
+    (ref * co).sum().backward()
+    assert torch.equal(out.detach(), ref.detach())
+    _assert_close(x.grad, xr.grad, **TOL[torch.float32])
+    assert not x.grad[0, 0].abs().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "cls", "sparse"])
+def test_small_point_model_card_matches_cpu(cuda_device, kind):
+    """A 3-block point-cloud model on the card against the CPU: the logits
+    on the CPU's kNN graphs replayed on the card, then each graph layer on
+    the CPU's input and graph (`utils.agreement.point_layer_results`); a
+    flip of the card's own kNN must be a near tie (float64 gap within 1e-5
+    of the largest distance)."""
+    from deep_gcns_torch_tpu_torch.models import (DeepGCNCls, DeepGCNConfig, DenseDeepGCN,
+                                                  SparseDeepGCN)
+    from deep_gcns_torch_tpu_torch.utils.agreement import KnnReplay, point_layer_results
+
+    gen = torch.Generator().manual_seed(9)
+    kw = dict(n_filters=32, n_blocks=3, conv="edge", k=8, dropout=0.0)
+    if kind == "dense":
+        cls, cfg, x = DenseDeepGCN, DeepGCNConfig(9, 13, **kw), torch.rand(2, 384, 9,
+                                                                            generator=gen)
+    elif kind == "cls":
+        cls, cfg = DeepGCNCls, DeepGCNConfig(3, 40, emb_dims=128, stochastic=False, **kw)
+        x = torch.rand(8, 256, 3, generator=gen)
+    else:
+        cls, cfg = SparseDeepGCN, DeepGCNConfig(9, 13, num_points=384, **kw)
+        x = torch.rand(768, 9, generator=gen)
+    models = [cls(cfg, torch.Generator().manual_seed(0)).to(d).train()
+              for d in (cuda_device, torch.device("cpu"))]
+    args = () if kind == "cls" else (None,)
+    with torch.no_grad():
+        with KnnReplay() as rec:
+            want = models[1](x, *args)
+        with KnnReplay(rec.graphs) as rep:
+            got = models[0](x.to(cuda_device), *args)
+    assert all(f["rel_gap"] <= 1e-5 for flips in rep.flips for f in flips)
+    _assert_close(got, want, 1e-4, 1e-4)
+    for _, outs, flips in point_layer_results(models, x, torch.Generator().manual_seed(4),
+                                              sparse=kind == "sparse"):
+        assert all(f["rel_gap"] <= 1e-5 for f in flips)
+        _assert_close(outs[0][0], outs[1][0], 1e-4, 1e-4)
+        _assert_close(outs[0][1], outs[1][1], 1e-3, 1e-4)
+        g_max = max(float(v.abs().max()) for v in outs[1][2].values())
+        for k, w in outs[1][2].items():
+            _assert_close(outs[0][2][k], w, 1e-3, 1e-4, ref_max=g_max)

@@ -258,8 +258,11 @@ def test_gathers_match_jax(kind):
         (got * _t(co)).sum().backward()
         np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
         np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gwant), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        tgather.gather_neighbors(torch.zeros(1, 4, 3), torch.zeros(1, 4, 2, dtype=torch.long))
+    # the dense neighbour gather is ported: a plain copy of the rows
+    xs = torch.arange(12.0).reshape(1, 4, 3)
+    nbr = torch.tensor([[[1, 2], [0, 0], [3, 1], [2, 2]]])
+    np.testing.assert_array_equal(tgather.gather_neighbors(xs, nbr).numpy(),
+                                  xs[0][nbr[0]][None].numpy())
 
 
 @pytest.mark.parametrize("scale", [1.0, 3e-20])

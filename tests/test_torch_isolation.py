@@ -50,7 +50,18 @@ MODULES = ["deep_gcns_torch_tpu_torch", "deep_gcns_torch_tpu_torch.device",
            "deep_gcns_torch_tpu_torch.apps.ogbn_products",
            "deep_gcns_torch_tpu_torch.apps.ogbn_products_test",
            "deep_gcns_torch_tpu_torch.models.deepgcn", "deep_gcns_torch_tpu_torch.data.ppi",
-           "deep_gcns_torch_tpu_torch.apps.ppi", "deep_gcns_torch_tpu_torch.apps.ppi_test"]
+           "deep_gcns_torch_tpu_torch.apps.ppi", "deep_gcns_torch_tpu_torch.apps.ppi_test",
+           "deep_gcns_torch_tpu_torch.ops.knn", "deep_gcns_torch_tpu_torch.convs.dense",
+           "deep_gcns_torch_tpu_torch.data.pointcloud",
+           "deep_gcns_torch_tpu_torch.utils.pc_export",
+           "deep_gcns_torch_tpu_torch.apps.sem_seg_dense",
+           "deep_gcns_torch_tpu_torch.apps.sem_seg_dense_test",
+           "deep_gcns_torch_tpu_torch.apps.sem_seg_sparse",
+           "deep_gcns_torch_tpu_torch.apps.sem_seg_sparse_test",
+           "deep_gcns_torch_tpu_torch.apps.modelnet_cls",
+           "deep_gcns_torch_tpu_torch.apps.part_sem_seg",
+           "deep_gcns_torch_tpu_torch.apps.part_sem_seg_eval",
+           "deep_gcns_torch_tpu_torch.apps.part_sem_seg_visualize"]
 
 
 def test_import_leaves_jax_out():

@@ -523,6 +523,14 @@ def test_zoo_reference_golden(name, conv):
 
 
 def test_dynamic_convs_wait_for_slice_9():
+    """Slice 9 ported them: each builds its own kNN graph over clouds of
+    ``num_points`` and keeps the reference's names."""
+    x = torch.randn(2 * 12, 16)
     for fn in (tcs.DynConv, tcs.PlainDynBlock, tcs.ResDynBlock, tcs.DenseDynBlock):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            fn(16)
+        if fn in (tcs.DynConv, tcs.DenseDynBlock):
+            m = fn(16, 16, kernel_size=3, num_points=12)
+        else:
+            m = fn(16, 3, num_points=12)
+        out = m(x)
+        assert out.shape == ((24, 32) if fn is tcs.DenseDynBlock else (24, 16))
+        assert any(k.endswith("gconv.nn.0.weight") for k in m.state_dict())
