@@ -291,7 +291,39 @@ every check; nothing is caught):
    whose score must equal the run's best;
 60. K1's timing at the point-cloud shapes (S3DIS d=1 and d=27 f32, d=1
    bf16, ModelNet f32): time, device time, plain, bound, `index_add_` (the
-   `library_ms`) and `torch.sparse.mm` of the transposed selection.
+   `library_ms`) and `torch.sparse.mm` of the transposed selection;
+61. parallel graphs (after phase 60, the parent's models freed): phase 7's
+   cluster-ordered power-law graph and phase 4's gather graph, each sharded
+   over 2 ranks on the host (the first with each rank's local band), with
+   the halo rows a rank ships a layer; the single-process ResGEN-28's eval
+   logits of both at seed 0's weights; phase 65's clusters and the
+   sequential reference step;
+62. spatial ResGEN-28 (phase 4's model, bf16) on 2 ranks sharing the card
+   over gloo, every collective staged through host memory, in one spawn
+   that also runs the card sides of phases 63 and 65: the band graph with
+   the halo exchange and the spatial × band route (K3 on the local band, K1
+   on the halo partial and the leftover), the gather graph with the
+   all-gather (K2's message form) and with the halo split (four K1 sums a
+   forward); a rank's launches over a warm-up, a timed step and an eval
+   forward must be exactly `spatial_expected`'s; the halo rows, collective
+   calls, bytes staged, step time and peak a rank; the eval forward at seed
+   0's weights against the single-process model within TOL_SPATIAL_BF16;
+63. small models card against CPU: a DeeperGCN with batch norm across ranks
+   and a RevGCN GEN with edge features, one spatial SGD step on 2 card ranks
+   against 2 gloo ranks on the CPU, float32: loss and every updated entry;
+64. a world of one over NCCL: the spatial ResGEN-28 step (all-gather route,
+   K2's message form) against the single-process step on the same graph
+   without its CSC, two Adam steps with deterministic algorithms, bit for
+   bit;
+65. cluster DP: two proteins-shaped clusters (phase 13's shape), one a
+   rank, a RevGCN in float32, against the sequential mean of the two
+   cluster losses' step on the card;
+66. the apps with `--spatial 2`: ogbn-arxiv (ResGEN-28 bf16 on 80,000
+   nodes, 2 epochs, `--save_ckpt`) and its test script on the checkpoint
+   over the run's ranks (the printed best validation accuracy exactly) and
+   in one process, the RevGCN proteins app at phase 18's argv, DyResGEN-7
+   on 40,000 nodes, and ogbn-products' ResGEN-14 on 100,000 nodes for one
+   epoch.
 
 Every time and memory figure of phases 30-60 is printed beside the card's
 name and power limit. A failed comparison saves its tensors (K2's with its
@@ -318,7 +350,10 @@ commits' kernels compare bit for bit.
 
 `--ogb` runs phase 1 and then only phases 40-46, printing their `kernels`
 rows as one JSON line and no device result; `--pointcloud` likewise runs
-phase 1 and phases 55-60.
+phase 1 and phases 55-60; `--parallel` runs phase 1 and phases 61-66 and
+prints no result line. The multi-rank times of phases 62-66 come from two
+ranks sharing one card through host-staged gloo collectives: they are
+printed as such and claim nothing.
 
 `--kernel-forms[=K7,K9,K5,K8,K6,K1]` (card only; `--k7-forms` is
 `--kernel-forms=K7`) runs phase 1 and then times the named kernels' forms
@@ -4584,6 +4619,509 @@ def phase_pointcloud(dev, rehearse, iters):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 61-66: the parallel layer (`--parallel`)
+# ---------------------------------------------------------------------------
+
+PAR_D = 2
+# phase 62's eval forward of the spatial ResGEN-28 (bf16) against the
+# single-process model: each route sums a layer's aggregate in another order
+# (the halo split, the local band plus the halo partial, the message form's
+# exact shift against the fused bound), so a layer's m may sit a few bf16
+# ulps (2^-8 relative each) away, and 28 residual layers carry that to the
+# logits
+TOL_SPATIAL_BF16 = dict(rtol=2.0 ** -5, atol_rel=2.0 ** -5)
+# float32 small models and steps, card against CPU or two orders of a sum
+TOL_PAR_F32 = dict(rtol=1e-4, atol_rel=1e-4)
+PAR_LAYERS_SMALL = 3
+
+
+def _rank_globals():
+    """A spawned rank runs this script's top level, not its main block:
+    bind the modules that the shared helpers (`reset_launches`,
+    `read_launches`, `sync`) read."""
+    import numpy
+    import torch as torch_
+    from deep_gcns_torch_tpu_torch.ops import band, blocksparse, gat_dense, spmm_cuda
+
+    globals().update(np=numpy, torch=torch_, tsp=spmm_cuda, tband=band, tgd=gat_dense,
+                     tbs=blocksparse)
+
+
+def resgen_config(layers, n_tasks=40):
+    """Phase 4's ResGEN (res+, softmax_sg t=0.1, batch norm, one-layer MLP,
+    dropout 0.5, bf16, C=128)."""
+    from deep_gcns_torch_tpu_torch.models import DeeperGCNConfig as Cfg
+
+    return Cfg(in_channels=128, hidden_channels=128, num_tasks=n_tasks, num_layers=layers,
+               block="res+", aggr="softmax_sg", t=0.1, norm="batch", mlp_layers=1,
+               dropout=0.5, compute_dtype="bfloat16")
+
+
+def spatial_expected(route, sh, layers, steps, cuda):
+    """Kernel launches on one rank of ``steps`` spatial train steps and one
+    eval forward of ResGEN (softmax_sg): the band route runs K3 on the local
+    band both ways, K1 on the leftover wherever its (rank-unified) count is
+    not 0 and K1 on the halo partial in each forward; the all-gather route
+    runs K2's message form once a forward (its backward is PyTorch); the
+    halo route's split aggregation sums den and num over the local and the
+    halo part, four K1 a forward (the backward gathers)."""
+    want = no_launches()
+    if not cuda:
+        return want
+    fwd, bwd = layers * (steps + 1), layers * steps
+    if route == "band":
+        lo = int(sh.loc_band.fwd.n_lo > 0)
+        want.update(K3=fwd + bwd, K1=fwd * (lo + 1) + bwd * lo)
+    elif route == "allgather":
+        want["K2 msgs"] = fwd
+    else:
+        want["K1"] = 4 * fwd
+    return want
+
+
+def _rank_resgen(rank, world, job):
+    """Phase 62 on one rank: for each route the spatial ResGEN-28's eval
+    logits at its first weights (rank 0 returns the gathered table), then a
+    warm-up and ``steps`` timed train steps and an eval forward with the
+    launch counts, collectives and bytes staged set to 0 just before and
+    read just after."""
+    _rank_globals()
+    from deep_gcns_torch_tpu_torch.parallel import comm
+    from deep_gcns_torch_tpu_torch.parallel.spatial import (SpatialDeeperGCN, masked_nll_sum,
+                                                            rank_generator, spatial_forward,
+                                                            spatial_train_step)
+    from deep_gcns_torch_tpu_torch.utils.optim import make_optimizer
+
+    dev = comm.rank_device(rank, job["device"])
+    cuda = dev.type == "cuda"
+    out = {}
+    for route, graph, exchange in job["routes"]:
+        shards, xs, labs = job["graphs"][graph]
+        sh = shards.rank(rank, dev)
+        x = torch.from_numpy(xs[rank]).to(dev)
+        lab = torch.from_numpy(labs[rank]).to(dev)
+        model = SpatialDeeperGCN(resgen_config(job["layers"]), exchange=exchange,
+                                 generator=torch.Generator().manual_seed(0)).to(dev)
+        opt = make_optimizer("adam", model.parameters(), 1e-2)
+        gen = rank_generator(1, rank, dev)
+        logits0 = spatial_forward(model, sh, x)
+        sync(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        comm.reset_stats()
+        losses, times = [], []
+        for i in range(job["steps"] + 1):
+            t0 = time.perf_counter()
+            loss = spatial_train_step(model, opt, sh, x, lab, sh.node_mask, masked_nll_sum,
+                                      generator=gen)
+            sync(dev)
+            if i:
+                times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        t0 = time.perf_counter()
+        logits = spatial_forward(model, sh, x)
+        sync(dev)
+        predict_s = time.perf_counter() - t0
+        launches = read_launches()
+        want = spatial_expected(route, sh, job["layers"], job["steps"] + 1, cuda)
+        if launches != want:
+            raise AssertionError(f"{route} rank {rank}: launches {launches} != {want}")
+        if not all(math.isfinite(v) for v in losses) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{route} rank {rank}: losses {losses} or logits not finite")
+        out[route] = {
+            "losses": losses, "step_ms_all": [v * 1e3 for v in times],
+            "step_ms_median": sorted(times)[len(times) // 2] * 1e3,
+            "eval_forward_ms": predict_s * 1e3, "launches": launches,
+            "halo_rows_per_layer": sh.total_halo if exchange != "allgather" else 0,
+            "exchange": "halo" if exchange != "allgather" else "allgather",
+            "collective_calls": comm.STATS["calls"],
+            "bytes_staged": comm.STATS["staged_bytes"], "backend": torch.distributed.get_backend(),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+            "logits0": logits0.float().cpu().numpy() if rank == 0 else None}
+        del model, opt, logits0, logits
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def par_graphs(n, dev, rehearse):
+    """Phase 61: phase 7's power-law community graph in cluster order (its
+    band, and each rank's local band) and phase 4's gather graph, each
+    sharded over `PAR_D` ranks on the host; the single-process ResGEN-28's
+    eval logits of both on ``dev`` at seed 0's weights."""
+    from deep_gcns_torch_tpu_torch.parallel import shard_graph, shard_nodes
+
+    layers = PAR_LAYERS_SMALL if rehearse else 28
+    graphs, single = {}, {}
+    for name in ("band", "gather"):
+        if name == "band":
+            g, labels, _ = band_graph(n, torch.device("cpu"))
+        else:
+            g, labels = main_graph(n, torch.device("cpu"))
+        s = g.senders[:g.n_edge].numpy()
+        r = g.receivers[:g.n_edge].numpy()
+        t0 = time.time()
+        sh = shard_graph(s, r, g.n_node, PAR_D, band="auto" if name == "band" else "off")
+        info = {"shard_s": time.time() - t0, "S": sh.shard_size,
+                "halo_rows_per_rank_per_layer": sh.halo_rows_per_device,
+                "off_pads": sh.off_pads,
+                "auto_takes_halo": sh.halo_rows_per_device < (PAR_D - 1) * sh.shard_size,
+                "valid_rows": sh.node_mask.sum(1).tolist()}
+        if sh.loc_band is not None:
+            info.update(window=sh.loc_band[0].fwd.window,
+                        coverage=[b.fwd.coverage for b in sh.loc_band],
+                        n_lo_unified=sh.loc_band[0].fwd.n_lo)
+        log(f"[par-graphs] {name}: {json.dumps(info)}")
+        x = g.x[:g.n_node].numpy()
+        lab = np.asarray(labels)[:g.n_node].astype(np.int64)
+        graphs[name] = (sh, shard_nodes(x, sh), shard_nodes(lab[:, None], sh)[..., 0])
+        model = DeeperGCN(resgen_config(layers), generator=torch.Generator().manual_seed(0))
+        model = model.to(dev).eval()
+        with torch.no_grad():
+            single[name] = model(g.x.to(dev), g.to(dev))[:g.n_node].float().cpu()
+        del model, g
+        free_memory(dev)
+    return graphs, single, layers
+
+
+def _rank_tasks(rank, world, tasks):
+    """Several phases' rank programs in one spawn: {name: fn(rank, world, job)}."""
+    return {name: fn(rank, world, job) for name, fn, job in tasks}
+
+
+def phase_par_resgen(dev, ranks, single, routes, layers):
+    """Phase 62: the spatial ResGEN-28 on `PAR_D` ranks sharing the card
+    (gloo, every collective staged through host memory; ``ranks`` from the
+    spawn): the band graph with the halo exchange and the spatial × band
+    route, the gather graph with the all-gather and with the halo split; the
+    eval forward at seed 0's weights against the single-process model's."""
+    chk = Checks("par-resgen")
+    for route, graph, _ in routes:
+        want = single[graph]
+        got = torch.from_numpy(ranks[0][route].pop("logits0")[:want.shape[0]])
+        chk.close(f"spatial ResGEN-{layers} {route} eval logits vs single process", got,
+                  want, **TOL_SPATIAL_BF16)
+        for r, rk in enumerate(ranks):
+            rk[route].pop("logits0", None)
+            where = (f"gloo, host-staged, {PAR_D} ranks sharing one card"
+                     if dev.type == "cuda" else "gloo on the CPU")
+            log(f"[par-resgen] {route} rank {r} ({where}): {json.dumps(rk[route])}; "
+                f"card: {CARD}")
+    chk.raise_if_failed()
+
+
+def _small_models():
+    """(name, kind, config, exchange) of phase 63's small models: a
+    DeeperGCN with batch norm across ranks on the halo split, and a RevGCN
+    GEN with edge features on the halo exchange, float32."""
+    from deep_gcns_torch_tpu_torch.models import DeeperGCNConfig as DCfg, RevGCNConfig as RCfg
+
+    return (("spatial DeeperGCN batch norm", "deeper", DCfg(
+                in_channels=16, hidden_channels=32, num_tasks=12, num_layers=PAR_LAYERS_SMALL,
+                block="res+", aggr="softmax", learn_t=True, norm="batch", mlp_layers=1,
+                dropout=0.0), "halo"),
+            ("spatial RevGCN gen edge features", "rev", RCfg(
+                hidden_channels=32, num_tasks=12, num_layers=PAR_LAYERS_SMALL, group=2,
+                aggr="softmax", dropout=0.0), "halo"))
+
+
+def _rank_small(rank, world, job):
+    """Phase 63 on one rank: one SGD step of each small model; the loss and
+    the updated `state_dict`."""
+    _rank_globals()
+    from deep_gcns_torch_tpu_torch.parallel import comm
+    from deep_gcns_torch_tpu_torch.parallel.spatial import (SpatialDeeperGCN, masked_bce_sum,
+                                                            spatial_train_step)
+    from deep_gcns_torch_tpu_torch.parallel.spatial_rev import SpatialRevGCN
+
+    dev = comm.rank_device(rank, job["device"])
+    sh = job["shards"].rank(rank, dev)
+    t = {k: torch.from_numpy(v[rank]).to(dev) for k, v in job["data"].items()}
+    out = {}
+    for name, kind, cfg, exchange in _small_models():
+        cls = SpatialDeeperGCN if kind == "deeper" else SpatialRevGCN
+        model = cls(cfg, exchange=exchange, generator=torch.Generator().manual_seed(0)).to(dev)
+        opt = torch.optim.SGD(model.parameters(), lr=0.1)
+        x = t["x16"] if kind == "deeper" else t["species"]
+        loss = spatial_train_step(model, opt, sh, x, t["labels"], t["mask"], masked_bce_sum,
+                                  node_feats=None if kind == "deeper" else t["nf"])
+        out[name] = (float(loss), {k: v.detach().float().cpu()
+                                   for k, v in model.state_dict().items()})
+    return out
+
+
+def par_small_job(dev_type):
+    """Phase 63's inputs: a 3,000-node graph with edge features sharded over
+    `PAR_D` ranks, features, 12 binary tasks and a training mask."""
+    from deep_gcns_torch_tpu_torch.parallel import shard_graph, shard_nodes
+
+    rng = np.random.default_rng(4)
+    n, e = 3000, 30000
+    sh = shard_graph(rng.integers(0, n, e), rng.integers(0, n, e), n, PAR_D,
+                     edge_attr=rng.random((e, 8)).astype(np.float32))
+    data = {"x16": rng.standard_normal((n, 16)).astype(np.float32),
+            "species": np.eye(8, dtype=np.float32)[rng.integers(0, 8, n)],
+            "nf": rng.standard_normal((n, 8)).astype(np.float32),
+            "labels": rng.integers(0, 2, (n, 12)).astype(np.float32),
+            "mask": rng.random(n) < 0.7}
+    data = {k: shard_nodes(v if v.ndim > 1 else v[:, None], sh) for k, v in data.items()}
+    data["mask"] = data["mask"][..., 0] & sh.node_mask
+    return dict(device=dev_type, shards=sh, data=data)
+
+
+def phase_par_small(card, cpu):
+    """Phase 63: the small models' spatial step on `PAR_D` card ranks
+    (``card``, from phase 62's spawn) against `PAR_D` gloo ranks on the CPU
+    (``cpu``, plain versions)."""
+    chk = Checks("par-small")
+    for name in cpu:
+        (l_dev, s_dev), (l_cpu, s_cpu) = card[name], cpu[name]
+        chk.close(f"{name} loss, card vs cpu ranks", torch.tensor([l_dev]),
+                  torch.tensor([l_cpu]), **TOL_PAR_F32)
+        ref_max = max(float(v.abs().max()) for v in s_cpu.values() if v.numel())
+        for k in s_cpu:
+            chk.close(f"{name} {k} after the step", s_dev[k], s_cpu[k], ref_max=ref_max,
+                      **TOL_PAR_F32)
+    chk.raise_if_failed()
+
+
+def _rank_world_one(rank, world, job):
+    """Phase 64's rank: the spatial ResGEN step in a world of one (NCCL on
+    the card), deterministic algorithms on."""
+    _rank_globals()
+    from deep_gcns_torch_tpu_torch.parallel import comm
+    from deep_gcns_torch_tpu_torch.parallel.spatial import (SpatialDeeperGCN, masked_nll_sum,
+                                                            rank_generator, spatial_train_step)
+    from deep_gcns_torch_tpu_torch.utils.optim import make_optimizer
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = comm.rank_device(rank, job["device"])
+    sh = job["shards"].rank(0, dev)
+    model = SpatialDeeperGCN(resgen_config(job["layers"]), exchange="auto",
+                             generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer("adam", model.parameters(), 1e-2)
+    gen = rank_generator(1, 0, dev)
+    x, lab = torch.from_numpy(job["x"]).to(dev), torch.from_numpy(job["labels"]).to(dev)
+    losses = [float(spatial_train_step(model, opt, sh, x, lab, sh.node_mask, masked_nll_sum,
+                                       generator=gen)) for _ in range(2)]
+    return {"backend": torch.distributed.get_backend(), "losses": losses,
+            "state": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+
+
+def phase_par_world_one(dev, rehearse):
+    """Phase 64: D=1 over NCCL (the all-gather route, K2's message form)
+    against the single-process step on the same graph without its CSC
+    (GENConv's unfused branch: the same gather and message form), two Adam
+    steps, bit for bit."""
+    from deep_gcns_torch_tpu_torch.parallel import launch, shard_graph, shard_nodes
+    from deep_gcns_torch_tpu_torch.parallel.spatial import rank_generator
+
+    n = 2000 if rehearse else 20000
+    layers = PAR_LAYERS_SMALL if rehearse else 28
+    rng = np.random.default_rng(6)
+    s, r = add_self_loops(rng.integers(0, n, 14 * n), rng.integers(0, n, 14 * n), n)
+    x = rng.standard_normal((n, 128)).astype(np.float32)
+    labels = rng.integers(0, 40, n)
+    sh = shard_graph(s, r, n, 1)
+    g = build_graph(x, s, r, num_nodes=n, edge_pad=sh.senders.shape[1], with_csc=False)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model = DeeperGCN(resgen_config(layers), generator=torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        opt = make_optimizer("adam", model.parameters(), 1e-2)
+        gen = rank_generator(1, 0, dev)
+        gd = g.to(dev)
+        lab = torch.zeros(gd.num_nodes_padded, dtype=torch.long)
+        lab[:n] = torch.from_numpy(labels)
+        lab = lab.to(dev)
+        losses = [float(ogbn_arxiv.train_step(model, opt, gd, lab, gd.node_mask, gen))
+                  for _ in range(2)]
+        want = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del model, opt, gd
+    free_memory(dev)
+    got = launch(_rank_world_one, 1, (dict(device=dev.type, layers=layers, shards=sh,
+                                           x=shard_nodes(x, sh)[0],
+                                           labels=shard_nodes(labels[:, None], sh)[0, :, 0]),),
+                 device=dev.type, deadline=600, threads=torch.get_num_threads())[0]
+    chk = Checks("par-world-one")
+    log(f"[par-world-one] backend {got['backend']}; losses spatial {got['losses']} single "
+        f"{losses}")
+    chk.equal("D=1 losses vs single process", torch.tensor(got["losses"]),
+              torch.tensor(losses))
+    for k in want:
+        chk.equal(f"D=1 {k} after two steps", got["state"][k], want[k])
+    if dev.type == "cuda" and got["backend"] != "nccl":
+        chk.failed.append(f"backend {got['backend']} (expected nccl)")
+    chk.raise_if_failed()
+
+
+def _dp_config():
+    from deep_gcns_torch_tpu_torch.models import RevGCNConfig as RCfg
+
+    return RCfg(hidden_channels=80, num_tasks=112, num_layers=PAR_LAYERS_SMALL, group=2,
+                aggr="softmax", dropout=0.0)
+
+
+def _rank_dp(rank, world, job):
+    """Phase 65's rank: one cluster-DP SGD step on its cluster."""
+    _rank_globals()
+    from deep_gcns_torch_tpu_torch.models import RevGCN as Rev
+    from deep_gcns_torch_tpu_torch.parallel import comm
+    from deep_gcns_torch_tpu_torch.parallel.data_parallel import cluster_dp_train_step
+    from deep_gcns_torch_tpu_torch.utils.loss import bce_with_logits
+
+    dev = comm.rank_device(rank, job["device"])
+    g, (sp, nf, lab) = job["clusters"][rank]
+    g = g.to(dev)
+    model = Rev(_dp_config(), generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    t0 = time.perf_counter()
+    loss = cluster_dp_train_step(model, opt, g, sp.to(dev), lab.to(dev), g.node_mask,
+                                 bce_with_logits, node_feats=nf.to(dev))
+    sync(dev)
+    return {"loss": float(loss), "step_ms": (time.perf_counter() - t0) * 1e3,
+            "state": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+
+
+def par_dp_reference(dev, rehearse):
+    """Phase 65's clusters (phase 13's shape, seeds 0 and 1, one a rank) and
+    the sequential step on the mean of the two cluster losses on ``dev``:
+    (clusters, loss, state after the step)."""
+    from deep_gcns_torch_tpu_torch.utils.loss import bce_with_logits
+
+    n, deg = (800, 10) if rehearse else (13_000, 60)
+    clusters = []
+    for seed in range(PAR_D):
+        rng = np.random.default_rng(seed)
+        g, _ = random_node_graph(rng, n, deg, 8, edge_dim=8)
+        n_pad = g.num_nodes_padded
+        sp = torch.zeros(n_pad, 8)
+        sp[torch.arange(n), torch.from_numpy(rng.integers(0, 8, n))] = 1.0
+        nf = torch.from_numpy(rng.standard_normal((n_pad, 8)).astype(np.float32))
+        lab = torch.from_numpy(rng.integers(0, 2, (n_pad, 112)).astype(np.float32))
+        clusters.append((g, (sp, nf, lab)))
+    model = RevGCN(_dp_config(), generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    model.train()
+    loss = sum(bce_with_logits(model(sp.to(dev), g.to(dev), node_feats=nf.to(dev)),
+                               lab.to(dev), g.node_mask.to(dev))
+               for g, (sp, nf, lab) in clusters) / len(clusters)
+    loss.backward()
+    opt.step()
+    want = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    loss = float(loss.detach())
+    del model, opt
+    free_memory(dev)
+    return clusters, loss, want
+
+
+def phase_par_dp(dev, ranks, want_loss, want):
+    """Phase 65: cluster DP, a RevGCN in float32 on two proteins-shaped
+    clusters, one a rank (``ranks``, from phase 62's spawn), against the
+    sequential mean of the two cluster losses' step on the card."""
+    chk = Checks("par-dp")
+    ref_max = max(float(v.abs().max()) for v in want.values() if v.numel())
+    where = "gloo, host-staged, ranks sharing one card" if dev.type == "cuda" else "CPU"
+    for r, rk in enumerate(ranks):
+        log(f"[par-dp] rank {r}: loss {rk['loss']} (sequential {want_loss}), step "
+            f"{rk['step_ms']:.1f} ms ({where}); card: {CARD}")
+        chk.close(f"rank {r} DP loss vs sequential mean", torch.tensor([rk["loss"]]),
+                  torch.tensor([want_loss]), **TOL_PAR_F32)
+        for k in want:
+            chk.close(f"rank {r} {k}", rk["state"][k], want[k], ref_max=ref_max, **TOL_PAR_F32)
+    chk.raise_if_failed()
+
+
+def phase_par_apps(dev, rehearse, app_argv):
+    """Phase 66: the apps with ``--spatial 2`` on `PAR_D` ranks sharing the
+    card: ogbn-arxiv (ResGEN-28 bf16, 2 epochs, ``--save_ckpt``) at 80,000
+    synthetic nodes (at 169,343 its all-gather route, which materialises the
+    messages and takes the message form's eager backward, passes half the
+    card a rank) and its test script on the checkpoint over the same ranks
+    (the printed best validation accuracy exactly) and in one process
+    (printed beside it); phase 18's RevGCN app (14 layers, one epoch);
+    DyResGEN at 7 layers (phase 18's argv, learned t, cut from 112); and
+    ogbn-products' ResGEN-14 for one epoch at 100,000 nodes (its
+    2,449,029-node graph does not fit one card as a full-graph step)."""
+    spatial = ["--spatial", str(PAR_D), "--device", dev.type]
+    common = ["--synthetic", "--synthetic_nodes", "2000" if rehearse else "80000",
+              "--num_layers", str(PAR_LAYERS_SMALL if rehearse else 28),
+              "--compute_dtype", "bfloat16", "--device", dev.type]
+    base = common + spatial
+    t0 = time.time()
+    run = ogbn_arxiv.main(base + ["--epochs", "2", "--save_ckpt", "--exp_root", RUNS])
+    t1 = time.time()
+    scored = ogbn_arxiv_test.main(base + ["--pretrained_model", run["ckpt"]])
+    single = ogbn_arxiv_test.main(common + ["--pretrained_model", run["ckpt"]])
+    log(f"[par-apps] arxiv: best valid {run['best_valid']}, losses {run['losses']}, "
+        f"{t1 - t0:.1f}s; test script on {PAR_D} ranks {scored['accs']}, in one process "
+        f"{single['accs']} (staged {run['staged_bytes']} bytes on rank 0; card: {CARD})")
+    if scored["accs"]["valid"] != run["best_valid"]:
+        raise AssertionError(f"par-apps: the test script scored valid "
+                             f"{scored['accs']['valid']} != the run's {run['best_valid']}")
+    for name, app, argv in (
+            ("proteins-rev", ogbn_proteins_rev, app_argv),
+            ("proteins-dyresgen", ogbn_proteins, app_argv + [
+                "--learn_t", "--num_layers", "3" if rehearse else "7", "--synthetic_nodes",
+                "3000" if rehearse else "40000"]),
+            ("products", ogbn_products, ["--synthetic", "--synthetic_nodes",
+                                         "2000" if rehearse else "100000", "--epochs", "1",
+                                         "--num_layers", str(PAR_LAYERS_SMALL if rehearse
+                                                             else 14)])):
+        t0 = time.time()
+        out = app.main(argv + spatial)
+        log(f"[par-apps] {name}: best valid {out['best_valid']}, losses {out['losses']}, "
+            f"{time.time() - t0:.1f}s host clock (data and partition included); card: {CARD}")
+        if not all(math.isfinite(v) for v in out["losses"]) or not (
+                0.0 <= out["best_valid"] <= 1.0):
+            raise AssertionError(f"par-apps: {name} losses {out['losses']} best "
+                                 f"{out['best_valid']}")
+
+
+def phase_parallel(dev, rehearse):
+    """Phases 61-66 (after the parent freed its own models): the card's
+    ranks run phases 62, 63 and 65 in one spawn, the CPU's ranks phase 63's
+    other side."""
+    from deep_gcns_torch_tpu_torch.parallel import launch
+
+    free_memory(dev)
+    n = 2000 if rehearse else 169_343
+    graphs, single, layers = par_graphs(n, dev, rehearse)
+    clusters, dp_loss, dp_want = par_dp_reference(dev, rehearse)
+    mark("parallel graphs and references")
+    routes = [("band", "band", "auto"), ("allgather", "gather", "allgather"),
+              ("halo", "gather", "halo")]
+    t0 = time.time()
+    card = launch(_rank_tasks, PAR_D, ([
+        ("resgen", _rank_resgen, dict(device=dev.type, layers=layers, steps=1, routes=routes,
+                                      graphs=graphs)),
+        ("small", _rank_small, par_small_job(dev.type)),
+        ("dp", _rank_dp, dict(device=dev.type, clusters=clusters))],), device=dev.type,
+        deadline=900)
+    log(f"[parallel] the card's ranks: {time.time() - t0:.1f}s (spawn included)")
+    del graphs, clusters
+    phase_par_resgen(dev, [rk["resgen"] for rk in card], single, routes, layers)
+    mark("parallel resgen")
+    cpu = launch(_rank_small, PAR_D, (par_small_job("cpu"),), device="cpu", deadline=300)
+    phase_par_small(card[0]["small"], cpu[0])
+    mark("parallel small models")
+    phase_par_dp(dev, [rk["dp"] for rk in card], dp_loss, dp_want)
+    mark("parallel cluster dp")
+    phase_par_world_one(dev, rehearse)
+    mark("parallel world of one")
+    app_argv = ["--synthetic", "--synthetic_nodes", "3000" if rehearse else "132534",
+                "--synthetic_degree", "8" if rehearse else "60", "--eval_every", "1",
+                "--num_layers", "3" if rehearse else "14", "--compute_dtype", "bfloat16",
+                "--epochs", "1"]
+    phase_par_apps(dev, rehearse, app_argv)
+    shutil.rmtree(RUNS, ignore_errors=True)
+    mark("parallel apps")
+
+
 def main(argv):
     rehearse = "--rehearse-cpu" in argv
     if not rehearse and not torch.cuda.is_available():
@@ -4607,6 +5145,9 @@ def main(argv):
         rows = phase_pointcloud(dev, rehearse, iters)
         shutil.rmtree(RUNS, ignore_errors=True)
         print(json.dumps({"kernels": rows}))
+        return 0
+    if "--parallel" in argv:
+        phase_parallel(dev, rehearse)
         return 0
     forms = kernel_forms_arg(argv)
     if forms:
@@ -4777,6 +5318,8 @@ def main(argv):
     shutil.rmtree(RUNS, ignore_errors=True)
     free_memory(dev)
     rows += phase_pointcloud(dev, rehearse, iters)
+    shutil.rmtree(RUNS, ignore_errors=True)
+    phase_parallel(dev, rehearse)
     log(f"[done] all phases in {time.time() - t_all:.1f}s")
     if rehearse:
         print(json.dumps({"kernels": rows}))

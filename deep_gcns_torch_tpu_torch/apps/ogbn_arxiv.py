@@ -4,7 +4,8 @@
     python -m deep_gcns_torch_tpu_torch.apps.ogbn_arxiv --synthetic \\
         [--synthetic_nodes N] [--epochs E] [--device cuda|cpu] \\
         [--reorder none|rcm|cluster] [--band off|auto] [--remat] \\
-        [--save_ckpt] [--pretrained_model PREFIX]
+        [--save_ckpt] [--pretrained_model PREFIX] \\
+        [--spatial N [--exchange auto|halo|allgather]]
 
 Same defaults as the JAX app: ResGEN-28 (res+, softmax_sg t=0.1, batch
 norm, one-layer MLP), C=128, dropout 0.5, Adam lr 0.01 (``--optimizer``
@@ -23,6 +24,11 @@ Checkpoints, as the JAX app (`main.py:84, 161-168, 205-213`): with
 ``--pretrained_model PREFIX`` restores the model, the optimizer and the best
 value and resumes from the saved epoch, the dropout stream starting afresh
 from ``seed + 1``. `apps/ogbn_arxiv_test.py` scores a checkpoint.
+
+``--spatial N`` trains the full graph exactly on N ranks after the reorder
+(`apps/spatial_common.run_spatial`, the band with ``--band auto``); its
+checkpoint carries the single-process model's names, so the test script
+scores it with the same data and model flags. ``--tp`` > 1 raises.
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ from ..utils.logger import create_exp_dir
 from ..utils.loss import cross_entropy
 from ..utils.metrics import accuracy
 from ..utils.optim import make_optimizer
-from .common import add_optimizer_flags
+from .common import add_optimizer_flags, add_spatial_flags
+from .spatial_common import check_parallel_flags, run_spatial
 
 
 def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -87,6 +94,7 @@ def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--band", type=str, default="off", choices=["off", "auto"],
                    help="attach the band-dense adjacency (ops/band.py); combine with "
                         "--reorder cluster on real graphs")
+    add_spatial_flags(p)
     return p.parse_args(argv)
 
 
@@ -187,9 +195,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     every epoch's loss, the accuracies of each evaluated epoch and the
     checkpoint prefix (None without ``--save_ckpt``)."""
     args = get_args(argv)
+    check_parallel_flags(args)
     dev = resolve_device(args.device)
     g, labels, splits, in_dim = load_data(args, np.random.default_rng(args.seed))
     n = g.n_node
+    if args.spatial > 1:
+        # the reordered graph's edges, partitioned over the ranks
+        # (`examples/ogbn_arxiv/main.py:100-140`)
+        return run_spatial(args, "ogbn_arxiv", g.senders[:g.n_edge].numpy(),
+                           g.receivers[:g.n_edge].numpy(), g.x[:n].numpy(), labels, splits,
+                           in_dim, n)
     g = g.to(dev)
     lab = torch.zeros(g.num_nodes_padded, dtype=torch.long)
     lab[:n] = torch.from_numpy(labels)

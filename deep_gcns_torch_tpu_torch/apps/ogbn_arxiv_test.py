@@ -6,7 +6,10 @@ the accuracy of each split and the card's peak memory.
         --pretrained_model <exp>/ckpt [the training run's data and model flags]
 
 The flags are the training app's (`apps/ogbn_arxiv.py`); the data and the
-model must be given as they were for training.
+model must be given as they were for training. A checkpoint of a spatial
+run carries the single-process model's names, so it scores here as it is;
+with ``--spatial N`` it is scored on N ranks over the training run's
+partition instead, the route whose logits that run printed.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from ..device import resolve_device
 from ..utils.ckpt import load_ckpt
 from ..utils.profiling import device_memory_stats
 from .ogbn_arxiv import build_model, get_args, load_data, predict, split_accuracies
+from .spatial_common import run_spatial
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -29,6 +33,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         raise ValueError("--pretrained_model is required")
     dev = resolve_device(args.device)
     g, labels, splits, in_dim = load_data(args, np.random.default_rng(args.seed))
+    if args.spatial > 1:
+        n = g.n_node
+        out = run_spatial(args, "ogbn_arxiv", g.senders[:g.n_edge].numpy(),
+                          g.receivers[:g.n_edge].numpy(), g.x[:n].numpy(), labels, splits,
+                          in_dim, n, load=args.pretrained_model)
+        accs = next(iter(out["evals"].values()))
+        for k, v in accs.items():
+            print(f"{k} acc: {v:.4f}", flush=True)
+        return {"accs": accs, "meta": out["meta"]}
     model = build_model(args, in_dim).to(dev)
     meta = load_ckpt(args.pretrained_model, model=model)
     print(f"loaded checkpoint (epoch {meta.get('epoch')}, "

@@ -17,7 +17,9 @@ every time), predicts each and puts the predictions back in node order
 Every cluster is padded to one node bucket, sized for the evaluation's
 coarser partition, and one edge bucket that grows when a partition needs
 more. As in the JAX app, ``--compute_dtype`` and ``--remat`` are not passed
-to the model; ``--spatial`` (the parallel layer, a later slice) raises.
+to the model. ``--spatial N`` trains the full graph exactly on N ranks
+instead (`apps/spatial_common.run_spatial`, which, as the JAX app's, does
+pass them); ``--tp`` > 1 raises.
 
 The data is the JAX app's, made from ``--seed`` draw for draw: the synthetic
 SBM (100 features, average degree 10, made undirected with self-loops),
@@ -47,6 +49,7 @@ from ..utils.loss import cross_entropy
 from ..utils.metrics import accuracy
 from .common import (EpochTimer, add_deeper_gcn_flags, add_spatial_flags, base_parser,
                      make_optimizer, open_experiment, report)
+from .spatial_common import check_parallel_flags, run_spatial
 
 
 def get_args(argv: Optional[Sequence[str]] = None):
@@ -172,10 +175,14 @@ def train(args, data, rng: np.random.Generator) -> dict:
     validation accuracy, every epoch's mean loss, the evaluated epochs'
     accuracies, the host seconds of each epoch's partition and the
     experiment directory (None without ``--save_ckpt``)."""
-    if args.spatial > 1 or args.tp > 1:
-        raise NotImplementedError("--spatial / --tp (the parallel layer) is not ported yet")
+    check_parallel_flags(args)
     dev = resolve_device(args.device)
     x, senders, receivers, labels, splits, in_dim, n = data
+    if args.spatial > 1:
+        # exact full-graph training replaces the lossy cluster loop
+        # (`examples/ogbn_products/main.py:112-116`)
+        return run_spatial(args, "ogbn_products", senders, receivers, x, labels, splits,
+                           in_dim, n)
     model = build_model(args, in_dim, torch.Generator().manual_seed(args.seed)).to(dev)
     opt = make_optimizer(args, model.parameters())
     drop_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)

@@ -13,8 +13,9 @@ each evaluation enqueues an asynchronous rolling checkpoint
 (`utils/ckpt_async.py`, the last two kept, the best pinned) in
 `{exp}/ckpt/{epoch}/`, and a new best validation ROC-AUC also writes
 `{exp}/ckpt_best` at once (the JAX app writes `ckpt_best` without the flag
-too). `apps/ogbn_proteins_test.py` scores a checkpoint. Not ported:
-``--spatial`` (the parallel layer, a later slice) raises.
+too). `apps/ogbn_proteins_test.py` scores a checkpoint. ``--spatial N``
+trains the full graph exactly on N ranks instead, one step an epoch with
+full-graph ROC-AUC (`apps/spatial_common.run_proteins_spatial`).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..utils.loss import bce_with_logits
 from ..utils.metrics import roc_auc
 from ..utils.optim import clip_grad_global_norm_, make_optimizer
 from .common import add_optimizer_flags
+from .spatial_common import run_proteins_spatial
 
 MAX_GRAD_NORM = 1.0  # optax.clip_by_global_norm(1.0) of the JAX apps
 
@@ -95,7 +97,10 @@ def base_parser(description: str, *, num_layers: int, hidden: int, epochs: int,
     p.add_argument("--conv_encode_edge", action="store_true", default=True)
     p.add_argument("--use_one_hot_encoding", action="store_true", default=True)
     p.add_argument("--spatial", type=int, default=1,
-                   help="edge-partitioned full-graph training over N devices (not ported)")
+                   help="edge-partitioned full-graph training over N ranks")
+    p.add_argument("--exchange", type=str, default="auto",
+                   choices=["auto", "halo", "allgather"],
+                   help="boundary rows by per-offset halo permutes or a full all-gather")
     return p
 
 
@@ -159,11 +164,11 @@ def run_proteins(args, build_model: Callable, name: str) -> dict:
     (`examples/proteins_common.py:52-199`). Returns the last evaluation, the
     best validation ROC-AUC, the last epoch's mean loss and the host seconds
     of each epoch's partition."""
-    if args.spatial > 1:
-        raise NotImplementedError("--spatial (the parallel layer) is not ported yet")
     dev = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
     data = load_proteins(args, rng)
+    if args.spatial > 1:
+        return run_proteins_spatial(args, build_model, name, data)
     n, labels = data["num_nodes"], data["labels"]
     model = build_model(args, torch.Generator().manual_seed(args.seed)).to(dev)
     opt = make_optimizer(args.optimizer, model.parameters(), args.lr, args.weight_decay)

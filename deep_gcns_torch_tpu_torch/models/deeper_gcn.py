@@ -158,6 +158,23 @@ class DeeperGCN(nn.Module):
             self.bond_encoder = MultiEmbedding(c.bond_feature_dims, C, "bond_embedding_list",
                                                generator)
 
+    def _model_edge_embeddings(self, g) -> dict:
+        """The model-level edge embeddings ("one_time" / "one_time_bond") as
+        GENConv keyword arguments, each edge order encoded separately."""
+        ee = {}
+        enc = {"one_time": "edge_encoder", "one_time_bond": "bond_encoder"}.get(self.cfg.edge_mode)
+        if enc is not None and g.edge_attr is not None:
+            encoder = getattr(self, enc)
+            ee["edge_emb"] = encoder(g.edge_attr)
+            if g.edge_attr_csc is not None:
+                ee["edge_emb_csc"] = encoder(g.edge_attr_csc)
+        return ee
+
+    def _conv(self, i: int, h: torch.Tensor, g, ee: dict) -> torch.Tensor:
+        """Layer i's GENConv on ``h`` (the spatial twin exchanges boundary
+        rows here, `parallel/spatial.py`)."""
+        return self.gcns[i](h, g, **ee)
+
     def forward(self, x: torch.Tensor, g: Graph,
                 generator: Optional[torch.Generator] = None,
                 node_feats: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -189,13 +206,7 @@ class DeeperGCN(nn.Module):
         h = self.atom_encoder(x) if c.node_encoder == "atom" else self.node_features_encoder(x)
         if carry is not None:
             h = h.to(carry)
-        ee = {}
-        enc = {"one_time": "edge_encoder", "one_time_bond": "bond_encoder"}.get(c.edge_mode)
-        if enc is not None and g.edge_attr is not None:
-            encoder = getattr(self, enc)
-            ee["edge_emb"] = encoder(g.edge_attr)
-            if g.edge_attr_csc is not None:
-                ee["edge_emb_csc"] = encoder(g.edge_attr_csc)
+        ee = self._model_edge_embeddings(g)
         if c.block == "res+":
             vn = node_graph = None
             if c.add_virtual_node:
@@ -205,7 +216,7 @@ class DeeperGCN(nn.Module):
                 node_graph = torch.clamp(g.node_graph.long(), max=g.num_graphs - 1)
                 vn = self.virtualnode_embedding.weight.expand(g.num_graphs, -1)
                 h = h + torch.where(mask[:, None], vn.index_select(0, node_graph), 0.0)
-            h = self.gcns[0](h, g, **ee)
+            h = self._conv(0, h, g, ee)
             if carry is not None:
                 h = h.to(carry)
 
@@ -218,7 +229,7 @@ class DeeperGCN(nn.Module):
                     pooled = segment_sum(h2, g.node_graph, g.num_graphs, mask)
                     vn = drop(self.mlp_virtualnode_list[i - 1](pooled + vn))
                     h2 = h2 + vn.index_select(0, node_graph) * mask[:, None]
-                return h + self.gcns[i](h2, g, **ee).to(h.dtype), vn
+                return h + self._conv(i, h2, g, ee).to(h.dtype), vn
 
             for i in range(1, c.num_layers):
                 h, vn = ckpt(c.remat, body, h, vn, i)
@@ -233,7 +244,7 @@ class DeeperGCN(nn.Module):
                 return drop(h3 + h if c.block == "res" else h3)
 
             def body(h, i):
-                return ckpt(ckpt_pro, epilogue, self.gcns[i](h, g, **ee), h, i)
+                return ckpt(ckpt_pro, epilogue, self._conv(i, h, g, ee), h, i)
 
             for i in range(c.num_layers):
                 h = ckpt(c.remat, body, h, i)

@@ -66,6 +66,9 @@ class RevGCNConfig:
 
 
 class RevGCN(nn.Module):
+    # the group function of each ``conv`` (the spatial twin swaps in its own)
+    block_types = {"gen": GENBlock, "gcn": GCNBlock, "sage": SAGEBlock, "gat": GATBlock}
+
     def __init__(self, cfg: RevGCNConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
         if cfg.conv not in ("gen", "gcn", "sage", "gat"):
@@ -85,14 +88,14 @@ class RevGCN(nn.Module):
         self.edge_encoder = (Linear(c.edge_feat_dim, c.hidden_channels, generator=generator)
                              if c.edge_feat_dim and c.conv == "gen" else None)
 
+        blocks = self.block_types
+
         def block():
             if c.conv == "gat":
-                return GATBlock(cg, cg, heads=c.heads, norm=c.norm, generator=generator)
-            if c.conv == "gcn":
-                return GCNBlock(cg, cg, norm=c.norm, generator=generator)
-            if c.conv == "sage":
-                return SAGEBlock(cg, cg, norm=c.norm, generator=generator)
-            return GENBlock(cg, cg, aggr=c.aggr, t=c.t, learn_t=c.learn_t, p=c.p,
+                return blocks["gat"](cg, cg, heads=c.heads, norm=c.norm, generator=generator)
+            if c.conv in ("gcn", "sage"):
+                return blocks[c.conv](cg, cg, norm=c.norm, generator=generator)
+            return blocks["gen"](cg, cg, aggr=c.aggr, t=c.t, learn_t=c.learn_t, p=c.p,
                             learn_p=c.learn_p, y=c.y, learn_y=c.learn_y, msg_norm=c.msg_norm,
                             learn_msg_scale=c.learn_msg_scale, encode_edge=c.conv_encode_edge,
                             edge_feat_dim=c.hidden_channels, norm=c.norm,

@@ -212,7 +212,16 @@ class MultiEmbedding(nn.Module):
 class BatchNorm(nn.Module):
     """BatchNorm1d over the rows of [N, C] (eps 1e-5, momentum 0.1, affine)
     that ignores masked rows: one-pass masked moments with count = valid rows,
-    biased variance in the normalisation, unbiased in the running variance."""
+    biased variance in the normalisation, unbiased in the running variance.
+
+    Across ranks (`sync_batch_norm`, the ``axis_name`` branch of JAX's
+    `nn/core.py:285-290`) the training moments are the equal-weight means of
+    the ranks' moments, E[x] and E[x²] = var + E[x]², and the count is the
+    sum of the ranks' (clamped) counts, as JAX computes them; in a world of
+    one the local moments are used as they are."""
+
+    # moments across the ranks of the default process group (`sync_batch_norm`)
+    cross_rank = False
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -236,6 +245,10 @@ class BatchNorm(nn.Module):
                 mu = x.mean(0)
                 ex2 = (x * x).mean(0)
             var = torch.clamp_min(ex2 - mu * mu, 0.0)
+            if self.cross_rank:
+                from ..parallel.comm import cross_rank_moments
+
+                mu, var, cnt = cross_rank_moments(mu, var, cnt)
             if not getattr(_STATS, "frozen", False):
                 self._update_running(mu, var, cnt)
         else:
@@ -249,6 +262,15 @@ class BatchNorm(nn.Module):
         self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mu)
         self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
         self.num_batches_tracked.add_(1)
+
+
+def sync_batch_norm(module: nn.Module) -> nn.Module:
+    """Make every `BatchNorm` in ``module`` take its training moments across
+    the ranks of the default process group. Returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.cross_rank = True
+    return module
 
 
 class LayerNorm(nn.Module):

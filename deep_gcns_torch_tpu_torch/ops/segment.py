@@ -278,3 +278,105 @@ def generalized_aggregate(
         return out
 
     raise NotImplementedError(f"aggregation '{aggr}' is not implemented")
+
+
+def _segment_max_filled(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                        mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-segment maximum with −inf for empty segments (JAX's raw
+    `jax.ops.segment_max`), out-of-range ids and masked entries dropped; no
+    gradient."""
+    ok = _bcast(_valid(segment_ids, num_segments, mask), data)
+    ids = torch.clamp(segment_ids.long(), max=num_segments - 1)
+    neg = torch.full((), float("-inf"), dtype=data.dtype, device=data.device)
+    out = torch.full((num_segments,) + data.shape[1:], float("-inf"), dtype=data.dtype,
+                     device=data.device)
+    return out.scatter_reduce(0, _bcast(ids, data).expand_as(data),
+                              torch.where(ok, data.detach(), neg), "amax", include_self=True)
+
+
+def generalized_aggregate_split(parts, num_segments: int, *, aggr: str = "softmax",
+                                t: Scalar = 1.0, p: Scalar = 1.0, y: Scalar = 0.0,
+                                learn_t: bool = False) -> torch.Tensor:
+    """`generalized_aggregate` over a union of edge sets, each aggregated
+    partially and combined exactly (JAX `ops/segment.py:376-492`): the
+    spatial layer aggregates the local edges and the halo edges apart.
+    ``parts`` is a sequence of (msgs [E_i, C], receivers [E_i], row_ptr or
+    None, mask or None), each receiver-sorted. Every part's sums go through
+    `segment_sum(..., row_ptr=)`, so K1 runs on each part when it carries
+    its CSR. The combine:
+
+    * sum, mean, power: partial sums and counts are linear;
+    * max, min: the partial extremes keep ±inf for empty segments until the
+      combine, then an empty segment is 0;
+    * softmax family: one stop-gradient stabilizer per (segment, channel),
+      the max of the partial maxima, makes the partial num/den sums exact;
+      the weights are stop-gradient unless ``learn_t`` (softmax,
+      softmax_sum), as in `generalized_aggregate`."""
+    parts = list(parts)
+    if len(parts) == 1:
+        m, r, rp, mk = parts[0]
+        return generalized_aggregate(m, r, num_segments, aggr=aggr, t=t, p=p, y=y,
+                                     learn_t=learn_t, mask=mk, row_ptr=rp)
+    n = num_segments
+
+    def deg(dtype):
+        return sum(segment_degree(r, n, mk, dtype) for (_, r, _, mk) in parts)
+
+    def sums(vals):
+        return sum(segment_sum(v, r, n, mk, row_ptr=rp)
+                   for v, (_, r, rp, mk) in zip(vals, parts))
+
+    if aggr in ("add", "sum"):
+        return sums([m for (m, _, _, _) in parts])
+    if aggr == "mean":
+        s = sums([m for (m, _, _, _) in parts])
+        return s / _bcast(torch.clamp_min(deg(s.dtype), 1), s)
+    if aggr in ("max", "min"):
+        fn = segment_max if aggr == "max" else segment_min
+        combine = torch.maximum if aggr == "max" else torch.minimum
+        fill = float("-inf") if aggr == "max" else float("inf")
+        out = any_has = None
+        for (m, r, _, mk) in parts:
+            o = fn(m, r, n, mk)
+            has = _bcast(segment_degree(r, n, mk) > 0, o)
+            o = torch.where(has, o, torch.full((), fill, dtype=o.dtype, device=o.device))
+            out = o if out is None else combine(out, o)
+            any_has = has if any_has is None else any_has | has
+        return torch.where(any_has, out, torch.zeros((), dtype=out.dtype, device=out.device))
+    if aggr in ("softmax", "softmax_sg", "softmax_sum"):
+        grad_w = learn_t and aggr in ("softmax", "softmax_sum")
+        t_eff = t.detach() if isinstance(t, torch.Tensor) and not grad_w else t
+        with torch.no_grad():
+            sm = None
+            for (m, r, _, mk) in parts:
+                mx = _segment_max_filled(m * t_eff, r, n, mk)
+                sm = mx if sm is None else torch.maximum(sm, mx)
+            sm = torch.where(torch.isfinite(sm), sm, torch.zeros((), dtype=sm.dtype,
+                                                                  device=sm.device))
+        es = []
+        for (m, r, _, mk) in parts:
+            rc = torch.clamp(r.long(), max=n - 1)
+            e = torch.exp(m * t_eff - sm.index_select(0, rc))
+            e = torch.where(_bcast(_valid(r, n, mk), e), e,
+                            torch.zeros((), dtype=e.dtype, device=e.device))
+            es.append(e)
+        den = sum(segment_sum(e, r, n, row_ptr=rp) for e, (_, r, rp, _) in zip(es, parts))
+        den = torch.clamp_min(den, torch.finfo(es[0].dtype).tiny)
+        out = 0
+        for e, (m, r, rp, _) in zip(es, parts):
+            w = e / den.index_select(0, torch.clamp(r.long(), max=n - 1))
+            if not grad_w:
+                w = w.detach()  # the reference's no_grad weights
+            out = out + segment_sum(w * m, r, n, row_ptr=rp)
+        if aggr == "softmax_sum":
+            out = torch.pow(deg(out.dtype), torch.sigmoid(torch.as_tensor(y)))[:, None] * out
+        return out
+    if aggr in ("power", "power_sum"):
+        lo, hi = 1e-7, 1e1
+        s = sums([torch.pow(torch.clamp(m, lo, hi), p) for (m, _, _, _) in parts])
+        out = torch.clamp(s / _bcast(torch.clamp_min(deg(s.dtype), 1), s), lo, hi)
+        out = torch.pow(out, 1.0 / p)
+        if aggr == "power_sum":
+            out = torch.pow(deg(out.dtype), torch.sigmoid(torch.as_tensor(y)))[:, None] * out
+        return out
+    raise NotImplementedError(f"aggregation '{aggr}' is not implemented")

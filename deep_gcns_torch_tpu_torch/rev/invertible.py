@@ -19,6 +19,11 @@ One `torch.autograd.Function` over the L couplings:
 The reference's RNG-state capture dissolves here too: the shared dropout mask
 is an explicit argument, so the inverse sees the forward's mask by
 construction.
+
+``g`` is handed to the couplings as it is: a `Graph`, or one rank's
+`parallel.spatial.RankShard`, whose group functions exchange rows across
+ranks; the backward then re-issues their collectives layer by layer in the
+same order on every rank.
 """
 
 from __future__ import annotations
@@ -27,7 +32,6 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..graph import Graph
 from .coupling import GroupAdditiveCoupling
 
 
@@ -60,7 +64,7 @@ class _ReversibleStack(torch.autograd.Function):
         return (None, None, None, None, gy, *g_args, *flat)
 
 
-def reversible_stack(layers: Sequence[GroupAdditiveCoupling], x: torch.Tensor, g: Graph,
+def reversible_stack(layers: Sequence[GroupAdditiveCoupling], x: torch.Tensor, g,
                      args: Sequence[Optional[torch.Tensor]] = (),
                      layer_args: Optional[Sequence[Sequence[torch.Tensor]]] = None
                      ) -> torch.Tensor:

@@ -149,8 +149,8 @@ def test_products_app_and_test_script(tmp_path):
 def test_apps_without_ckpt_write_nothing(tmp_path):
     ogbg_ppa.main(PPA + ["--epochs", "1", "--exp_root", str(tmp_path)])
     assert os.listdir(tmp_path) == []
-    with pytest.raises(NotImplementedError):
-        ogbn_products.main(PRODUCTS + ["--epochs", "1", "--spatial", "2"])
+    with pytest.raises(NotImplementedError):  # tensor parallelism
+        ogbn_products.main(PRODUCTS + ["--epochs", "1", "--tp", "2"])
     with pytest.raises(FileNotFoundError, match="--synthetic"):
         ogbg_mol.main(["--device", "cpu", "--epochs", "1"])
 

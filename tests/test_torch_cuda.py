@@ -1457,3 +1457,40 @@ def test_small_point_model_card_matches_cpu(cuda_device, kind):
         g_max = max(float(v.abs().max()) for v in outs[1][2].values())
         for k, w in outs[1][2].items():
             _assert_close(outs[0][2][k], w, 1e-3, 1e-4, ref_max=g_max)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange,band", [("halo", "off"), ("allgather", "off"),
+                                           ("halo", "auto")])
+def test_spatial_forward_card_matches_cpu(cuda_device, exchange, band):
+    """`SpatialDeeperGCN` (softmax_sg, float32) on two ranks sharing the card
+    (gloo, host-staged) against two gloo ranks on the CPU, and each card
+    rank's launches: the halo split's four K1 sums a layer, the all-gather's
+    K2 message form, or the band route's K3 and K1 on the halo partial (and
+    on the leftover where there is one)."""
+    import torch_parallel_cases as tpc
+    from deep_gcns_torch_tpu_torch.parallel import launch, shard_graph, shard_nodes
+
+    rng = np.random.default_rng(9)
+    n, e, layers = 3000, 30000, 3
+    s = rng.integers(0, n, e)
+    r = np.clip(s + rng.integers(-100, 101, e), 0, n - 1)
+    sh = shard_graph(s, r, n, 2, band=band)
+    kw = dict(in_channels=32, hidden_channels=32, num_tasks=8, num_layers=layers,
+              block="res+", aggr="softmax_sg", t=0.5, norm="layer", mlp_layers=1,
+              dropout=0.0)
+    model = DeeperGCN(DeeperGCNConfig(**kw), generator=torch.Generator().manual_seed(0))
+    case = dict(kind="deeper", cfg=kw, exchange=exchange, shards=sh,
+                state={k: v.numpy() for k, v in model.state_dict().items()},
+                x=shard_nodes(rng.standard_normal((n, 32)).astype(np.float32), sh))
+    outs = [launch(tpc.run_cases, 2, ([case], d), device=d, deadline=300) for d in ("cuda",
+                                                                                    "cpu")]
+    got, want = (np.concatenate([rk["results"][0]["logits"] for rk in o]) for o in outs)
+    _assert_close(torch.from_numpy(got), torch.from_numpy(want), rtol=1e-4, atol_rel=1e-4)
+    lo = int(band == "auto" and sh.loc_band[0].fwd.n_lo > 0)
+    expect = ({"K1": 4 * layers, "K2": 0, "K2 msgs": 0, "K3": 0} if band == "off"
+              and exchange == "halo" else
+              {"K1": 0, "K2": 0, "K2 msgs": layers, "K3": 0} if band == "off" else
+              {"K1": layers * (lo + 1), "K2": 0, "K2 msgs": 0, "K3": layers})
+    for rk in outs[0]:
+        assert rk["results"][0]["launches"] == expect

@@ -61,7 +61,13 @@ MODULES = ["deep_gcns_torch_tpu_torch", "deep_gcns_torch_tpu_torch.device",
            "deep_gcns_torch_tpu_torch.apps.modelnet_cls",
            "deep_gcns_torch_tpu_torch.apps.part_sem_seg",
            "deep_gcns_torch_tpu_torch.apps.part_sem_seg_eval",
-           "deep_gcns_torch_tpu_torch.apps.part_sem_seg_visualize"]
+           "deep_gcns_torch_tpu_torch.apps.part_sem_seg_visualize",
+           "deep_gcns_torch_tpu_torch.parallel", "deep_gcns_torch_tpu_torch.parallel.comm",
+           "deep_gcns_torch_tpu_torch.parallel.launch",
+           "deep_gcns_torch_tpu_torch.parallel.spatial",
+           "deep_gcns_torch_tpu_torch.parallel.spatial_rev",
+           "deep_gcns_torch_tpu_torch.parallel.data_parallel",
+           "deep_gcns_torch_tpu_torch.apps.spatial_common"]
 
 
 def test_import_leaves_jax_out():

@@ -180,5 +180,5 @@ def test_apps_train_on_cpu(app, capsys):
 def test_apps_refuse_what_is_not_ported(tmp_path):
     with pytest.raises(FileNotFoundError, match="--synthetic"):  # no OGB cache there
         ogbn_proteins.main(["--device", "cpu", "--epochs", "1", "--data_root", str(tmp_path)])
-    with pytest.raises(NotImplementedError):
-        ogbn_proteins_rev.main(TINY + ["--spatial", "2"])
+    with pytest.raises(ValueError, match="keep no state"):  # BatchNorm in a coupling
+        ogbn_proteins_rev.main(TINY + ["--norm", "batch"])

@@ -1,0 +1,71 @@
+"""The apps' ``--spatial 2`` on tiny synthetic data, two gloo ranks each:
+ogbn-arxiv with ``--save_ckpt`` (its checkpoint carries the single-process
+`DeeperGCN`'s `state_dict` names, and `apps/ogbn_arxiv_test` reproduces the
+run's best validation accuracy from it), ogbn-proteins (DyResGEN and
+RevGCN) and ogbn-products, each reaching its end with finite losses; and
+``--tp`` > 1 raising in every app that parses it."""
+
+import math
+
+import pytest
+import torch
+
+from deep_gcns_torch_tpu_torch.apps import (ogbn_arxiv, ogbn_arxiv_test, ogbn_products,
+                                            ogbn_proteins, ogbn_proteins_rev)
+
+ARXIV = ["--synthetic", "--device", "cpu", "--synthetic_nodes", "600", "--num_layers", "2",
+         "--hidden_channels", "16"]
+PROTEINS = ["--synthetic", "--device", "cpu", "--synthetic_nodes", "600", "--num_layers", "3",
+            "--synthetic_degree", "8", "--epochs", "2", "--spatial", "2"]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread in this process (the ranks take one each too): beside
+    tier-1's other workers more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _finite(out):
+    assert out["losses"] and all(math.isfinite(v) for v in out["losses"])
+    assert 0.0 <= out["best_valid"] <= 1.0
+
+
+def test_arxiv_spatial_checkpoint_scores_in_the_single_process_model(tmp_path):
+    out = ogbn_arxiv.main(ARXIV + ["--epochs", "3", "--spatial", "2", "--exchange", "halo",
+                                   "--save_ckpt", "--exp_root", str(tmp_path)])
+    _finite(out)
+    assert sorted(out["evals"]) == [0, 2]
+    names = set(torch.load(out["ckpt"] + ".pth", weights_only=False)["model_state_dict"])
+    single = ogbn_arxiv.build_model(ogbn_arxiv.get_args(ARXIV), 128)
+    assert names == set(single.state_dict())
+    best = max(out["evals"], key=lambda e: out["evals"][e]["valid"])
+    for spatial in ([], ["--spatial", "2"]):  # one process, and the run's two ranks
+        te = ogbn_arxiv_test.main(ARXIV + spatial + ["--pretrained_model", out["ckpt"]])
+        assert te["accs"]["valid"] == out["best_valid"] == te["meta"]["best_value"]
+        assert te["accs"] == out["evals"][best]
+
+
+@pytest.mark.parametrize("app,extra", [(ogbn_proteins_rev, []),
+                                       (ogbn_proteins, ["--hidden_channels", "16",
+                                                        "--learn_t", "--exchange",
+                                                        "allgather"])])
+def test_proteins_spatial_reaches_its_end(app, extra):
+    out = app.main(PROTEINS + extra)
+    _finite(out)
+    assert set(out["results"]) == {"train", "valid", "test"}
+
+
+def test_products_spatial_reaches_its_end():
+    _finite(ogbn_products.main(["--synthetic", "--device", "cpu", "--synthetic_nodes", "1500",
+                                "--num_layers", "2", "--hidden_channels", "16",
+                                "--epochs", "2", "--spatial", "2"]))
+
+
+@pytest.mark.parametrize("app", [ogbn_arxiv, ogbn_products])
+def test_tensor_parallel_flag_raises(app):
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        app.main(["--synthetic", "--device", "cpu", "--synthetic_nodes", "300", "--tp", "2"])
