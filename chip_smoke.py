@@ -323,9 +323,38 @@ every check; nothing is caught):
    over the run's ranks (the printed best validation accuracy exactly) and
    in one process, the RevGCN proteins app at phase 18's argv, DyResGEN-7
    on 40,000 nodes, and ogbn-products' ResGEN-14 on 100,000 nodes for one
-   epoch.
+   epoch;
+67. tensor-parallel ResGEN-28 (`parallel.tensor.TPDeeperGCN`: phase 4's
+   model, its 128 channels over 2 ranks sharing the card over gloo, run in
+   phase 62's spawn) on phase 4's whole gather graph: the eval logits at
+   seed 0's weights against the single-process model within
+   TOL_SPATIAL_BF16; a warm-up, a timed step and an eval forward whose
+   launches a rank must be exactly `tp_expected`'s (K2's message form 28 a
+   forward, K1's gathered form 28 a backward); the step a rank, collective
+   calls, bytes staged and peak a rank;
+68. (in phase 64's NCCL world of one) the tensor-parallel step at T=1 against
+   the single-process step on the same graph without its CSC: two Adam
+   steps with deterministic algorithms, losses and every entry bit for bit;
+69. `TPRevGCN` (the proteins app's RevGCN-101 × 80, group 2, bf16: 20
+   channels a group a rank) at T=2 on phase 13's cluster, in phase 62's
+   spawn: the eval logits against the single-process RevGCN on the cluster
+   without its CSC (the same gather and message form) within
+   TOL_SPATIAL_BF16, a warm-up, a timed step and an eval forward with
+   `tp_rev_expected`'s launches (K2's message form 2·L·G a step + L·G an
+   eval, K1 L·G a step), the step and peak a rank;
+70. spatial × tensor parallelism on a 2 × 2 grid of ranks sharing the card
+   (`parallel.spatial_tp.SpatialTPDeeperGCN`): phase 62's shards of phase
+   7's cluster-ordered graph with the halo exchange over gp, whose rows are
+   now 64 channels wide; the gathered eval logits against the
+   single-process model within TOL_SPATIAL_BF16, a warm-up, a timed step
+   and an eval forward (K2's message form 28 a forward, no K1), the halo
+   rows a layer, the step and peak a rank; then `apps/ogbn_arxiv` with
+   `--tp 2` and with `--spatial 2 --tp 2` (ResGEN-28 bf16, phase 66's 80,000
+   nodes, 2 epochs, `--save_ckpt`), each checkpoint scored by the test
+   script in one process to the run's printed best validation accuracy
+   exactly.
 
-Every time and memory figure of phases 30-60 is printed beside the card's
+Every time and memory figure of phases 30-70 is printed beside the card's
 name and power limit. A failed comparison saves its tensors (K2's with its
 inputs) under `chiprun_out/check_failures/` for replay.
 
@@ -350,10 +379,10 @@ commits' kernels compare bit for bit.
 
 `--ogb` runs phase 1 and then only phases 40-46, printing their `kernels`
 rows as one JSON line and no device result; `--pointcloud` likewise runs
-phase 1 and phases 55-60; `--parallel` runs phase 1 and phases 61-66 and
-prints no result line. The multi-rank times of phases 62-66 come from two
-ranks sharing one card through host-staged gloo collectives: they are
-printed as such and claim nothing.
+phase 1 and phases 55-60; `--parallel` runs phase 1 and phases 61-70 and
+prints no result line. The multi-rank times of phases 62-70 come from two
+or four ranks sharing one card through host-staged gloo collectives: they
+are printed as such and claim nothing.
 
 `--kernel-forms[=K7,K9,K5,K8,K6,K1]` (card only; `--k7-forms` is
 `--kernel-forms=K7`) runs phase 1 and then times the named kernels' forms
@@ -4620,7 +4649,7 @@ def phase_pointcloud(dev, rehearse, iters):
 
 
 # ---------------------------------------------------------------------------
-# phases 61-66: the parallel layer (`--parallel`)
+# phases 61-66: the parallel layer (`--parallel`, with phases 67-70)
 # ---------------------------------------------------------------------------
 
 PAR_D = 2
@@ -4730,6 +4759,16 @@ def _rank_resgen(rank, world, job):
             raise AssertionError(f"{route} rank {rank}: launches {launches} != {want}")
         if not all(math.isfinite(v) for v in losses) or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{route} rank {rank}: losses {losses} or logits not finite")
+        staged = comm.STATS["staged_bytes"]
+        if exchange == "allgather" and cuda:
+            # the all-gather's backward, a reduce-scatter, stages D·S·C in and
+            # S·C out a layer a backward; an all-reduce of the whole cotangent
+            # would stage D·S·C both ways (derived)
+            bwd = job["layers"] * (job["steps"] + 1)
+            extra = bwd * (world - 1) * sh.shard_size * 128 * 2
+            log(f"[par-resgen] allgather rank {rank}: bytes staged {staged} with the "
+                f"reduce-scatter backward; {staged + extra} with an all-reduce of the whole "
+                f"cotangent (derived: + {bwd} backward calls x (D - 1)·S·C·2 bytes)")
         out[route] = {
             "losses": losses, "step_ms_all": [v * 1e3 for v in times],
             "step_ms_median": sorted(times)[len(times) // 2] * 1e3,
@@ -4749,8 +4788,9 @@ def _rank_resgen(rank, world, job):
 def par_graphs(n, dev, rehearse):
     """Phase 61: phase 7's power-law community graph in cluster order (its
     band, and each rank's local band) and phase 4's gather graph, each
-    sharded over `PAR_D` ranks on the host; the single-process ResGEN-28's
-    eval logits of both on ``dev`` at seed 0's weights."""
+    sharded over `PAR_D` ranks on the host (the gather graph also kept whole,
+    for phase 67); the single-process ResGEN-28's eval logits of both on
+    ``dev`` at seed 0's weights."""
     from deep_gcns_torch_tpu_torch.parallel import shard_graph, shard_nodes
 
     layers = PAR_LAYERS_SMALL if rehearse else 28
@@ -4781,6 +4821,8 @@ def par_graphs(n, dev, rehearse):
         model = model.to(dev).eval()
         with torch.no_grad():
             single[name] = model(g.x.to(dev), g.to(dev))[:g.n_node].float().cpu()
+        if name == "gather":  # phase 67's whole graph (host), with its labels
+            graphs["gather host"] = (g, lab)
         del model, g
         free_memory(dev)
     return graphs, single, layers
@@ -4888,12 +4930,16 @@ def phase_par_small(card, cpu):
 
 
 def _rank_world_one(rank, world, job):
-    """Phase 64's rank: the spatial ResGEN step in a world of one (NCCL on
-    the card), deterministic algorithms on."""
+    """Phases 64 and 68's rank: the spatial ResGEN step (D=1) and the
+    tensor-parallel one (T=1) in a world of one (NCCL on the card),
+    deterministic algorithms on, each from seed 0's weights and generator
+    ``rank_generator(1, 0)``."""
     _rank_globals()
-    from deep_gcns_torch_tpu_torch.parallel import comm
+    from deep_gcns_torch_tpu_torch.parallel import comm, make_grid
     from deep_gcns_torch_tpu_torch.parallel.spatial import (SpatialDeeperGCN, masked_nll_sum,
                                                             rank_generator, spatial_train_step)
+    from deep_gcns_torch_tpu_torch.parallel.tensor import TPDeeperGCN, tp_train_step
+    from deep_gcns_torch_tpu_torch.utils.loss import cross_entropy
     from deep_gcns_torch_tpu_torch.utils.optim import make_optimizer
 
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -4906,15 +4952,28 @@ def _rank_world_one(rank, world, job):
     x, lab = torch.from_numpy(job["x"]).to(dev), torch.from_numpy(job["labels"]).to(dev)
     losses = [float(spatial_train_step(model, opt, sh, x, lab, sh.node_mask, masked_nll_sum,
                                        generator=gen)) for _ in range(2)]
-    return {"backend": torch.distributed.get_backend(), "losses": losses,
-            "state": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+    out = {"backend": torch.distributed.get_backend(), "losses": losses,
+           "state": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+    del model, opt
+    grid = make_grid(1, 1)
+    g = job["graph"].to(dev)
+    lab_full = torch.from_numpy(job["tp_labels"]).to(dev)
+    model = TPDeeperGCN(resgen_config(job["layers"]), grid.tp_group,
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer("adam", model.parameters(), 1e-2)
+    gen = rank_generator(1, 0, dev)
+    out["tp_losses"] = [float(tp_train_step(model, opt, g, g.x, lab_full, g.node_mask,
+                                            cross_entropy, generator=gen)) for _ in range(2)]
+    out["tp_state"] = {k: v.detach().cpu() for k, v in model.single_state_dict().items()}
+    return out
 
 
 def phase_par_world_one(dev, rehearse):
-    """Phase 64: D=1 over NCCL (the all-gather route, K2's message form)
-    against the single-process step on the same graph without its CSC
-    (GENConv's unfused branch: the same gather and message form), two Adam
-    steps, bit for bit."""
+    """Phases 64 and 68: D=1 (the all-gather route, K2's message form) and
+    T=1 (the tensor-parallel model: the same gather and message form, its
+    one-rank `psum_scatter`s and head sum) over NCCL, each against the
+    single-process step on the same graph without its CSC (GENConv's unfused
+    branch), two Adam steps, bit for bit."""
     from deep_gcns_torch_tpu_torch.parallel import launch, shard_graph, shard_nodes
     from deep_gcns_torch_tpu_torch.parallel.spatial import rank_generator
 
@@ -4933,9 +4992,9 @@ def phase_par_world_one(dev, rehearse):
         opt = make_optimizer("adam", model.parameters(), 1e-2)
         gen = rank_generator(1, 0, dev)
         gd = g.to(dev)
-        lab = torch.zeros(gd.num_nodes_padded, dtype=torch.long)
-        lab[:n] = torch.from_numpy(labels)
-        lab = lab.to(dev)
+        lab_host = torch.zeros(gd.num_nodes_padded, dtype=torch.long)
+        lab_host[:n] = torch.from_numpy(labels)
+        lab = lab_host.to(dev)
         losses = [float(ogbn_arxiv.train_step(model, opt, gd, lab, gd.node_mask, gen))
                   for _ in range(2)]
         want = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -4944,7 +5003,8 @@ def phase_par_world_one(dev, rehearse):
     del model, opt, gd
     free_memory(dev)
     got = launch(_rank_world_one, 1, (dict(device=dev.type, layers=layers, shards=sh,
-                                           x=shard_nodes(x, sh)[0],
+                                           x=shard_nodes(x, sh)[0], graph=g,
+                                           tp_labels=lab_host.numpy(),
                                            labels=shard_nodes(labels[:, None], sh)[0, :, 0]),),
                  device=dev.type, deadline=600, threads=torch.get_num_threads())[0]
     chk = Checks("par-world-one")
@@ -4956,6 +5016,23 @@ def phase_par_world_one(dev, rehearse):
         chk.equal(f"D=1 {k} after two steps", got["state"][k], want[k])
     if dev.type == "cuda" and got["backend"] != "nccl":
         chk.failed.append(f"backend {got['backend']} (expected nccl)")
+    chk.raise_if_failed()
+    return got, losses, want
+
+
+def phase_tp_world_one(got, losses, want):
+    """Phase 68 (run in phase 64's NCCL world of one): the tensor-parallel
+    step at T=1 against the same single-process steps, bit for bit."""
+    chk = Checks("tp-world-one")
+    log(f"[tp-world-one] backend {got['backend']}; losses TP T=1 {got['tp_losses']} single "
+        f"{losses}")
+    chk.equal("T=1 losses vs single process", torch.tensor(got["tp_losses"]),
+              torch.tensor(losses))
+    if set(got["tp_state"]) != set(want):
+        chk.failed.append(f"T=1 state names {sorted(set(got['tp_state']) ^ set(want))}")
+    for k in want:
+        if k in got["tp_state"]:
+            chk.equal(f"T=1 {k} after two steps", got["tp_state"][k], want[k])
     chk.raise_if_failed()
 
 
@@ -5082,16 +5159,258 @@ def phase_par_apps(dev, rehearse, app_argv):
                                  f"{out['best_valid']}")
 
 
+# ---------------------------------------------------------------------------
+# phases 67-70: tensor parallelism (`--parallel`)
+# ---------------------------------------------------------------------------
+
+def tp_expected(layers, steps, cuda, csc):
+    """Kernel launches on one rank of ``steps`` tensor-parallel ResGEN
+    (softmax_sg) train steps and one eval forward: K2's message form once a
+    layer a forward (the materialised messages of the channel slice), and,
+    on a graph with its CSC, K1's gathered form once a layer a backward (the
+    gather's backward); the spatial grid gathers its exchanged table with a
+    plain index_select, so it runs no K1."""
+    want = no_launches()
+    if cuda:
+        want["K2 msgs"] = layers * (steps + 1)
+        if csc:
+            want["K1"] = layers * steps
+    return want
+
+
+def tp_rev_expected(layers, group, steps, cuda):
+    """Launches on one rank of ``steps`` `TPRevGCN` steps and one eval
+    forward on a graph with its CSC: each group function runs K2's message
+    form in the forward and again in the backward's fused inverse+VJP, whose
+    gather backward is K1's gathered form; the eval forward runs it once."""
+    want = no_launches()
+    if cuda:
+        lg = layers * group
+        want.update({"K2 msgs": 2 * lg * steps + lg, "K1": lg * steps})
+    return want
+
+
+def _tp_run(tag, rank, dev, step, forward, want_fn, steps, extra=None):
+    """The timed part of a TP phase on one rank: the counts and the
+    collective statistics set to 0, a warm-up and ``steps`` timed steps,
+    an eval forward, the launches against ``want_fn``; returns the info."""
+    from deep_gcns_torch_tpu_torch.parallel import comm
+
+    cuda = dev.type == "cuda"
+    sync(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    comm.reset_stats()
+    losses, times = [], []
+    for i in range(steps + 1):
+        t0 = time.perf_counter()
+        loss = step()
+        sync(dev)
+        if i:
+            times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    t0 = time.perf_counter()
+    logits = forward()
+    sync(dev)
+    eval_s = time.perf_counter() - t0
+    launches = read_launches()
+    want = want_fn(steps + 1)
+    if launches != want:
+        raise AssertionError(f"{tag} rank {rank}: launches {launches} != {want}")
+    if not all(math.isfinite(v) for v in losses) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag} rank {rank}: losses {losses} or logits not finite")
+    info = {"losses": losses, "step_ms_all": [v * 1e3 for v in times],
+            "step_ms_median": sorted(times)[len(times) // 2] * 1e3,
+            "eval_forward_ms": eval_s * 1e3, "launches": launches,
+            "collective_calls": comm.STATS["calls"], "bytes_staged": comm.STATS["staged_bytes"],
+            "backend": torch.distributed.get_backend(),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None}
+    info.update(extra or {})
+    return info
+
+
+def _rank_tp_resgen(rank, world, job):
+    """Phase 67 on one rank: `TPDeeperGCN` (phase 4's ResGEN-28, channels
+    over the ``world`` ranks) on phase 4's whole gather graph: the eval
+    logits at seed 0's weights (rank 0 returns them), then a warm-up, the
+    timed steps and an eval forward."""
+    _rank_globals()
+    from deep_gcns_torch_tpu_torch.parallel import comm, make_grid
+    from deep_gcns_torch_tpu_torch.parallel.spatial import rank_generator
+    from deep_gcns_torch_tpu_torch.parallel.tensor import (TPDeeperGCN, tp_forward,
+                                                           tp_train_step)
+    from deep_gcns_torch_tpu_torch.utils.loss import cross_entropy
+    from deep_gcns_torch_tpu_torch.utils.optim import make_optimizer
+
+    dev = comm.rank_device(rank, job["device"])
+    grid = make_grid(1, world)
+    g_host, labels = job["graph"]
+    g = g_host.to(dev)
+    lab = torch.zeros(g.num_nodes_padded, dtype=torch.long)
+    lab[:len(labels)] = torch.from_numpy(np.asarray(labels).reshape(-1))
+    lab = lab.to(dev)
+    model = TPDeeperGCN(resgen_config(job["layers"]), grid.tp_group,
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer("adam", model.parameters(), 1e-2)
+    gen = rank_generator(1, rank, dev)
+    logits0 = tp_forward(model, g, g.x)[:g.n_node].float().cpu().numpy()
+    info = _tp_run("tp-resgen", rank, dev,
+                   lambda: tp_train_step(model, opt, g, g.x, lab, g.node_mask, cross_entropy,
+                                         generator=gen),
+                   lambda: tp_forward(model, g, g.x), lambda s: tp_expected(
+                       job["layers"], s, dev.type == "cuda", True), job["steps"],
+                   {"channels_a_rank": 128 // world})
+    info["logits0"] = logits0 if rank == 0 else None
+    del model, opt, g
+    free_memory(dev)
+    return info
+
+
+def _rank_tp_rev(rank, world, job):
+    """Phase 69 on one rank: `TPRevGCN` (RevGCN-L × 80, group 2, bf16, the
+    proteins app's config) on phase 13's cluster: eval logits at seed 0's
+    weights, then a warm-up, the timed steps and an eval forward; every tp
+    rank draws the same dropout masks (one generator seed) and keeps its
+    slices."""
+    _rank_globals()
+    from deep_gcns_torch_tpu_torch.parallel import comm, make_grid
+    from deep_gcns_torch_tpu_torch.parallel.tensor_rev import (TPRevGCN, tp_rev_forward,
+                                                               tp_rev_train_step)
+    from deep_gcns_torch_tpu_torch.utils.loss import bce_with_logits
+    from deep_gcns_torch_tpu_torch.utils.optim import make_optimizer
+
+    dev = comm.rank_device(rank, job["device"])
+    grid = make_grid(1, world)
+    g = job["graph"].to(dev)
+    sp, nf, lab = (t.to(dev) for t in job["feats"])
+    cfg = job["cfg"]
+    model = TPRevGCN(cfg, grid.tp_group, generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer("adam", model.parameters(), 1e-3)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    logits0 = tp_rev_forward(model, g, sp, nf)[:g.n_node].float().cpu().numpy()
+    info = _tp_run("tp-rev", rank, dev,
+                   lambda: tp_rev_train_step(model, opt, g, sp, lab, g.node_mask,
+                                             bce_with_logits, node_feats=nf, generator=gen),
+                   lambda: tp_rev_forward(model, g, sp, nf), lambda s: tp_rev_expected(
+                       cfg.num_layers, cfg.group, s, dev.type == "cuda"), job["steps"],
+                   {"channels_a_group_a_rank": cfg.hidden_channels // cfg.group // world})
+    info["logits0"] = logits0 if rank == 0 else None
+    del model, opt, g
+    free_memory(dev)
+    return info
+
+
+def _rank_spatial_tp(rank, world, job):
+    """Phase 70 on one rank of the 2 × 2 grid: `SpatialTPDeeperGCN` on
+    phase 7's cluster-ordered graph (its node shards as phase 62 cut them)
+    with the halo exchange over gp: the gathered eval logits at seed 0's
+    weights, then a warm-up, the timed steps and an eval forward."""
+    _rank_globals()
+    from deep_gcns_torch_tpu_torch.parallel import comm, make_grid
+    from deep_gcns_torch_tpu_torch.parallel.spatial import masked_nll_sum, rank_generator
+    from deep_gcns_torch_tpu_torch.parallel.spatial_tp import (SpatialTPDeeperGCN,
+                                                               spatial_tp_forward,
+                                                               spatial_tp_train_step)
+    from deep_gcns_torch_tpu_torch.utils.optim import make_optimizer
+
+    dev = comm.rank_device(rank, job["device"])
+    grid = make_grid(*job["grid"])
+    shards, xs, labs = job["graph"]
+    sh = shards.rank(grid.gp_index, dev)
+    x = torch.from_numpy(xs[grid.gp_index]).to(dev)
+    lab = torch.from_numpy(labs[grid.gp_index]).to(dev)
+    model = SpatialTPDeeperGCN(resgen_config(job["layers"]), grid, exchange="halo",
+                               generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer("adam", model.parameters(), 1e-2)
+    gen = rank_generator(1, rank, dev)
+    logits0 = spatial_tp_forward(model, sh, x).float().cpu().numpy()
+    info = _tp_run("spatial-tp", rank, dev,
+                   lambda: spatial_tp_train_step(model, opt, sh, x, lab, sh.node_mask,
+                                                 masked_nll_sum, generator=gen),
+                   lambda: spatial_tp_forward(model, sh, x), lambda s: tp_expected(
+                       job["layers"], s, dev.type == "cuda", False), job["steps"],
+                   {"grid": [grid.gp_index, grid.tp_index],
+                    "halo_rows_per_layer": sh.total_halo,
+                    "halo_row_channels": 128 // grid.tp_size})
+    info["logits0"] = logits0 if rank == 0 else None
+    del model, opt
+    free_memory(dev)
+    return info
+
+
+def _tp_report(chk, tag, dev, ranks, want, what):
+    """The eval logits at seed 0's weights (rank 0's) against the
+    single-process model's within TOL_SPATIAL_BF16, and each rank's figures
+    printed as what they are."""
+    got = torch.from_numpy(ranks[0].pop("logits0")[:want.shape[0]])
+    chk.close(f"{what} eval logits vs single process", got, want, **TOL_SPATIAL_BF16)
+    where = (f"gloo, host-staged, {len(ranks)} ranks sharing one card"
+             if dev.type == "cuda" else "gloo on the CPU")
+    for r, rk in enumerate(ranks):
+        rk.pop("logits0", None)
+        log(f"[{tag}] rank {r} ({where}): {json.dumps(rk)}; card: {CARD}")
+
+
+def tp_rev_reference(dev, rehearse, layers):
+    """Phase 69's inputs: phase 13's cluster (host) with its features, the
+    proteins RevGCN app's config at ``layers`` in bf16, and the
+    single-process RevGCN's eval logits at seed 0's weights on ``dev`` on
+    the cluster without its CSC (GENConv's unfused branch: the gather and
+    message form the tensor-parallel group functions run)."""
+    g, feats = cluster_graph(*((800, 10) if rehearse else (13_000, 60)), torch.device("cpu"))
+    args = ogbn_proteins_rev.get_args(["--num_layers", str(layers), "--compute_dtype",
+                                       "bfloat16", "--device", dev.type])
+    model = ogbn_proteins_rev.build_model(args, torch.Generator().manual_seed(0)).to(dev)
+    model.eval()
+    sp, nf, _ = (t.to(dev) for t in feats)
+    with torch.no_grad():
+        want = model(sp, without_csc(g).to(dev), node_feats=nf)[:g.n_node].float().cpu()
+    cfg = model.cfg
+    del model
+    free_memory(dev)
+    return g, feats, cfg, want
+
+
+def phase_tp_apps(dev, rehearse):
+    """Phase 70's apps: ogbn-arxiv (ResGEN-28 bf16, 2 epochs, ``--save_ckpt``)
+    with ``--tp 2`` and with ``--spatial 2 --tp 2`` at phase 66's 80,000
+    synthetic nodes, each scored by its test script in one process, which
+    must give the run's printed best validation accuracy exactly."""
+    common = ["--synthetic", "--synthetic_nodes", "2000" if rehearse else "80000",
+              "--num_layers", str(PAR_LAYERS_SMALL if rehearse else 28),
+              "--compute_dtype", "bfloat16", "--device", dev.type]
+    for grid in (["--tp", "2"], ["--spatial", "2", "--tp", "2"]):
+        t0 = time.time()
+        run = ogbn_arxiv.main(common + grid + ["--epochs", "2", "--save_ckpt",
+                                               "--exp_root", RUNS])
+        t1 = time.time()
+        single = ogbn_arxiv_test.main(common + ["--pretrained_model", run["ckpt"]])
+        log(f"[tp-apps] arxiv {' '.join(grid)}: best valid {run['best_valid']}, losses "
+            f"{run['losses']}, {t1 - t0:.1f}s host clock (data included); collective calls "
+            f"{run['collective_calls']}, staged {run['staged_bytes']} bytes on rank 0; the "
+            f"test script in one process {single['accs']} (card: {CARD})")
+        if not all(math.isfinite(v) for v in run["losses"]):
+            raise AssertionError(f"tp-apps: {grid} losses {run['losses']}")
+        if single["accs"]["valid"] != run["best_valid"]:
+            raise AssertionError(f"tp-apps: {grid}: the test script scored valid "
+                                 f"{single['accs']['valid']} != the run's {run['best_valid']}")
+
+
 def phase_parallel(dev, rehearse):
-    """Phases 61-66 (after the parent freed its own models): the card's
-    ranks run phases 62, 63 and 65 in one spawn, the CPU's ranks phase 63's
-    other side."""
+    """Phases 61-70 (after the parent freed its own models): the card's two
+    ranks run phases 62, 63, 65, 67 and 69 in one spawn, the CPU's ranks
+    phase 63's other side; phases 64 and 68 share one NCCL world of one, and
+    phase 70's grid is one spawn of four (its apps spawn their own)."""
     from deep_gcns_torch_tpu_torch.parallel import launch
 
     free_memory(dev)
     n = 2000 if rehearse else 169_343
     graphs, single, layers = par_graphs(n, dev, rehearse)
     clusters, dp_loss, dp_want = par_dp_reference(dev, rehearse)
+    rev_layers = 3 if rehearse else 101
+    g_rev, feats_rev, cfg_rev, want_rev = tp_rev_reference(dev, rehearse, rev_layers)
+    gather_host = graphs.pop("gather host")
     mark("parallel graphs and references")
     routes = [("band", "band", "auto"), ("allgather", "gather", "allgather"),
               ("halo", "gather", "halo")]
@@ -5100,10 +5419,13 @@ def phase_parallel(dev, rehearse):
         ("resgen", _rank_resgen, dict(device=dev.type, layers=layers, steps=1, routes=routes,
                                       graphs=graphs)),
         ("small", _rank_small, par_small_job(dev.type)),
-        ("dp", _rank_dp, dict(device=dev.type, clusters=clusters))],), device=dev.type,
-        deadline=900)
+        ("dp", _rank_dp, dict(device=dev.type, clusters=clusters)),
+        ("tp", _rank_tp_resgen, dict(device=dev.type, layers=layers, steps=1,
+                                     graph=gather_host)),
+        ("tp_rev", _rank_tp_rev, dict(device=dev.type, steps=1, graph=g_rev, feats=feats_rev,
+                                      cfg=cfg_rev))],), device=dev.type, deadline=1200)
     log(f"[parallel] the card's ranks: {time.time() - t0:.1f}s (spawn included)")
-    del graphs, clusters
+    del clusters, g_rev, feats_rev, gather_host
     phase_par_resgen(dev, [rk["resgen"] for rk in card], single, routes, layers)
     mark("parallel resgen")
     cpu = launch(_rank_small, PAR_D, (par_small_job("cpu"),), device="cpu", deadline=300)
@@ -5111,7 +5433,7 @@ def phase_parallel(dev, rehearse):
     mark("parallel small models")
     phase_par_dp(dev, [rk["dp"] for rk in card], dp_loss, dp_want)
     mark("parallel cluster dp")
-    phase_par_world_one(dev, rehearse)
+    world_one = phase_par_world_one(dev, rehearse)
     mark("parallel world of one")
     app_argv = ["--synthetic", "--synthetic_nodes", "3000" if rehearse else "132534",
                 "--synthetic_degree", "8" if rehearse else "60", "--eval_every", "1",
@@ -5120,6 +5442,32 @@ def phase_parallel(dev, rehearse):
     phase_par_apps(dev, rehearse, app_argv)
     shutil.rmtree(RUNS, ignore_errors=True)
     mark("parallel apps")
+    chk = Checks("tp-resgen")
+    _tp_report(chk, "tp-resgen", dev, [rk["tp"] for rk in card], single["gather"],
+               f"TP ResGEN-{layers} T={PAR_D}")
+    chk.raise_if_failed()
+    mark("tp resgen")
+    phase_tp_world_one(*world_one)
+    mark("tp world of one")
+    chk = Checks("tp-rev")
+    _tp_report(chk, "tp-rev", dev, [rk["tp_rev"] for rk in card], want_rev,
+               f"TPRevGCN-{rev_layers} T={PAR_D}")
+    chk.raise_if_failed()
+    mark("tp revgcn")
+    t0 = time.time()
+    grid_ranks = launch(_rank_spatial_tp, 2 * PAR_D, (dict(
+        device=dev.type, layers=layers, steps=1, grid=(PAR_D, 2), graph=graphs["band"]),),
+        device=dev.type, deadline=900)
+    log(f"[parallel] the grid's ranks: {time.time() - t0:.1f}s (spawn included)")
+    chk = Checks("spatial-tp")
+    _tp_report(chk, "spatial-tp", dev, grid_ranks, single["band"],
+               f"spatial x TP ResGEN-{layers} {PAR_D}x2")
+    chk.raise_if_failed()
+    del graphs
+    mark("spatial x tp")
+    phase_tp_apps(dev, rehearse)
+    shutil.rmtree(RUNS, ignore_errors=True)
+    mark("tp apps")
 
 
 def main(argv):

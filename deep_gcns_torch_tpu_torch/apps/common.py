@@ -82,15 +82,17 @@ def add_deeper_gcn_flags(p: argparse.ArgumentParser, *, num_layers=28, hidden=12
 def add_spatial_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     """Edge-partitioned spatial and tensor parallelism (`examples/common.py:
     94-112`): ``--spatial N`` trains the full graph exactly on N ranks
-    (`apps/spatial_common.py`) with the boundary ``--exchange``; ``--tp`` > 1
-    (tensor parallelism, not ported yet) raises."""
+    (`apps/spatial_common.py`) with the boundary ``--exchange``; ``--tp T``
+    splits the channels over T ranks (ogbn-arxiv; the other apps refuse
+    ``--tp`` > 1, `spatial_common.refuse_tp`)."""
     p.add_argument("--spatial", type=int, default=1,
                    help="partition the graph's edges over N ranks (full-graph training)")
     p.add_argument("--exchange", type=str, default="auto",
                    choices=["auto", "halo", "allgather"],
                    help="boundary rows by per-offset halo permutes or a full all-gather; "
                         "auto picks the fewer rows shipped")
-    p.add_argument("--tp", type=int, default=1, help="tensor parallelism (not ported yet)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="split the hidden channels over T ranks (tensor parallelism)")
     return p
 
 

@@ -5,7 +5,7 @@
         [--synthetic_nodes N] [--epochs E] [--device cuda|cpu] \\
         [--reorder none|rcm|cluster] [--band off|auto] [--remat] \\
         [--save_ckpt] [--pretrained_model PREFIX] \\
-        [--spatial N [--exchange auto|halo|allgather]]
+        [--spatial N [--exchange auto|halo|allgather]] [--tp T]
 
 Same defaults as the JAX app: ResGEN-28 (res+, softmax_sg t=0.1, batch
 norm, one-layer MLP), C=128, dropout 0.5, Adam lr 0.01 (``--optimizer``
@@ -28,7 +28,11 @@ from ``seed + 1``. `apps/ogbn_arxiv_test.py` scores a checkpoint.
 ``--spatial N`` trains the full graph exactly on N ranks after the reorder
 (`apps/spatial_common.run_spatial`, the band with ``--band auto``); its
 checkpoint carries the single-process model's names, so the test script
-scores it with the same data and model flags. ``--tp`` > 1 raises.
+scores it with the same data and model flags. ``--tp T`` splits the
+channels over T ranks as well, on a ``--spatial`` × ``--tp`` grid
+(`apps/spatial_common.run_spatial_tp`; ``--tp`` alone is the 1 × T grid);
+its checkpoint holds the unsharded parameters, which the test script
+scores in one process.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from ..utils.loss import cross_entropy
 from ..utils.metrics import accuracy
 from ..utils.optim import make_optimizer
 from .common import add_optimizer_flags, add_spatial_flags
-from .spatial_common import check_parallel_flags, run_spatial
+from .spatial_common import run_spatial, run_spatial_tp
 
 
 def get_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -195,10 +199,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     every epoch's loss, the accuracies of each evaluated epoch and the
     checkpoint prefix (None without ``--save_ckpt``)."""
     args = get_args(argv)
-    check_parallel_flags(args)
     dev = resolve_device(args.device)
     g, labels, splits, in_dim = load_data(args, np.random.default_rng(args.seed))
     n = g.n_node
+    if args.tp > 1:
+        # `examples/ogbn_arxiv/main.py:111-113, 132-134`
+        return run_spatial_tp(args, "ogbn_arxiv", g, labels, splits, in_dim)
     if args.spatial > 1:
         # the reordered graph's edges, partitioned over the ranks
         # (`examples/ogbn_arxiv/main.py:100-140`)

@@ -9,7 +9,10 @@ The flags are the training app's (`apps/ogbn_arxiv.py`); the data and the
 model must be given as they were for training. A checkpoint of a spatial
 run carries the single-process model's names, so it scores here as it is;
 with ``--spatial N`` it is scored on N ranks over the training run's
-partition instead, the route whose logits that run printed.
+partition instead, the route whose logits that run printed. A ``--tp`` run's
+checkpoint holds its unsharded parameters and scores in one process (the
+model whose logits that run printed), ``--spatial`` and ``--tp`` being read
+as the training run's flags only.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         raise ValueError("--pretrained_model is required")
     dev = resolve_device(args.device)
     g, labels, splits, in_dim = load_data(args, np.random.default_rng(args.seed))
-    if args.spatial > 1:
+    if args.spatial > 1 and args.tp == 1:
         n = g.n_node
         out = run_spatial(args, "ogbn_arxiv", g.senders[:g.n_edge].numpy(),
                           g.receivers[:g.n_edge].numpy(), g.x[:n].numpy(), labels, splits,

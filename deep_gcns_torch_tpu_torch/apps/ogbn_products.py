@@ -19,7 +19,8 @@ coarser partition, and one edge bucket that grows when a partition needs
 more. As in the JAX app, ``--compute_dtype`` and ``--remat`` are not passed
 to the model. ``--spatial N`` trains the full graph exactly on N ranks
 instead (`apps/spatial_common.run_spatial`, which, as the JAX app's, does
-pass them); ``--tp`` > 1 raises.
+pass them); ``--tp`` > 1 is refused (the JAX app parses it and never reads
+it).
 
 The data is the JAX app's, made from ``--seed`` draw for draw: the synthetic
 SBM (100 features, average degree 10, made undirected with self-loops),
@@ -49,7 +50,7 @@ from ..utils.loss import cross_entropy
 from ..utils.metrics import accuracy
 from .common import (EpochTimer, add_deeper_gcn_flags, add_spatial_flags, base_parser,
                      make_optimizer, open_experiment, report)
-from .spatial_common import check_parallel_flags, run_spatial
+from .spatial_common import refuse_tp, run_spatial
 
 
 def get_args(argv: Optional[Sequence[str]] = None):
@@ -175,7 +176,7 @@ def train(args, data, rng: np.random.Generator) -> dict:
     validation accuracy, every epoch's mean loss, the evaluated epochs'
     accuracies, the host seconds of each epoch's partition and the
     experiment directory (None without ``--save_ckpt``)."""
-    check_parallel_flags(args)
+    refuse_tp(args, "ogbn_products")
     dev = resolve_device(args.device)
     x, senders, receivers, labels, splits, in_dim, n = data
     if args.spatial > 1:

@@ -15,7 +15,8 @@ each evaluation enqueues an asynchronous rolling checkpoint
 `{exp}/ckpt_best` at once (the JAX app writes `ckpt_best` without the flag
 too). `apps/ogbn_proteins_test.py` scores a checkpoint. ``--spatial N``
 trains the full graph exactly on N ranks instead, one step an epoch with
-full-graph ROC-AUC (`apps/spatial_common.run_proteins_spatial`).
+full-graph ROC-AUC (`apps/spatial_common.run_proteins_spatial`). ``--tp`` is
+parsed, as in the JAX apps, and > 1 is refused: they never read it.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from ..utils.loss import bce_with_logits
 from ..utils.metrics import roc_auc
 from ..utils.optim import clip_grad_global_norm_, make_optimizer
 from .common import add_optimizer_flags
-from .spatial_common import run_proteins_spatial
+from .spatial_common import refuse_tp, run_proteins_spatial
 
 MAX_GRAD_NORM = 1.0  # optax.clip_by_global_norm(1.0) of the JAX apps
 
@@ -101,6 +102,9 @@ def base_parser(description: str, *, num_layers: int, hidden: int, epochs: int,
     p.add_argument("--exchange", type=str, default="auto",
                    choices=["auto", "halo", "allgather"],
                    help="boundary rows by per-offset halo permutes or a full all-gather")
+    p.add_argument("--tp", type=int, default=1,
+                   help="parsed as the JAX app parses it; > 1 is refused (no tensor "
+                        "parallelism in the proteins apps)")
     return p
 
 
@@ -164,6 +168,7 @@ def run_proteins(args, build_model: Callable, name: str) -> dict:
     (`examples/proteins_common.py:52-199`). Returns the last evaluation, the
     best validation ROC-AUC, the last epoch's mean loss and the host seconds
     of each epoch's partition."""
+    refuse_tp(args, name)
     dev = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
     data = load_proteins(args, rng)

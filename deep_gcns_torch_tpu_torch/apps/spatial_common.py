@@ -7,7 +7,10 @@ the reference trains on lossy random subgraphs.
 `run_spatial` (ogbn-arxiv, ogbn-products) trains `SpatialDeeperGCN` with
 cross entropy on the training split; `run_proteins_spatial` (ogbn-proteins)
 trains the DyResGEN or RevGCN twin with masked multi-task BCE and the
-global-norm clip at 1.0 before the optimizer. The caller's process shards
+global-norm clip at 1.0 before the optimizer; `run_spatial_tp` (ogbn-arxiv's
+``--tp``, `examples/spatial_common.py:113-204`) trains
+`SpatialTPDeeperGCN` on a ``--spatial`` × ``--tp`` grid of ranks (``--tp``
+alone is the 1 × T grid, as in JAX). The caller's process shards
 the graph and spawns the ranks (`parallel.launch`, ranks on ``--device``:
 `cuda:(r % device_count)`, NCCL when each rank has a card, else gloo);
 every rank builds the model from ``--seed`` (so all start alike), draws
@@ -28,13 +31,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..models import DeeperGCNConfig, RevGCN
+from ..models import DeeperGCN, DeeperGCNConfig, RevGCN
 from ..parallel import comm
 from ..parallel.launch import launch
+from ..parallel.mesh import make_grid
 from ..parallel.spatial import (SpatialDeeperGCN, masked_bce_sum, masked_nll_sum,
                                 rank_generator, shard_graph, shard_nodes, spatial_forward,
                                 spatial_train_step)
 from ..parallel.spatial_rev import SpatialRevGCN
+from ..parallel.spatial_tp import SpatialTPDeeperGCN, spatial_tp_train_step
 from ..utils.ckpt import load_ckpt, save_best, save_ckpt
 from ..utils.logger import create_exp_dir
 from ..utils.metrics import accuracy, roc_auc
@@ -45,11 +50,14 @@ from ..utils.optim import make_optimizer
 DEADLINE_S = 3600.0
 
 
-def check_parallel_flags(args):
-    """``--tp`` is tensor parallelism, the next slice of the port."""
+def refuse_tp(args, app: str):
+    """``--tp`` > 1 in an app that does not train with tensor parallelism:
+    JAX's products and proteins apps parse the flag and never read it
+    (`examples/common.py:104`); here a flag that would be ignored in silence
+    is refused."""
     if getattr(args, "tp", 1) > 1:
-        raise NotImplementedError("--tp (tensor parallelism: parallel/tensor.py, "
-                                  "tensor_rev.py, spatial_tp.py) is not ported yet")
+        raise NotImplementedError(f"--tp: {app} does not train with tensor parallelism "
+                                  "(ogbn_arxiv does)")
 
 
 def deeper_gcn_config(args, in_dim: int) -> DeeperGCNConfig:
@@ -208,3 +216,93 @@ def run_proteins_spatial(args, build_model: Callable, name: str, data: dict) -> 
     out["exp"] = exp
     out["results"] = out["evals"][max(out["evals"])] if out["evals"] else {}
     return out
+
+
+def _train_tp_ranks(rank: int, world: int, job: dict) -> Optional[dict]:
+    """One rank of a gp × tp run: train `SpatialTPDeeperGCN` on this rank's
+    node shard and channel slice. Every evaluation gathers the unsharded
+    parameters (a collective) and rank 0 scores the single-process
+    `DeeperGCN` of them on the whole graph: the model the checkpoint holds,
+    so `apps/ogbn_arxiv_test` reproduces the printed accuracies exactly
+    (the TP logits differ from it by the rounding of the summed partial
+    products)."""
+    args = job["args"]
+    dev = comm.rank_device(rank, args.device)
+    grid = make_grid(args.spatial, args.tp)
+    sh = job["shards"].rank(grid.gp_index, dev)
+    cfg = job["cfg"]
+    model = SpatialTPDeeperGCN(cfg, grid, exchange=args.exchange,
+                               generator=torch.Generator().manual_seed(args.seed)).to(dev)
+    opt = make_optimizer(args.optimizer, model.parameters(), args.lr,
+                         getattr(args, "weight_decay", 0.0))
+    gen = rank_generator(args.seed + 1, rank, dev)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a[grid.gp_index])).to(dev)
+
+    x, lab, mask = t(job["x"]), t(job["labels"]), t(job["mask"])
+    losses, evals, best, t0 = [], {}, -float("inf"), time.time()
+    single = g = None
+    if rank == 0:
+        single = DeeperGCN(cfg).to(dev).eval()
+        g = job["graph"].to(dev)
+
+    def evaluate(epoch):
+        sd = model.single_state_dict()  # every rank joins the gathers
+        if rank != 0:
+            return None
+        single.load_state_dict(sd)
+        with torch.no_grad():
+            logits = single(g.x, g)
+        res = evals[epoch] = job["score"](logits.float().cpu().numpy()[:job["n"]])
+        _report(f"[{job['name']} gp x tp {grid.gp_size}x{grid.tp_size}] epoch {epoch} "
+                f"loss {losses[-1]:.4f} train {res['train']:.4f} valid {res['valid']:.4f} "
+                f"test {res['test']:.4f} ({time.time() - t0:.2f}s)")
+        return res
+
+    for epoch in range(args.epochs):
+        loss = spatial_tp_train_step(model, opt, sh, x, lab, mask, masked_nll_sum,
+                                     generator=gen)
+        losses.append(float(loss))
+        if epoch % getattr(args, "eval_every", 5) == 0 or epoch == args.epochs - 1:
+            res = evaluate(epoch)
+            if res is not None and res["valid"] > best:
+                best = res["valid"]
+                if job["ckpt"]:
+                    save_ckpt(job["ckpt"], model=single, epoch=epoch, best_value=best)
+                    save_best(job["ckpt"], True)
+    if rank != 0:
+        return None
+    return {"loss": losses[-1] if losses else float("nan"), "best_valid": best,
+            "losses": losses, "evals": evals, "ckpt": job["ckpt"],
+            "staged_bytes": comm.STATS["staged_bytes"], "collective_calls": comm.STATS["calls"]}
+
+
+def run_spatial_tp(args, name: str, g, labels: np.ndarray, splits: dict, in_dim: int
+                   ) -> dict:
+    """Train DeeperGCN on the full host graph ``g`` over a ``--spatial`` ×
+    ``--tp`` grid of ranks (JAX `run_spatial_tp`, `examples/spatial_common.py:
+    113-204`): nodes edge-partitioned over the gp rows, channels over the tp
+    columns. With ``--save_ckpt`` the checkpoint holds the unsharded
+    parameters under the single-process names (JAX `:196-200`). Returns rank
+    0's last loss, best validation accuracy, losses, evaluations and
+    checkpoint prefix."""
+    n = g.n_node
+    D, T = args.spatial, args.tp
+    shards = shard_graph(g.senders[:g.n_edge].numpy(), g.receivers[:g.n_edge].numpy(), n, D)
+    labels = np.asarray(labels).astype(np.int64)
+    train = np.zeros(n, bool)
+    train[np.asarray(splits["train"])] = True
+    ckpt = None
+    if getattr(args, "save_ckpt", False):
+        ckpt = os.path.join(create_exp_dir(args.exp_root, f"{name}-{args.exp_name}"), "ckpt")
+    job = dict(name=name, args=args, shards=shards, n=n, ckpt=ckpt, graph=g,
+               cfg=deeper_gcn_config(args, in_dim),
+               x=shard_nodes(g.x[:n].numpy(), shards),
+               labels=shard_nodes(labels[:, None], shards)[..., 0],
+               mask=_rows(train, shards), score=partial(_accuracy, labels, splits))
+    _report(f"[{name}] gp x tp: {D} x {T} shard={shards.shard_size} "
+            f"halo_rows/rank/layer={shards.halo_rows_per_device} (rows of "
+            f"{args.hidden_channels // T} channels) exchange={args.exchange}")
+    return launch(_train_tp_ranks, D * T, (job,), device=args.device, deadline=DEADLINE_S,
+                  threads=1 if args.device == "cpu" else 0)[0]

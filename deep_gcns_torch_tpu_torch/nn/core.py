@@ -220,8 +220,10 @@ class BatchNorm(nn.Module):
     sum of the ranks' (clamped) counts, as JAX computes them; in a world of
     one the local moments are used as they are."""
 
-    # moments across the ranks of the default process group (`sync_batch_norm`)
+    # moments across the ranks of ``rank_group`` (`sync_batch_norm`; None is
+    # the default process group)
     cross_rank = False
+    rank_group = None
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -248,7 +250,7 @@ class BatchNorm(nn.Module):
             if self.cross_rank:
                 from ..parallel.comm import cross_rank_moments
 
-                mu, var, cnt = cross_rank_moments(mu, var, cnt)
+                mu, var, cnt = cross_rank_moments(mu, var, cnt, self.rank_group)
             if not getattr(_STATS, "frozen", False):
                 self._update_running(mu, var, cnt)
         else:
@@ -264,12 +266,13 @@ class BatchNorm(nn.Module):
         self.num_batches_tracked.add_(1)
 
 
-def sync_batch_norm(module: nn.Module) -> nn.Module:
+def sync_batch_norm(module: nn.Module, group=None) -> nn.Module:
     """Make every `BatchNorm` in ``module`` take its training moments across
-    the ranks of the default process group. Returns ``module``."""
+    the ranks of ``group`` (a process group; None is the default one).
+    Returns ``module``."""
     for m in module.modules():
         if isinstance(m, BatchNorm):
-            m.cross_rank = True
+            m.cross_rank, m.rank_group = True, group
     return module
 
 

@@ -351,22 +351,25 @@ def use_halo(sh, exchange: str = "auto") -> bool:
     return sh.total_halo < (len(sh.off_pads)) * sh.shard_size
 
 
-def start_halo_exchange(h_local: torch.Tensor, sh: RankShard) -> List[torch.Tensor]:
+def start_halo_exchange(h_local: torch.Tensor, sh: RankShard,
+                        group=None) -> List[torch.Tensor]:
     """One `comm.ppermute` per ring offset k (rank p → (p + k) mod D) of the
     rows ``send_off[k-1]`` names; returns the received blocks in offset
-    order."""
-    return [comm.ppermute(h_local.index_select(0, idx.long()), k)
+    order. ``group``: the D ranks that hold the node shards (None: the
+    default group)."""
+    return [comm.ppermute(h_local.index_select(0, idx.long()), k, group)
             for k, idx in enumerate(sh.send_off, start=1)]
 
 
-def exchange_sources(h_local: torch.Tensor, sh: RankShard,
-                     exchange: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+def exchange_sources(h_local: torch.Tensor, sh: RankShard, exchange: str = "auto",
+                     group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(source table, sender index [E_pad]) of this rank's combined edge set:
     [local ‖ halo blocks] with ``senders_ext``, or the all-gathered table
-    with the global ``senders``."""
+    with the global ``senders``; the rows cross the ranks of ``group``."""
     if not use_halo(sh, exchange):
-        return comm.all_gather(h_local), sh.senders
-    return torch.cat([h_local] + start_halo_exchange(h_local, sh), 0), sh.senders_ext
+        return comm.all_gather(h_local, group), sh.senders
+    return (torch.cat([h_local] + start_halo_exchange(h_local, sh, group), 0),
+            sh.senders_ext)
 
 
 # ---------------------------------------------------------------------------

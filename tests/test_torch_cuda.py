@@ -1494,3 +1494,59 @@ def test_spatial_forward_card_matches_cpu(cuda_device, exchange, band):
               {"K1": layers * (lo + 1), "K2": 0, "K2 msgs": 0, "K3": layers})
     for rk in outs[0]:
         assert rk["results"][0]["launches"] == expect
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tp_deeper", "tp_rev", "spatial_tp"])
+def test_tensor_parallel_step_card_matches_cpu(cuda_device, kind):
+    """One SGD step of `TPDeeperGCN` (batch norm, T=2), `TPRevGCN` (edge
+    features, dropout masks drawn on the host, T=2) and `SpatialTPDeeperGCN`
+    (layer norm, a 2 × 2 grid) on ranks sharing the card (gloo, host-staged)
+    against the same ranks on the CPU, float32: the loss and every entry of
+    the gathered single-process `state_dict`."""
+    import torch_parallel_cases as tpc
+    from deep_gcns_torch_tpu_torch.parallel import launch, shard_graph, shard_nodes
+
+    rng = np.random.default_rng(11)
+    n, e = 2000, 20000
+    s, r = rng.integers(0, n, e), rng.integers(0, n, e)
+    x = rng.standard_normal((n, 16)).astype(np.float32)
+    kw = dict(in_channels=16, hidden_channels=32, num_tasks=8, num_layers=3, block="res+",
+              aggr="softmax_sg", t=0.5, norm="batch", mlp_layers=1, dropout=0.0)
+    if kind == "tp_rev":
+        rkw = dict(hidden_channels=32, num_tasks=8, num_layers=3, group=2, aggr="softmax",
+                   dropout=0.2)
+        g = build_graph(x[:, :8], s, r, num_nodes=n,
+                        edge_attr=rng.standard_normal((e, 8)).astype(np.float32))
+        n_pad = g.num_nodes_padded
+        model = RevGCN(RevGCNConfig(**rkw), generator=torch.Generator().manual_seed(0))
+        keep = rng.random((2, n_pad, 32)) >= 0.2  # the CUDA and CPU generators differ
+        case = dict(kind=kind, cfg=rkw, graph=g, lr=0.1,
+                    masks=tuple((k / 0.8).astype(np.float32) for k in keep),
+                    labels=rng.integers(0, 8, n_pad),
+                    species=np.eye(8, dtype=np.float32)[rng.integers(0, 8, n_pad)],
+                    nf=rng.standard_normal((n_pad, 8)).astype(np.float32))
+        world = 2
+    elif kind == "tp_deeper":
+        g = build_graph(x, s, r, num_nodes=n)
+        model = DeeperGCN(DeeperGCNConfig(**kw), generator=torch.Generator().manual_seed(0))
+        case = dict(kind=kind, cfg=kw, graph=g, lr=0.1,
+                    labels=rng.integers(0, 8, g.num_nodes_padded))
+        world = 2
+    else:
+        kw["norm"] = "layer"
+        sh = shard_graph(s, r, n, 2)
+        model = DeeperGCN(DeeperGCNConfig(**kw), generator=torch.Generator().manual_seed(0))
+        case = dict(kind=kind, cfg=kw, grid=(2, 2), exchange="halo", shards=sh, lr=0.1,
+                    x=shard_nodes(x, sh), mask=sh.node_mask,
+                    labels=shard_nodes(rng.integers(0, 8, n)[:, None], sh)[..., 0])
+        world = 4
+    case["state"] = {k: v.numpy() for k, v in model.state_dict().items()}
+    outs = [launch(tpc.run_cases, world, ([case], d), device=d, deadline=300)
+            for d in ("cuda", "cpu")]
+    got, want = (o[0]["results"][0] for o in outs)
+    assert abs(got["loss"] - want["loss"]) <= 1e-4 * max(1.0, abs(want["loss"]))
+    ref_max = max(float(np.abs(v).max()) for v in want["state"].values() if np.size(v))
+    for k, w in want["state"].items():
+        _assert_close(torch.from_numpy(np.asarray(got["state"][k])),
+                      torch.from_numpy(np.asarray(w)), 1e-4, 1e-4, ref_max=ref_max)

@@ -67,6 +67,10 @@ MODULES = ["deep_gcns_torch_tpu_torch", "deep_gcns_torch_tpu_torch.device",
            "deep_gcns_torch_tpu_torch.parallel.spatial",
            "deep_gcns_torch_tpu_torch.parallel.spatial_rev",
            "deep_gcns_torch_tpu_torch.parallel.data_parallel",
+           "deep_gcns_torch_tpu_torch.parallel.mesh",
+           "deep_gcns_torch_tpu_torch.parallel.tensor",
+           "deep_gcns_torch_tpu_torch.parallel.tensor_rev",
+           "deep_gcns_torch_tpu_torch.parallel.spatial_tp",
            "deep_gcns_torch_tpu_torch.apps.spatial_common"]
 
 

@@ -2,8 +2,11 @@
 ogbn-arxiv with ``--save_ckpt`` (its checkpoint carries the single-process
 `DeeperGCN`'s `state_dict` names, and `apps/ogbn_arxiv_test` reproduces the
 run's best validation accuracy from it), ogbn-proteins (DyResGEN and
-RevGCN) and ogbn-products, each reaching its end with finite losses; and
-``--tp`` > 1 raising in every app that parses it."""
+RevGCN) and ogbn-products, each reaching its end with finite losses;
+ogbn-arxiv with ``--tp 2`` (a 1 × 2 grid) and ``--spatial 2 --tp 2`` (2 × 2)
+and ``--save_ckpt``, whose checkpoint `apps/ogbn_arxiv_test` scores in one
+process to the run's printed best exactly; and ``--tp`` > 1 refused by the
+apps that do not train with it (products and both proteins apps)."""
 
 import math
 
@@ -65,7 +68,22 @@ def test_products_spatial_reaches_its_end():
                                 "--epochs", "2", "--spatial", "2"]))
 
 
-@pytest.mark.parametrize("app", [ogbn_arxiv, ogbn_products])
+@pytest.mark.parametrize("grid", [["--tp", "2"], ["--spatial", "2", "--tp", "2"]],
+                         ids=["1x2", "2x2"])
+def test_arxiv_tensor_parallel_checkpoint_scores_in_one_process(tmp_path, grid):
+    out = ogbn_arxiv.main(ARXIV + grid + ["--epochs", "3", "--save_ckpt",
+                                          "--exp_root", str(tmp_path)])
+    _finite(out)
+    assert sorted(out["evals"]) == [0, 2] and out["collective_calls"] > 0
+    names = set(torch.load(out["ckpt"] + ".pth", weights_only=False)["model_state_dict"])
+    assert names == set(ogbn_arxiv.build_model(ogbn_arxiv.get_args(ARXIV), 128).state_dict())
+    best = max(out["evals"], key=lambda e: out["evals"][e]["valid"])
+    te = ogbn_arxiv_test.main(ARXIV + grid + ["--pretrained_model", out["ckpt"]])
+    assert te["accs"]["valid"] == out["best_valid"] == te["meta"]["best_value"]
+    assert te["accs"] == out["evals"][best]
+
+
+@pytest.mark.parametrize("app", [ogbn_products, ogbn_proteins, ogbn_proteins_rev])
 def test_tensor_parallel_flag_raises(app):
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         app.main(["--synthetic", "--device", "cpu", "--synthetic_nodes", "300", "--tp", "2"])
