@@ -42,6 +42,7 @@ from ..ops.band import (DropSpec, band_gat_agg, band_gat_dense_agg, band_gat_den
 from ..ops.gather import gather_src_auto
 from ..ops.segment import segment_degree, segment_softmax, segment_sum
 from ..ops.spmm_cuda import gat_softmax_spmm
+from ..utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -125,14 +126,29 @@ class SymGATConv(nn.Module):
         the band kernel, its transpose and the per-edge routes."""
         n = x.shape[0]
         h, d = self.num_heads, self.out_dim
+        if train and self.edge_drop > 0 and drop_key is None:
+            raise ValueError("edge_drop > 0 in training needs a drop_key")
+        with span("conv.linear"):
+            feat = self.fc(x).reshape(n, h, d)
+        with span("conv.attend"):
+            out = self._attend(feat, g, train, drop_key)
+        if self.res_fc is not None:
+            with span("conv.linear"):
+                res = self.res_fc(x).reshape(n, h, d)
+            out = out + res
+        return out
+
+    def _attend(self, feat: torch.Tensor, g: Graph, train: bool,
+                drop_key: Optional[Sequence[int]]) -> torch.Tensor:
+        """From the sender-side symmetric scaling through the edge-drop
+        decision, the scores and the route's aggregation to the
+        receiver-side scaling: [N, H, D]."""
+        n, h, d = feat.shape
         drop = keep_mask = None
         if train and self.edge_drop > 0:
-            if drop_key is None:
-                raise ValueError("edge_drop > 0 in training needs a drop_key")
             drop = DropSpec(k0=int(drop_key[0]), k1=int(drop_key[1]),
                             thresh=drop_thresh(self.edge_drop))
             keep_mask = edge_keep_mask(drop, g.receivers, g.senders)
-        feat = self.fc(x).reshape(n, h, d)
         emask = g.edge_mask
         feat_src = feat
         if self.use_symmetric_norm:
@@ -167,8 +183,6 @@ class SymGATConv(nn.Module):
         if self.use_symmetric_norm:
             in_deg = segment_degree(g.receivers, n, emask)
             out = out * torch.pow(torch.clamp_min(in_deg, 1.0), 0.5)[:, None, None]
-        if self.res_fc is not None:
-            out = out + self.res_fc(x).reshape(n, h, d)
         return out
 
     def _csc(self, feat_src, el, g: Graph, att_mask, keep_mask, cd):

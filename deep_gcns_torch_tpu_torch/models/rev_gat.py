@@ -39,6 +39,7 @@ from ..graph import Graph
 from ..nn.core import InstanceNorm, dropout, shared_dropout_mask
 from ..rev.coupling import GroupAdditiveCoupling
 from ..rev.invertible import reversible_stack
+from ..utils.profiling import span
 
 KeyPair = Tuple[int, int]
 
@@ -84,9 +85,10 @@ class RevGATBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, g: Graph, chunk_args: Tuple = ()) -> torch.Tensor:
         mask, dk = (tuple(chunk_args) + (None, None))[:2]
-        h = torch.relu(self.norm(x, g.node_mask))
-        if self.training and mask is not None:
-            h = h * mask
+        with span("block.norm"):
+            h = torch.relu(self.norm(x, g.node_mask))
+            if self.training and mask is not None:
+                h = h * mask
         drop_key = None if dk is None else (int(dk[0, 0]), int(dk[1, 0]))
         out = self.conv(h, g, train=self.training, drop_key=drop_key)
         return out.reshape(out.shape[0], -1)
@@ -115,7 +117,9 @@ def draw_drop_keys(generator: torch.Generator, n_layers: int
     [L−2], last), as host ints (one transfer when the generator is on the
     card)."""
     keys = torch.randint(-2 ** 31, 2 ** 31, (n_layers, 2), generator=generator,
-                         device=generator.device, dtype=torch.int64).tolist()
+                         device=generator.device, dtype=torch.int64)
+    with span("host.sync"):
+        keys = keys.tolist()
     pairs = [tuple(k) for k in keys]
     return pairs[0], pairs[1:-1], pairs[-1]
 
@@ -176,7 +180,8 @@ class RevGAT(nn.Module):
         if train and c.dropout > 0:
             mask = shared_dropout_mask(h.shape, c.dropout, generator, h.dtype)
         h = reversible_stack(self.convs[1:-1], h, g, (mask,), layer_args)
-        h = torch.relu(self.norm(h, g.node_mask))
-        h = dropout(h, c.dropout, train=train, generator=generator)
+        with span("block.norm"):
+            h = torch.relu(self.norm(h, g.node_mask))
+            h = dropout(h, c.dropout, train=train, generator=generator)
         out = self.convs[-1](h, g, train=train, drop_key=dk_last)
         return out.mean(1) + self.bias_last.bias

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..graph import Graph
+from ..utils.profiling import span
 
 
 def _chunk(x: Optional[torch.Tensor], group: int) -> List[Optional[torch.Tensor]]:
@@ -111,12 +112,13 @@ class GroupAdditiveCoupling(nn.Module):
                         c[i].detach().requires_grad_(bool(need))
                         for c, need in zip(chunks, arg_grads))
             params = [p for p in self.Fms[i].parameters() if p.requires_grad]
-            with torch.enable_grad():
+            with torch.enable_grad(), span("rev.recompute"):
                 prim = self.Fms[i](u, g, chunk_args=a_i)
             xs[i] = ys[i] - prim.detach()
             want = [k for k, a in enumerate(a_i) if a is not None and a.requires_grad]
-            grads = torch.autograd.grad(prim, [u] + params + [a_i[k] for k in want], gys[i],
-                                        allow_unused=True)
+            with span("rev.vjp"):
+                grads = torch.autograd.grad(prim, [u] + params + [a_i[k] for k in want],
+                                            gys[i], allow_unused=True)
             gu = grads[0] if grads[0] is not None else torch.zeros_like(u)
             gps[i] = [torch.zeros_like(p) if d is None else d
                       for p, d in zip(params, grads[1:1 + len(params)])]
