@@ -352,9 +352,17 @@ every check; nothing is caught):
    `--tp 2` and with `--spatial 2 --tp 2` (ResGEN-28 bf16, phase 66's 80,000
    nodes, 2 epochs, `--save_ckpt`), each checkpoint scored by the test
    script in one process to the run's printed best validation accuracy
-   exactly.
+   exactly;
+71. K11 (RevGAT's fused norm → ReLU → dropout multiply, after phase 25) at
+   the cell's shapes: N_pad = 169,472 rows (169,343 valid), C = 384 as
+   row-stride-768 chunk views (a block: the shared float mask, and none as
+   in evaluation) and C = 768 contiguous (the head: the bool keep mask with
+   its 1/(1 − 0.75), and none); forward and backward against the plain
+   halves (the backward given the kernel's own statistics, so both take the
+   same ReLU gates) within TOL_K11, two launches bit for bit; each
+   direction's device ms beside its byte bound and the plain halves' ms.
 
-Every time and memory figure of phases 30-70 is printed beside the card's
+Every time and memory figure of phases 30-71 is printed beside the card's
 name and power limit. A failed comparison saves its tensors (K2's with its
 inputs) under `chiprun_out/check_failures/` for replay.
 
@@ -376,6 +384,9 @@ and running the copies in turns: parent, change, change, parent;
 `--output-hashes` adds a digest of each K1, K5, K6 (its dmsg and d_el
 columns apart), K7, K8 and K9 output to that line, so that the two
 commits' kernels compare bit for bit.
+
+`--norm-act` runs phase 1 and then only phase 71, printing its `kernels`
+rows as one JSON line and no device result.
 
 `--ogb` runs phase 1 and then only phases 40-46, printing their `kernels`
 rows as one JSON line and no device result; `--pointcloud` likewise runs
@@ -774,7 +785,9 @@ def _counted():
             "K4": (tsp.softmax_bwd_csc, "launches"), "K5": (tsp.gat_fwd, "launches"),
             "K6": (tsp.gat_bwd_csc, "launches"), "K7": (tgd.win_fused, "launches"),
             "K8": (tgd.win_der, "launches"), "K9": (tgd.win_dsend, "launches"),
-            "K10": (tbs.block_spmm, "launches")}
+            "K10": (tbs.block_spmm, "launches"),
+            "K11 fwd": (tna.batch_norm_act_fwd, "launches"),
+            "K11 bwd": (tna.batch_norm_act_bwd, "launches")}
 
 
 def reset_launches():
@@ -1743,7 +1756,10 @@ def revgat_expected(g, steps, args, n_steps=None):
     per-receiver stabilizer on a band) K7 per forward, K8 and K9 per
     backward, and K1 for the forward band's leftover in the forward and the
     backward (d_er) and for the transpose band's in the backward (d_el,
-    d_feat). ``n_steps`` overrides steps + 1 (a run without `predict`)."""
+    d_feat). Every route runs K11 once per block and head norm: a step's
+    forward runs (L−2)·G + 1 of them and its recompute (L−2)·G more, the
+    backward (L−2)·G + 1, and `predict` (1 + n_label_iters)·((L−2)·G + 1).
+    ``n_steps`` overrides steps + 1 (a run without `predict`)."""
     want = no_launches()
     mid = (args.n_layers - 2) * args.group
     step_fwd, step_bwd, predict_fwd = 2 + 2 * mid, 2 + mid, (1 + args.n_label_iters) * (2 + mid)
@@ -1751,10 +1767,12 @@ def revgat_expected(g, steps, args, n_steps=None):
         f"predict {predict_fwd} forwards")
     if g.senders.device.type != "cuda":
         return want
-    if n_steps is None:
-        fwd, bwd = step_fwd * (steps + 1) + predict_fwd, step_bwd * (steps + 1)
-    else:
-        fwd, bwd = step_fwd * n_steps, step_bwd * n_steps
+    runs = steps + 1 if n_steps is None else n_steps
+    predicts = int(n_steps is None)
+    fwd, bwd = step_fwd * runs + predict_fwd * predicts, step_bwd * runs
+    want.update({"K11 fwd": (2 * mid + 1) * runs
+                 + (1 + args.n_label_iters) * (mid + 1) * predicts,
+                 "K11 bwd": (mid + 1) * runs})
     if g.band is None:
         want.update(K5=fwd, K6=bwd)
         return want
@@ -1919,6 +1937,85 @@ def phase_gat_timing(g, errs, launches, iters):
              "replaces": "deep_gcns_torch_tpu/ops/spmm_pallas.py:862",
              "launches": launches["K6"], "max_abs_err": errs["bf16"]["K6"], "ms": k6[0],
              "plain_ms": k6[1], "bound_ms": b6[0], "bound_by": b6[1], "library_ms": None}]
+
+
+# K11 against its plain halves, float32: Welford/Chan statistics against
+# two-pass column sums move μ by float32 roundings of the column mean, so y
+# agrees to 1e-5 relative above 1e-5 of max|y|; dw and db are column sums
+# over every row in different orders (1e-5 of the sum of their terms'
+# magnitudes), and dx, given the same statistics, to 1e-5 above 1e-5 of
+# max|dx|
+TOL_K11 = dict(rtol=1e-5, atol_rel=1e-5)
+# (name, C, strided, multiplier) of phase 71: a block in training and in
+# evaluation, the head in training and in evaluation
+K11_CASES = (("block", 384, True, "float"), ("block eval", 384, True, "none"),
+             ("head", 768, False, "keep"), ("head eval", 768, False, "none"))
+
+
+def phase_norm_act(dev, rehearse, iters):
+    """K11 forward and backward against the plain halves at the cell's
+    shapes, two launches bit for bit, and the times of both beside their
+    byte bounds and the plain halves' (phase 71)."""
+    n_pad, n_valid = (2_048, 2_000) if rehearse else (169_472, 169_343)
+    gen = torch.Generator(device=dev).manual_seed(71)
+    chk = Checks("norm-act")
+    rows = []
+    for name, c, strided, form in K11_CASES:
+        wide = torch.randn(n_pad, 2 * c if strided else c, device=dev, generator=gen) * 3 + 20
+        x = torch.chunk(wide, 2, dim=-1)[1] if strided else wide
+        mask = torch.arange(n_pad, device=dev) < n_valid
+        w = torch.rand(c, device=dev, generator=gen) + 0.5
+        b = torch.randn(c, device=dev, generator=gen) * 0.5
+        keep_all = torch.rand(wide.shape, device=dev, generator=gen) >= 0.75
+        keep_all = torch.chunk(keep_all, 2, dim=-1)[1] if strided else keep_all
+        mult = keep_all.float() / 0.25 if form == "float" else None
+        keep = keep_all if form == "keep" else None
+        dy = torch.randn(n_pad, c, device=dev, generator=gen)
+        fa = (x, mask, w, b, mult, keep, 0.25)
+        y, mu, rstd, cnt = tna.batch_norm_act_fwd(*fa)
+        y_p = tna.batch_norm_act_fwd_plain(*fa)[0]
+        chk.close(f"K11 {name} C={c} y", y, y_p, **TOL_K11)
+        ba = (dy, x, mask, w, b, mult, keep, 0.25, mu, rstd, cnt)
+        dx, dw, db = tna.batch_norm_act_bwd(*ba)
+        dx_p, dw_p, db_p = tna.batch_norm_act_bwd_plain(*ba)
+        xh = (x - mu) * rstd
+        g = torch.where(xh * w + b > 0, tna._apply_mult(dy, mult, keep, 0.25),
+                        torch.zeros((), device=dev))
+        chk.close(f"K11 {name} C={c} dx", dx, dx_p, **TOL_K11)
+        for what, got, want, mag in (("db", db, db_p, g.abs().sum(0)),
+                                     ("dw", dw, dw_p, (g * xh).abs().sum(0))):
+            # each column within 1e-5 of the sum of its terms' magnitudes
+            mag = mag + 1e-30
+            chk.close(f"K11 {name} C={c} {what}", got / mag, want / mag, 0.0, 1e-5, ref_max=1.0)
+        y2 = tna.batch_norm_act_fwd(*fa)[0]
+        dx2 = tna.batch_norm_act_bwd(*ba)[0]
+        chk.equal(f"K11 {name} C={c} two launches bit for bit (y)", y2, y)
+        chk.equal(f"K11 {name} C={c} two launches bit for bit (dx)", dx2, dx)
+        del g, xh, y2, dx2, y_p, dx_p
+        t_f = device_ms(lambda: tna.batch_norm_act_fwd(*fa), dev, iters)
+        t_b = device_ms(lambda: tna.batch_norm_act_bwd(*ba), dev, iters)
+        p_f = time_fn(lambda: tna.batch_norm_act_fwd_plain(*fa), dev, 5)
+        p_b = time_fn(lambda: tna.batch_norm_act_bwd_plain(*ba), dev, 5)
+        full = n_pad * c * 4
+        m_bytes = {"float": full, "keep": n_pad * c, "none": 0}[form]
+        # forward: x twice (statistics, output pass), mult once, y written;
+        # backward: x, dy and mult twice (column sums, dx pass), dx written
+        b_f = bound(3 * full + m_bytes, 0)[0]
+        b_b = bound(5 * full + 2 * m_bytes, 0)[0]
+        log(f"[norm-act] K11 {name} C={c}{' (row stride ' + str(2 * c) + ')' if strided else ''}"
+            f" mult={form}: forward {t_f:.4f} ms device, bound {b_f:.4f} ms "
+            f"({(3 * full + m_bytes) / 1e9:.3f} GB), plain {p_f:.3f} ms; backward {t_b:.4f} ms "
+            f"device, bound {b_b:.4f} ms ({(5 * full + 2 * m_bytes) / 1e9:.3f} GB), plain "
+            f"{p_b:.3f} ms [{CARD}]")
+        for d, t, bd, pl in (("fwd", t_f, b_f, p_f), ("bwd", t_b, b_b, p_b)):
+            rows.append({"name": f"K11 {d} {name} C={c}", "route": "cuda",
+                         "source": f"{PKG}/csrc/batch_norm_act.cu", "replaces": None,
+                         "ms": t, "plain_ms": pl, "bound_ms": bd, "bound_by": "bytes",
+                         "library_ms": None})
+        del wide, x, keep_all, mult, keep, dy, fa, ba
+        free_memory(dev)
+    chk.raise_if_failed()
+    return rows
 
 
 # K7–K9 against their plain versions: M is a maximum, equal bit for bit;
@@ -4671,10 +4768,10 @@ def _rank_globals():
     `read_launches`, `sync`) read."""
     import numpy
     import torch as torch_
-    from deep_gcns_torch_tpu_torch.ops import band, blocksparse, gat_dense, spmm_cuda
+    from deep_gcns_torch_tpu_torch.ops import band, blocksparse, gat_dense, norm_act, spmm_cuda
 
     globals().update(np=numpy, torch=torch_, tsp=spmm_cuda, tband=band, tgd=gat_dense,
-                     tbs=blocksparse)
+                     tbs=blocksparse, tna=norm_act)
 
 
 def resgen_config(layers, n_tasks=40):
@@ -5497,6 +5594,9 @@ def main(argv):
     if "--parallel" in argv:
         phase_parallel(dev, rehearse)
         return 0
+    if "--norm-act" in argv:
+        print(json.dumps({"kernels": phase_norm_act(dev, rehearse, iters)}))
+        return 0
     forms = kernel_forms_arg(argv)
     if forms:
         if rehearse:
@@ -5588,6 +5688,8 @@ def main(argv):
                            "--epochs", "2" if rehearse else "6", "--compute_dtype", "bfloat16"])
     rows += phase_gat_timing(ggat, errs_g, csc_info["launches"], iters)
     log(f"[done] sender-score GAT phases in {time.time() - t_all:.1f}s")
+    rows += phase_norm_act(dev, rehearse, iters)
+    mark("norm-act")
 
     errs_d = phase_dense_kernels(ggat)
     mark("dense kernels")
@@ -5723,6 +5825,7 @@ if __name__ == "__main__":
     from deep_gcns_torch_tpu_torch.ops import gat_dense as tgd
     from deep_gcns_torch_tpu_torch.ops import gather as tgather
     from deep_gcns_torch_tpu_torch.ops import knn as tknn
+    from deep_gcns_torch_tpu_torch.ops import norm_act as tna
     from deep_gcns_torch_tpu_torch.ops.gather import gather_src_auto
     from deep_gcns_torch_tpu_torch.ops import segment as tseg
     from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp

@@ -36,7 +36,8 @@ from torch import nn
 
 from ..convs.dgl_gat import SymGATConv
 from ..graph import Graph
-from ..nn.core import InstanceNorm, dropout, shared_dropout_mask
+from ..nn.core import dropout, shared_dropout_mask
+from ..ops.norm_act import batch_norm_act
 from ..rev.coupling import GroupAdditiveCoupling
 from ..rev.invertible import reversible_stack
 from ..utils.profiling import span
@@ -44,19 +45,24 @@ from ..utils.profiling import span
 KeyPair = Tuple[int, int]
 
 
-class BatchStatsNorm(InstanceNorm):
-    """Affine normalisation by the current batch's column statistics over
-    the valid rows (`_batch_stats_norm`, `models/rev_gat.py:36-43`): the
-    masked statistics of `InstanceNorm`, with the reference BatchNorm's
-    names `weight` and `bias` and no state."""
+class BatchStatsNorm(nn.Module):
+    """The norm → ReLU → dropout multiply of RevGAT's blocks and head as one
+    Function (`ops/norm_act.py`, K11 on the card): affine normalisation by
+    the current batch's column statistics over the valid rows
+    (`_batch_stats_norm`, `models/rev_gat.py:36-43`), with the reference
+    BatchNorm's names `weight` and `bias` and no state, then the ReLU and
+    the multiply by ``mult`` (a float mask) or by ``keep`` / (1 − ``rate``)."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
-        super().__init__(dim, eps)
+        super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return super().forward(x, mask) * self.weight + self.bias
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, mult: Optional[torch.Tensor] = None,
+                keep: Optional[torch.Tensor] = None, rate: float = 0.0) -> torch.Tensor:
+        return batch_norm_act(x, mask, self.weight, self.bias, mult=mult, keep=keep, rate=rate,
+                              eps=self.eps)
 
 
 class _Bias(nn.Module):
@@ -86,9 +92,7 @@ class RevGATBlock(nn.Module):
     def forward(self, x: torch.Tensor, g: Graph, chunk_args: Tuple = ()) -> torch.Tensor:
         mask, dk = (tuple(chunk_args) + (None, None))[:2]
         with span("block.norm"):
-            h = torch.relu(self.norm(x, g.node_mask))
-            if self.training and mask is not None:
-                h = h * mask
+            h = self.norm(x, g.node_mask, mult=mask if self.training else None)
         drop_key = None if dk is None else (int(dk[0, 0]), int(dk[1, 0]))
         out = self.conv(h, g, train=self.training, drop_key=drop_key)
         return out.reshape(out.shape[0], -1)
@@ -181,7 +185,9 @@ class RevGAT(nn.Module):
             mask = shared_dropout_mask(h.shape, c.dropout, generator, h.dtype)
         h = reversible_stack(self.convs[1:-1], h, g, (mask,), layer_args)
         with span("block.norm"):
-            h = torch.relu(self.norm(h, g.node_mask))
-            h = dropout(h, c.dropout, train=train, generator=generator)
+            keep = None
+            if train and c.dropout > 0:  # `dropout`'s draw, before the fused multiply
+                keep = torch.rand(h.shape, device=h.device, generator=generator) >= c.dropout
+            h = self.norm(h, g.node_mask, keep=keep, rate=c.dropout)
         out = self.convs[-1](h, g, train=train, drop_key=dk_last)
         return out.mean(1) + self.bias_last.bias

@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("seg_sum", "softmax_agg", "band", "softmax_bwd_csc", "gat_fwd", "gat_bwd_csc",
-           "win_fused", "win_der", "win_dsend", "blocksparse")
+           "win_fused", "win_der", "win_dsend", "blocksparse", "batch_norm_act")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -68,6 +68,15 @@ _SIGNATURES = {
        for src, n_ptr, n_lay in (("win_fused", 11, 2), ("win_der", 11, 2),
                                  ("win_dsend", 12, 2))},
     "blocksparse": {name: [_P] * 5 + [_I, _I, _P] for name in ("dgc_bsp_f32", "dgc_bsp_bf16")},
+    # K11 forward: x, sx, mask, w, b, mult, sm, mode, div, eps, y, mu, rstd,
+    # cnt, part; n_rows, C, vec, stream.  Backward: x, sx, dy, sdy, mask, w,
+    # b, mult, sm, mode, div, mu, rstd, cnt, dx, dw, db, part; n_rows, C,
+    # vec, stream
+    "batch_norm_act": {
+        "dgc_bn_act_fwd_f32": [_P, _L] + [_P] * 4 + [_L, _I, _F, _F] + [_P] * 5 + [_I] * 3
+        + [_P],
+        "dgc_bn_act_bwd_f32": [_P, _L, _P, _L] + [_P] * 4 + [_L, _I, _F] + [_P] * 7 + [_I] * 3
+        + [_P]},
 }
 
 _lock = threading.Lock()

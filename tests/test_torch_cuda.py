@@ -1550,3 +1550,113 @@ def test_tensor_parallel_step_card_matches_cpu(cuda_device, kind):
     for k, w in want["state"].items():
         _assert_close(torch.from_numpy(np.asarray(got["state"][k])),
                       torch.from_numpy(np.asarray(w)), 1e-4, 1e-4, ref_max=ref_max)
+
+
+# K11: RevGAT's fused norm → ReLU → dropout multiply, at the cell's shapes
+# (N_pad = 169,472 rows, 169,343 valid). Tolerances, float32: the kernel's
+# Welford/Chan statistics and the plain version's two-pass column sums round
+# differently, so μ agrees to 1e-5 of the column's spread and rstd, y to 1e-5
+# relative above a floor of 1e-5 of max |y|. dw and db are float32 sums over
+# 169k rows in different orders, so each column agrees to 1e-5 of the sum of
+# its terms' magnitudes, and dx to 1e-5 relative above 1e-5 of max |dx|. A
+# ReLU gate flips where z lies within the statistics' rounding of 0 (tens of
+# elements in 65 M), and then dx differs there by rstd·w·g: the kernel
+# backward is held against the plain backward given the kernel's own μ, rstd
+# and cnt (both round z alike, no fma contraction), and the Function's test
+# keeps every |z| above 0.4.
+K11_N, K11_VALID = 169_472, 169_343
+
+
+def _k11_inputs(dev, layout, mult_form, seed=0, gates_clear=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = 384 if layout == "c384_strided" else 768
+    wide = torch.randn(K11_N, 768, device=dev, generator=gen) * 3.0 + 20.0
+    x = torch.chunk(wide, 2, dim=-1)[1] if layout == "c384_strided" else wide
+    mask = torch.arange(K11_N, device=dev) < K11_VALID
+    w = torch.rand(c, device=dev, generator=gen) + 0.5
+    b = torch.randn(c, device=dev, generator=gen) * 0.5
+    if gates_clear:  # |x̂| < 6 for 169k normal rows, so |z| > 0.4
+        w, b = torch.full_like(w, 0.1), torch.where(b > 0, 1.0, -1.0)
+    keep_wide = torch.rand(K11_N, 768, device=dev, generator=gen) >= 0.75
+    mult = keep = None
+    if mult_form == "float":
+        m = keep_wide.float() / 0.25
+        mult = torch.chunk(m, 2, dim=-1)[1] if c == 384 else m
+    elif mult_form == "keep":
+        keep = torch.chunk(keep_wide, 2, dim=-1)[1] if c == 384 else keep_wide
+    dy = torch.randn(K11_N, c, device=dev, generator=gen)
+    return x, mask, w, b, mult, keep, dy
+
+
+def _k11_sums_close(got, want, mag):
+    """Column sums: |got − want| ≤ 1e-5 · Σ|terms| per column."""
+    np.testing.assert_array_less(np.abs((got - want).cpu().numpy()),
+                                 1e-5 * mag.cpu().numpy() + 1e-30)
+
+
+def _k11_grad_terms(x, mask, w, b, mult, keep, dy, mu, rstd):
+    """Σ|g| and Σ|g·x̂| per column: the magnitudes behind db and dw."""
+    from deep_gcns_torch_tpu_torch.ops import norm_act as tna
+
+    xh = (x - mu) * rstd
+    g = tna._apply_mult(dy, mult, keep, 0.25)
+    g = torch.where(xh * w + b > 0, g, torch.zeros((), device=x.device))
+    return g.abs().sum(0), (g * xh).abs().sum(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["c384_strided", "c768"])
+@pytest.mark.parametrize("mult_form", ["float", "keep", "none"])
+def test_k11_batch_norm_act_matches_plain(cuda_device, layout, mult_form):
+    """K11 forward and backward against the plain halves: y, μ, rstd, cnt,
+    dx, dw, db; two launches bit for bit; the launch counters."""
+    from deep_gcns_torch_tpu_torch.ops import norm_act as tna
+
+    x, mask, w, b, mult, keep, dy = _k11_inputs(cuda_device, layout, mult_form)
+    assert (layout == "c768") == x.is_contiguous()
+    f0, b0 = tna.batch_norm_act_fwd.launches, tna.batch_norm_act_bwd.launches
+    y, mu, rstd, cnt = tna.batch_norm_act_fwd(x, mask, w, b, mult, keep, 0.25)
+    y_p, mu_p, rstd_p, cnt_p = tna.batch_norm_act_fwd_plain(x, mask, w, b, mult, keep, 0.25)
+    assert float(cnt) == float(cnt_p) == K11_VALID
+    np.testing.assert_array_less(np.abs((mu - mu_p).cpu().numpy()),
+                                 1e-5 / rstd_p.cpu().numpy())
+    _assert_close(rstd, rstd_p, 1e-5, 0.0)
+    _assert_close(y, y_p, 1e-5, 1e-5)
+    dx, dw, db = tna.batch_norm_act_bwd(dy, x, mask, w, b, mult, keep, 0.25, mu, rstd, cnt)
+    dx_p, dw_p, db_p = tna.batch_norm_act_bwd_plain(dy, x, mask, w, b, mult, keep, 0.25, mu,
+                                                    rstd, cnt)
+    mag_b, mag_w = _k11_grad_terms(x, mask, w, b, mult, keep, dy, mu, rstd)
+    _k11_sums_close(db, db_p, mag_b)
+    _k11_sums_close(dw, dw_p, mag_w)
+    _assert_close(dx, dx_p, 1e-5, 1e-5)
+    y2, mu2, rstd2, _ = tna.batch_norm_act_fwd(x, mask, w, b, mult, keep, 0.25)
+    dx2, dw2, db2 = tna.batch_norm_act_bwd(dy, x, mask, w, b, mult, keep, 0.25, mu, rstd, cnt)
+    for a, a2 in ((y, y2), (mu, mu2), (rstd, rstd2), (dx, dx2), (dw, dw2), (db, db2)):
+        assert torch.equal(a, a2), "two launches must give the same bits"
+    torch.cuda.synchronize()
+    assert (tna.batch_norm_act_fwd.launches - f0, tna.batch_norm_act_bwd.launches - b0) == (2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,mult_form", [("c384_strided", "float"), ("c768", "keep")])
+def test_k11_function_matches_plain_function(cuda_device, layout, mult_form):
+    """The Function on the kernels against the same Function on the plain
+    halves, through autograd: a block's strided shapes with the shared mask,
+    the head's with its keep mask."""
+    from deep_gcns_torch_tpu_torch.ops import norm_act as tna
+
+    x, mask, w, b, mult, keep, dy = _k11_inputs(cuda_device, layout, mult_form, seed=1,
+                                                gates_clear=True)
+    res = []
+    for fn in (tna.batch_norm_act, tna.batch_norm_act_plain):
+        xx = x.detach().requires_grad_(True)
+        ww, bb = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        y = fn(xx, mask, ww, bb, mult=mult, keep=keep, rate=0.75)
+        y.backward(dy)
+        res.append((y.detach(), xx.grad, ww.grad, bb.grad))
+    _assert_close(res[0][0], res[1][0], 1e-5, 1e-5)
+    _assert_close(res[0][1], res[1][1], 1e-5, 1e-5)
+    _, mu, rstd, _ = tna.batch_norm_act_fwd_plain(x, mask, w, b)
+    mag_b, mag_w = _k11_grad_terms(x, mask, w, b, mult, keep, dy, mu, rstd)
+    _k11_sums_close(res[0][2], res[1][2], mag_w)
+    _k11_sums_close(res[0][3], res[1][3], mag_b)
