@@ -13,9 +13,10 @@ Routing of GENConv's aggregation, in the JAX package's order
   holds (on the CPU only: on the card the gather path is faster);
 * otherwise, when the graph carries its CSR and CSC auxiliaries
   (`fused_gather_ok`), the softmax family goes to
-  `fused_softmax_gather_agg`, which launches K2 in the forward and K1 in the
-  backward, or, with edge embeddings in both edge orders, K2 with `ee` and
-  K4;
+  `fused_softmax_gather_agg`, which launches K2 in the forward and K4's
+  gather form in the backward, or, with edge embeddings in both edge orders,
+  K2 with `ee` and K4 with `ee` (each receiver's softmax shifted by its own
+  maximum);
 * everything else gathers the messages relu(x_j [+ e]) + ε (`gather_src_auto`:
   K1's gathered form in the backward when the graph has its CSC) and runs
   `generalized_aggregate`, whose kernel routes given ``row_ptr`` are K1 for
@@ -58,6 +59,7 @@ from ..ops.knn import dilated_knn_graph_flat
 from ..ops.segment import (fused_gather_ok, generalized_aggregate, scatter, segment_degree,
                            segment_sum)
 from ..ops.spmm_cuda import fused_softmax_gather_agg_auto
+from ..utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -120,7 +122,9 @@ class GENConv(nn.Module):
     `edge_encoder`: Linear(edge_feat_dim, in_dim), or with ``bond_encoder``
     the BondEncoder, a sum of embeddings of the integer bond features
     (`MultiEmbedding(bond_feature_dims, in_dim)`, JAX
-    `convs/sparse.py:103-109`)."""
+    `convs/sparse.py:103-109`). Spans (`utils/profiling.span`): ``gen.aggregate``
+    around the aggregation, ``gen.mlp`` around the update MLP; the fused
+    route's backward records ``gen.aggregate_bwd``."""
 
     def __init__(self, in_dim: int, emb_dim: int, aggr: str = "softmax",
                  t: float = 1.0, learn_t: bool = False, p: float = 1.0,
@@ -178,6 +182,19 @@ class GENConv(nn.Module):
         same in sender order, which the fused route's backward (K4) needs."""
         edge_emb, edge_emb_csc = self._edge_embeddings(g, edge_attr, edge_attr_csc,
                                                        edge_emb, edge_emb_csc)
+        cd = self.compute_dtype
+        with span("gen.aggregate"):
+            m = self._aggregate(x, g, edge_emb, edge_emb_csc).to(x.dtype)
+        if self.msg_norm is not None:
+            m = self.msg_norm(x, m)
+        with span("gen.mlp"):
+            return self.mlp(x + m, g.node_mask, cd if cd == torch.bfloat16 else None)
+
+    def _aggregate(self, x: torch.Tensor, g: Graph, edge_emb: Optional[torch.Tensor],
+                   edge_emb_csc: Optional[torch.Tensor]) -> torch.Tensor:
+        """The aggregation of the messages relu(x_j [+ e]) + ε into each
+        receiver, by the first route that the graph allows (the module's
+        docstring), in the compute dtype."""
         n = x.shape[0]
         cd = self.compute_dtype
         xc = x.to(cd)
@@ -230,7 +247,8 @@ class GENConv(nn.Module):
                 ee = edge_emb.detach().to(cd).contiguous()
                 ee_csc = edge_emb_csc.to(cd).contiguous()
             m = fused_softmax_gather_agg_auto(
-                xc.contiguous(), g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr, t,
+                xc.contiguous(), g.senders, g.row_ptr, g.row_order, g.csc_receivers,
+                g.csc_col_ptr, g.csc_order, t,
                 ee=ee, ee_csc=ee_csc, eps=self.eps, grad_weights=self.grad_w)
             if self.aggr == "softmax_sum":
                 deg = segment_degree(g.receivers, n, g.edge_mask)
@@ -245,11 +263,7 @@ class GENConv(nn.Module):
             m = generalized_aggregate(
                 msg, g.receivers, n, aggr=self.aggr, t=self.t, p=self.p, y=self.y,
                 learn_t=self.grad_w, mask=g.edge_mask, row_ptr=g.row_ptr)
-        m = m.to(x.dtype)
-        if self.msg_norm is not None:
-            m = self.msg_norm(x, m)
-        return self.mlp(x + m, g.node_mask,
-                        cd if cd == torch.bfloat16 else None)
+        return m
 
 
 class _PygGAT(nn.Module):

@@ -2,18 +2,35 @@
 // edge embeddings.  For each receiver row n and channel c:
 //
 //   m_e   = relu(x[senders[e], c] [+ ee[e, c]]) + eps              (float32)
-//   w_e   = exp(t * m_e - cmax[c])                              (<= 1)
+//   M     = max_e round(t * m_e)                       (the row's own shift)
+//   w_e   = exp(t * m_e - M)                                    (<= 1, one is 1)
 //   num   = sum_e round_T(w_e * m_e),  den = sum_e round_T(w_e)  (float32)
-//   out[n, c] = den > 0 ? num / den : 0,   den_out[n, c] = den   (both in T)
+//   out[n, c] = den > 0 ? num / den : 0
+//   lse[n, c] = den > 0 ? M + log(den) : 0                       (float32)
 //
 // over e in [row_ptr[n], row_ptr[n+1]).  round_T is the rounding to the
 // compute type that the TPU kernel applies before its float32 accumulation
 // (spmm_pallas.py:348-349), so kernel and plain version differ only in the
-// order of the sums.  cmax is the per-channel GLOBAL bound of `_fused_cmax`
-// (spmm_pallas.py:649-662), computed outside the kernel; it must not become a
-// per-receiver max, because the node-factored backward
-// dx = relu'(x) * exp(t*m - cmax) * A^T(g/den) needs one shift for every
-// receiver.  t arrives as a device pointer so that the host never waits.
+// order of the sums.  The shift M is the receiver's own maximum score in
+// each channel, as the reference's scatter_softmax takes it, so the largest
+// weight of every row is 1 and den >= 1: no row's weights underflow however
+// far its scores lie below another row's.  (The TPU kernel shifts by one
+// global bound a channel, `_fused_cmax`, spmm_pallas.py:649-662: once a
+// channel's scores spread past ~87, every weight of the rows far below the
+// top underflows and their aggregation returns 0.)  lse, the row's
+// log-normaliser, is what the backward needs: the normalised weight of an
+// edge is exp(t * m_e - lse[r]), read per edge (K4).  t arrives as a device
+// pointer so that the host never waits.
+//
+// The shift is taken in a first walk over the row's edges (the same loads
+// as the second, which finds them in L1 or L2; one multiply and one max a
+// value), not by an online softmax that rescales num and den whenever the
+// running maximum grows: an online shift changes each term's value, and
+// with it the rounding of the terms and of their sums, so no plain version
+// could give them bit for bit.  (A float32 form with a lazy online shift, M
+// moving only past M + 8, moved a 5,000-edge hub row's sequential float32
+// sums off the plain version's by more than their 1e-5 agreement on the
+// H100.)
 //
 // Replaces the TPU kernel `_softmax_agg_kernel` (spmm_pallas.py:322, called
 // at :372), which streamed pre-gathered x[senders] tiles (an XLA gather at
@@ -38,7 +55,8 @@
 // of w = ceil(C / VEC) lanes, G = 32 / w, with VEC = 4 (16-byte float32 or
 // 8-byte bf16 loads) where the rows allow them, else VEC = 1 (a scalar
 // form).  Group g walks the edges e = start + g, g + G, ... with four edges
-// in flight a lane, and the G partial (num, den) pairs of each channel are
+// in flight a lane; the groups' maxima are merged by shuffles before the
+// second walk, and the G partial (num, den) pairs of each channel are
 // added at the end in the fixed order g = 0 .. G-1 through warp shuffles, so
 // the result is deterministic.  In bf16 C=40 gives w=10, G=3 (30 lanes busy,
 // 12 edges in flight a warp, against 10 lanes and 4 edges with one group),
@@ -61,16 +79,26 @@
 // edges' ee rows are contiguous, so the groups read one coalesced stretch a
 // step.  The wrapper (ops/spmm_cuda.py::k2_lane_groups) chooses w and G.
 //
+// The gather forms hand rows to warps longest first (`order`, the graph's
+// `row_order`, built once with the graph by graph.py::build_graph): a row's
+// walk is one warp's, with four edges in flight a lane, so a hub of ~1,200
+// edges takes a warp far longer than the rest of its wave; in index order a
+// hub late in the grid ran alone after the others, and the kernel's time
+// followed the graph's largest rows.  Each row's arithmetic, and so its
+// result, is the same in either order.
+//
 // The message form (SRC == kMsgs, `dgc_softmax_agg_msgs_*`) is the TPU
 // kernel's `relu_eps=None` path (spmm_pallas.py:345-346, launched by
 // `gen_softmax_aggregate_csr` at :416-459): the messages m [E_pad, C] are
 // materialised by the caller in receiver (CSR) order and used as they are,
-// with no sender gather, no relu and no eps.  cmax is then the EXACT
-// per-channel maximum of t*m over the valid edges (JAX's :402-409), not the
-// fused route's bound.  A row's messages are one contiguous stretch, so the
-// lane groups read consecutive rows: every load is coalesced and nothing is
-// a dependent chain.  The walk, the roundings and the order of the sums are
-// the gather forms'.
+// with no sender gather, no relu and no eps; its shift is the row's maximum
+// of t*m as well (the TPU kernel's is the exact global maximum, :402-409).
+// A row's messages are one contiguous stretch, so the lane groups read
+// consecutive rows: every load is coalesced and nothing is a dependent
+// chain.  The walks, the roundings and the order of the sums are the gather
+// forms'.  Its rows go to warps in index order: its CSR ranges come from
+// whatever the caller materialised (a shard's local or halo edges), which
+// carry no order of their own.
 #include "common.cuh"
 
 namespace dgc {
@@ -79,19 +107,25 @@ namespace dgc {
 // or the materialised row msgs[e] (passed as x)
 enum Src { kGather = 0, kGatherEE = 1, kMsgs = 2 };
 
-// one edge's terms round_T(w * m) and round_T(w), per channel, with
-// m = relu(v) + eps (RELU_EPS, the gather forms) or m = v (the message
-// form).  PAIRED rounds bf16 two values at a time (one packing conversion a
-// pair, the same round-to-nearest-even as one at a time): fewer
-// instructions, which the one-group form (C=128, bound by instruction
-// throughput) gains from and the grouped forms measured slower with
+// one edge's message m = relu(v) + eps (RELU_EPS, the gather forms) or
+// m = v (the message form)
+template <bool RELU_EPS>
+__device__ __forceinline__ float message(float v, float eps) {
+  return RELU_EPS ? fmaxf(v, 0.f) + eps : v;
+}
+
+// one edge's terms round_T(w * m) and round_T(w), per channel.  PAIRED
+// rounds bf16 two values at a time (one packing conversion a pair, the same
+// round-to-nearest-even as one at a time): fewer instructions, which the
+// one-group form (C=128, bound by instruction throughput) gains from and the
+// grouped forms measured slower with
 template <typename T, int VEC, bool PAIRED, bool RELU_EPS>
 __device__ __forceinline__ void edge_terms(const float* xv, const float* cm, float t, float eps,
                                            float* tn, float* td) {
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
-    const float m = RELU_EPS ? fmaxf(xv[k], 0.f) + eps : xv[k];
-    // explicit roundings keep nvcc from contracting t*m - cmax into one fma,
+    const float m = message<RELU_EPS>(xv[k], eps);
+    // explicit roundings keep nvcc from contracting t*m - M into one fma,
     // so each term is bit for bit the plain version's and only the order of
     // the sums differs
     const float w = expf(__fsub_rn(__fmul_rn(m, t), cm[k]));
@@ -129,6 +163,14 @@ __device__ __forceinline__ void accumulate(const float* xv, const float* cm, flo
   }
 }
 
+// the first walk's step: the running maximum of the scores round(t * m)
+template <int VEC, bool RELU_EPS>
+__device__ __forceinline__ void track_max(const float* xv, float t, float eps, float* mx) {
+#pragma unroll
+  for (int k = 0; k < VEC; ++k)
+    mx[k] = fmaxf(mx[k], __fmul_rn(message<RELU_EPS>(xv[k], eps), t));
+}
+
 // x[sender] (+ ee[e]), or msgs[e] (x holds the messages), for one edge,
 // widened to float32
 template <typename T, int VEC, int SRC>
@@ -154,15 +196,17 @@ template <typename T, int VEC, int SRC, bool MULTI>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 softmax_agg_kernel(const T* __restrict__ x, const T* __restrict__ ee,
                    const int* __restrict__ senders, const int* __restrict__ row_ptr,
-                   const float* __restrict__ t_ptr, const float* __restrict__ cmax,
-                   T* __restrict__ out, T* __restrict__ den_out, int n_rows, int C,
-                   int w_arg, int G_arg, float eps) {
+                   const int* __restrict__ order, const float* __restrict__ t_ptr,
+                   T* __restrict__ out, float* __restrict__ lse, int n_rows, int C, int w_arg,
+                   int G_arg, float eps) {
   constexpr int U = 4;  // edges in flight a lane
+  constexpr bool RELU_EPS = SRC != kMsgs;
   const int w = MULTI ? w_arg : 32;
   const int G = MULTI ? G_arg : 1;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int slot = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;  // the whole warp: the shuffles below see 32 lanes
+  if (slot >= n_rows) return;  // the whole warp: the shuffles below see 32 lanes
+  const int row = SRC == kMsgs ? slot : order[slot];
   const int g = lane / w;
   const int j = lane - g * w;
   const int start = row_ptr[row];
@@ -171,10 +215,42 @@ softmax_agg_kernel(const T* __restrict__ x, const T* __restrict__ ee,
   for (int base = 0; base < C; base += w * VEC) {
     const int c0 = base + j * VEC;
     const bool on = g < G && c0 < C;
-    float cm[VEC], num[VEC], den[VEC];
+    // first walk: the row's maximum score in each channel (-inf without edges)
+    float cm[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) cm[k] = __int_as_float(0xff800000);  // -inf
+    if (on) {
+      int e = start + g;
+      for (; e + (U - 1) * G < end; e += U * G) {
+        float v[U][VEC];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          load_message<T, VEC, SRC>(x, ee, SRC == kMsgs ? 0 : senders[e + u * G], e + u * G, C,
+                                    c0, v[u]);
+#pragma unroll
+        for (int u = 0; u < U; ++u) track_max<VEC, RELU_EPS>(v[u], t, eps, cm);
+      }
+      for (; e < end; e += G) {
+        float v[VEC];
+        load_message<T, VEC, SRC>(x, ee, SRC == kMsgs ? 0 : senders[e], e, C, c0, v);
+        track_max<VEC, RELU_EPS>(v, t, eps, cm);
+      }
+    }
+    // every group takes the maximum over all groups (the idle lanes hold -inf)
+    {
+      float pm[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) pm[k] = cm[k];
+      for (int h = 0; h < G; ++h) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k)
+          cm[k] = fmaxf(cm[k], __shfl_sync(0xffffffffu, pm[k], h * w + j));
+      }
+    }
+    // second walk: the terms against that shift
+    float num[VEC], den[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      cm[k] = on ? cmax[c0 + k] : 0.f;
       num[k] = 0.f;
       den[k] = 0.f;
     }
@@ -188,12 +264,12 @@ softmax_agg_kernel(const T* __restrict__ x, const T* __restrict__ ee,
                                     c0, v[u]);
 #pragma unroll
         for (int u = 0; u < U; ++u)
-          accumulate<T, VEC, !MULTI, SRC != kMsgs>(v[u], cm, t, eps, num, den);
+          accumulate<T, VEC, !MULTI, RELU_EPS>(v[u], cm, t, eps, num, den);
       }
       for (; e < end; e += G) {
         float v[VEC];
         load_message<T, VEC, SRC>(x, ee, SRC == kMsgs ? 0 : senders[e], e, C, c0, v);
-        accumulate<T, VEC, !MULTI, SRC != kMsgs>(v, cm, t, eps, num, den);
+        accumulate<T, VEC, !MULTI, RELU_EPS>(v, cm, t, eps, num, den);
       }
     }
     // the groups' partial sums, added in the order g = 0, 1, ..., G-1
@@ -211,18 +287,21 @@ softmax_agg_kernel(const T* __restrict__ x, const T* __restrict__ ee,
       }
     }
     if (on && g == 0) {
-      float o[VEC];
+      float o[VEC], l[VEC];
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) o[k] = den[k] > 0.f ? num[k] / den[k] : 0.f;
+      for (int k = 0; k < VEC; ++k) {
+        o[k] = den[k] > 0.f ? num[k] / den[k] : 0.f;
+        l[k] = den[k] > 0.f ? __fadd_rn(cm[k], logf(den[k])) : 0.f;
+      }
       Rows<T, VEC>::store(out + (long long)row * C + c0, o);
-      Rows<T, VEC>::store(den_out + (long long)row * C + c0, den);
+      Rows<float, VEC>::store(lse + (long long)row * C + c0, l);
     }
   }
 }
 
 template <typename T, int VEC, int SRC>
 void launch_one(const void* x, const void* ee, const void* senders, const void* row_ptr,
-                const void* t, const void* cmax, void* out, void* den, int n_rows, int C,
+                const void* order, const void* t, void* out, void* lse, int n_rows, int C,
                 int w, int G, float eps, cudaStream_t s) {
   const dim3 grid(blocks_for_rows(n_rows)), block(kWarpsPerBlock * 32);
   auto kernel = softmax_agg_kernel<T, VEC, SRC, false>;
@@ -231,42 +310,43 @@ void launch_one(const void* x, const void* ee, const void* senders, const void* 
   }
   kernel<<<grid, block, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(ee), static_cast<const int*>(senders),
-      static_cast<const int*>(row_ptr), static_cast<const float*>(t),
-      static_cast<const float*>(cmax), static_cast<T*>(out), static_cast<T*>(den), n_rows,
-      C, w, G, eps);
+      static_cast<const int*>(row_ptr), static_cast<const int*>(order),
+      static_cast<const float*>(t), static_cast<T*>(out), static_cast<float*>(lse), n_rows, C,
+      w, G, eps);
 }
 
 template <typename T, int VEC>
 void launch_vec(const void* x, const void* ee, const void* senders, const void* row_ptr,
-                const void* t, const void* cmax, void* out, void* den, int n_rows, int C,
+                const void* order, const void* t, void* out, void* lse, int n_rows, int C,
                 int w, int G, float eps, bool msgs, cudaStream_t s) {
+#define DGC_K2_ARGS x, ee, senders, row_ptr, order, t, out, lse, n_rows, C, w, G, eps, s
   if (msgs)
-    launch_one<T, VEC, kMsgs>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps,
-                              s);
+    launch_one<T, VEC, kMsgs>(DGC_K2_ARGS);
   else if (ee)
-    launch_one<T, VEC, kGatherEE>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G,
-                                  eps, s);
+    launch_one<T, VEC, kGatherEE>(DGC_K2_ARGS);
   else
-    launch_one<T, VEC, kGather>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G,
-                                eps, s);
+    launch_one<T, VEC, kGather>(DGC_K2_ARGS);
+#undef DGC_K2_ARGS
 }
 
 // vec: 4 or 1, as the wrapper found the rows aligned; w and G: the lane
 // groups (w * G <= 32, w * VEC >= C unless w == 32; float32 takes G = 1);
-// msgs: x holds one materialised message row per edge (senders, ee and eps
-// are not read)
+// order: the rows in the order the warps take them; msgs: x holds one
+// materialised message row per edge (senders, ee, order and eps are not
+// read)
 template <typename T>
-int launch_softmax_agg(const void* x, const void* ee, const void* senders,
-                       const void* row_ptr, const void* t, const void* cmax, void* out,
-                       void* den, int n_rows, int C, int w, int G, float eps, int vec,
-                       bool msgs, void* stream) {
+int launch_softmax_agg(const void* x, const void* ee, const void* senders, const void* row_ptr,
+                       const void* order, const void* t, void* out, void* lse, int n_rows,
+                       int C, int w, int G, float eps, int vec, bool msgs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w < 1 || w > 32 || G < 1 || w * G > 32 || (sizeof(T) == 4 && G != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec == 4)
-    launch_vec<T, 4>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps, msgs, s);
+    launch_vec<T, 4>(x, ee, senders, row_ptr, order, t, out, lse, n_rows, C, w, G, eps, msgs,
+                     s);
   else if (vec == 1)
-    launch_vec<T, 1>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows, C, w, G, eps, msgs, s);
+    launch_vec<T, 1>(x, ee, senders, row_ptr, order, t, out, lse, n_rows, C, w, G, eps, msgs,
+                     s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -275,37 +355,39 @@ int launch_softmax_agg(const void* x, const void* ee, const void* senders,
 }  // namespace dgc
 
 // Plain C interface for ctypes.  `ee` may be null (no edge embeddings); it
-// has x's type and [E_pad, C] rows in receiver order.  Returns
+// has x's type and [E_pad, C] rows in receiver order.  `order` is a
+// permutation of [0, n_rows), longest rows first.  out has x's type, lse is float32 [n_rows, C].  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a lane
 // layout or vec the kernel does not take.
 extern "C" int dgc_softmax_agg_f32(const void* x, const void* ee, const void* senders,
-                                   const void* row_ptr, const void* t, const void* cmax,
-                                   void* out, void* den, int n_rows, int C, int w, int G,
+                                   const void* row_ptr, const void* order, const void* t,
+                                   void* out, void* lse, int n_rows, int C, int w, int G,
                                    float eps, int vec, void* stream) {
-  return dgc::launch_softmax_agg<float>(x, ee, senders, row_ptr, t, cmax, out, den, n_rows,
-                                        C, w, G, eps, vec, false, stream);
+  return dgc::launch_softmax_agg<float>(x, ee, senders, row_ptr, order, t, out, lse, n_rows, C,
+                                        w, G, eps, vec, false, stream);
 }
 
 extern "C" int dgc_softmax_agg_bf16(const void* x, const void* ee, const void* senders,
-                                    const void* row_ptr, const void* t, const void* cmax,
-                                    void* out, void* den, int n_rows, int C, int w, int G,
+                                    const void* row_ptr, const void* order, const void* t,
+                                    void* out, void* lse, int n_rows, int C, int w, int G,
                                     float eps, int vec, void* stream) {
-  return dgc::launch_softmax_agg<__nv_bfloat16>(x, ee, senders, row_ptr, t, cmax, out, den,
+  return dgc::launch_softmax_agg<__nv_bfloat16>(x, ee, senders, row_ptr, order, t, out, lse,
                                                 n_rows, C, w, G, eps, vec, false, stream);
 }
 
 // The message form: msgs [E_pad, C] of the output's type in receiver order,
-// the CSR row_ptr, t (a device float) and the exact per-channel cmax.
+// the CSR row_ptr and t (a device float); the rows go in index order.
 extern "C" int dgc_softmax_agg_msgs_f32(const void* msgs, const void* row_ptr, const void* t,
-                                        const void* cmax, void* out, void* den, int n_rows,
-                                        int C, int w, int G, int vec, void* stream) {
-  return dgc::launch_softmax_agg<float>(msgs, nullptr, nullptr, row_ptr, t, cmax, out, den,
+                                        void* out, void* lse, int n_rows, int C, int w, int G,
+                                        int vec, void* stream) {
+  return dgc::launch_softmax_agg<float>(msgs, nullptr, nullptr, row_ptr, nullptr, t, out, lse,
                                         n_rows, C, w, G, 0.f, vec, true, stream);
 }
 
 extern "C" int dgc_softmax_agg_msgs_bf16(const void* msgs, const void* row_ptr, const void* t,
-                                         const void* cmax, void* out, void* den, int n_rows,
-                                         int C, int w, int G, int vec, void* stream) {
-  return dgc::launch_softmax_agg<__nv_bfloat16>(msgs, nullptr, nullptr, row_ptr, t, cmax, out,
-                                                den, n_rows, C, w, G, 0.f, vec, true, stream);
+                                         void* out, void* lse, int n_rows, int C, int w, int G,
+                                         int vec, void* stream) {
+  return dgc::launch_softmax_agg<__nv_bfloat16>(msgs, nullptr, nullptr, row_ptr, nullptr, t,
+                                                out, lse, n_rows, C, w, G, 0.f, vec, true,
+                                                stream);
 }

@@ -9,7 +9,10 @@ conventions so that both packages build identical arrays from the same input:
 * valid edges sorted by receiver (numpy's stable argsort), with the CSR
   ``row_ptr`` [N_pad + 1];
 * the CSC auxiliaries (edges re-sorted by sender): ``csc_perm``,
-  ``csc_senders``, ``csc_col_ptr``, ``csc_receivers``, ``edge_attr_csc``.
+  ``csc_senders``, ``csc_col_ptr``, ``csc_receivers``, ``edge_attr_csc``;
+* beside each pointer array, its rows longest first (``row_order``,
+  ``csc_order``): the order in which the fused softmax kernels (K2, K4)
+  hand rows to warps, so that a hub's long walk starts in the first wave.
 
 Index arrays are int32 tensors: the CUDA kernels read them as ``int``.
 `attach_band` adds the band-dense adjacency (`ops/band.BandPair`) of the
@@ -28,8 +31,8 @@ import torch
 from .device import DeviceLike, resolve_device
 
 _TENSOR_FIELDS = ("x", "senders", "receivers", "edge_attr", "node_mask", "edge_mask",
-                  "node_graph", "row_ptr", "csc_perm", "csc_senders", "csc_col_ptr",
-                  "csc_receivers", "edge_attr_csc")
+                  "node_graph", "row_ptr", "row_order", "csc_perm", "csc_senders",
+                  "csc_col_ptr", "csc_order", "csc_receivers", "edge_attr_csc")
 
 
 @dataclass(frozen=True)
@@ -51,6 +54,8 @@ class Graph:
     csc_col_ptr: Optional[torch.Tensor] = None    # [N_pad + 1] int32
     csc_receivers: Optional[torch.Tensor] = None  # [E_pad] int32
     edge_attr_csc: Optional[torch.Tensor] = None  # [E_pad, Ce]
+    row_order: Optional[torch.Tensor] = None      # [N_pad] int32, with row_ptr
+    csc_order: Optional[torch.Tensor] = None      # [N_pad] int32, with csc_col_ptr
     # band-dense adjacency (ops/band.BandPair) of a locality-ordered graph;
     # GENConv routes its aggregation through it when present (band_ok)
     band: Optional[Any] = None
@@ -84,6 +89,14 @@ def _round_up(x: int, m: int) -> int:
 
 def _tensor(a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
     return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def longest_first(ptr: Optional[np.ndarray]) -> Optional[np.ndarray]:
+    """The rows of the ranges ``ptr`` by decreasing length, ties in index
+    order, int32."""
+    if ptr is None:
+        return None
+    return np.argsort(ptr[:-1].astype(np.int64) - ptr[1:], kind="stable").astype(np.int32)
 
 
 def build_graph(
@@ -191,9 +204,11 @@ def build_graph(
         n_edge=n_edge,
         node_graph=_tensor(ng),
         row_ptr=_tensor(rp),
+        row_order=_tensor(longest_first(rp)),
         csc_perm=_tensor(csc_perm),
         csc_senders=_tensor(csc_senders),
         csc_col_ptr=_tensor(csc_col_ptr),
+        csc_order=_tensor(longest_first(csc_col_ptr)),
         csc_receivers=_tensor(csc_receivers),
         edge_attr_csc=_tensor(edge_attr_csc),
         num_graphs=num_graphs,

@@ -33,6 +33,10 @@ nodes plus its embedding through that layer's MLP((C,)·3) and dropout back
 into the nodes; ``graph_pooling`` (mean, sum or max over `g.node_graph`
 under `g.node_mask`, `:331-333`) pools the nodes before the prediction head.
 
+Spans (`utils/profiling.span`): ``deeper.norm`` around each res+ prologue
+(norm → relu → dropout) and the final norm, relu and dropout; GENConv's own
+``gen.aggregate`` and ``gen.mlp`` sit inside each conv.
+
 Memory knobs (`deeper_gcn.py:62-76, 235, 271, 309, 325` there), both on
 `nn.core.checkpoint_replay` (`torch.utils.checkpoint`, non-reentrant; the
 recompute replays the dropout generator and leaves BatchNorm's running
@@ -57,6 +61,7 @@ from ..graph import Graph
 from ..nn.core import (MLP, Embedding, Linear, MultiEmbedding, checkpoint_replay, dropout,
                        make_norm)
 from ..ops.segment import scatter, segment_sum
+from ..utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -224,7 +229,8 @@ class DeeperGCN(nn.Module):
                 return drop(torch.relu(self.norms[i - 1](h, mask)))
 
             def body(h, vn, i):
-                h2 = ckpt(ckpt_pro, prologue, h, i)
+                with span("deeper.norm"):
+                    h2 = ckpt(ckpt_pro, prologue, h, i)
                 if vn is not None:
                     pooled = segment_sum(h2, g.node_graph, g.num_graphs, mask)
                     vn = drop(self.mlp_virtualnode_list[i - 1](pooled + vn))
@@ -233,11 +239,12 @@ class DeeperGCN(nn.Module):
 
             for i in range(1, c.num_layers):
                 h, vn = ckpt(c.remat, body, h, vn, i)
-            h = self.norms[c.num_layers - 1](h, mask)
-            if c.final_relu:
-                h = torch.relu(h)
-            if c.final_dropout:
-                h = drop(h)
+            with span("deeper.norm"):
+                h = self.norms[c.num_layers - 1](h, mask)
+                if c.final_relu:
+                    h = torch.relu(h)
+                if c.final_dropout:
+                    h = drop(h)
         else:
             def epilogue(h1, h, i):
                 h3 = torch.relu(self.norms[i](h1, mask))

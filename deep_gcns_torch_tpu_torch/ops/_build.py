@@ -39,16 +39,16 @@ _SIGNATURES = {
     # src, idx, ptr, out; n_rows, C, vec, w, G, stream
     "seg_sum": {name: [_P] * 4 + [_I] * 5 + [_P]
                 for name in ("dgc_seg_sum_f32", "dgc_seg_sum_bf16")},
-    # x, ee, senders, row_ptr, t, cmax, out, den; n_rows, C, w, G; eps, vec, stream
-    # the message form: msgs, row_ptr, t, cmax, out, den; n_rows, C, w, G,
+    # x, ee, senders, row_ptr, order, t, out, lse; n_rows, C, w, G; eps, vec,
+    # stream; the message form: msgs, row_ptr, t, out, lse; n_rows, C, w, G,
     # vec, stream
     "softmax_agg": {**{name: [_P] * 8 + [_I] * 4 + [_F, _I, _P]
                        for name in ("dgc_softmax_agg_f32", "dgc_softmax_agg_bf16")},
-                    **{name: [_P] * 6 + [_I] * 5 + [_P]
+                    **{name: [_P] * 5 + [_I] * 5 + [_P]
                        for name in ("dgc_softmax_agg_msgs_f32", "dgc_softmax_agg_msgs_bf16")}},
-    # x, ee, qo, col_ptr, receivers, t, cmax, dx, dee, dt_part; n_rows, C,
-    # e_pad, w, G; eps, grad_weights, vec, stream
-    "softmax_bwd_csc": {name: [_P] * 10 + [_I, _I, _L, _I, _I, _F, _I, _I, _P]
+    # x, ee, qo, lse, col_ptr, order, receivers, t, dx, dee, dt_part; n_rows,
+    # C, e_pad, w, G; eps, grad_weights, vec, stream
+    "softmax_bwd_csc": {name: [_P] * 11 + [_I, _I, _L, _I, _I, _F, _I, _I, _P]
                         for name in ("dgc_softmax_bwd_csc_f32", "dgc_softmax_bwd_csc_bf16")},
     "band": {name: [_P, _P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _I, _P]
              for name in ("dgc_band_f32", "dgc_band_bf16")},

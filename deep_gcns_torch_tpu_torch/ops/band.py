@@ -46,7 +46,7 @@ from ..nn.core import mm_f32
 from ._build import library
 from .route_misses import miss
 from .spmm_cuda import (_SUFFIX, _check_index, _raise_on, _require, csr_seg_sum,
-                        csr_seg_sum_plain, fused_cmax)
+                        csr_seg_sum_plain)
 
 BN = 128        # receiver rows per block
 ALIGN = 16      # window-start alignment
@@ -580,11 +580,22 @@ def band_sum_auto(x: torch.Tensor, bands: BandPair, drop: Optional[DropSpec] = N
     return band_spmm(x.contiguous(), bands, drop)
 
 
+def band_cmax(x: torch.Tensor, t: torch.Tensor, eps: float) -> torch.Tensor:
+    """Per-channel GLOBAL upper bound of the scores t·(relu(x_j) + ε)
+    (`_band_cmax`, `ops/band.py:637-642`): t·(max relu(x) + ε) over all N_pad
+    rows for t > 0, else t·ε. relu commutes with the max, so the maximum is
+    taken in x's dtype. The band route's node-factored softmax needs one
+    shift for every receiver; GENConv's gather route shifts each receiver by
+    its own maximum (`spmm_cuda.softmax_agg`)."""
+    m_ub = torch.clamp_min(x.detach().amax(0).float(), 0.0) + eps
+    return torch.where(t > 0, t * m_ub, t * eps)
+
+
 def softmax_table(x: torch.Tensor, t0: torch.Tensor, eps: float):
     """The packed node table [e·m | e] of the node-factored softmax
     aggregation, in x's dtype, with m = relu(x) + ε, e = exp(t·m − cmax), and
-    the per-channel global bound cmax (`_band_cmax`, `ops/band.py:637-642`)."""
-    cmax = fused_cmax(x, t0, eps)
+    the per-channel global bound cmax (`band_cmax`)."""
+    cmax = band_cmax(x, t0, eps)
     m = torch.relu(x.float()) + eps
     e = torch.exp(m * t0 - cmax)
     return torch.cat([e * m, e], 1).to(x.dtype), cmax

@@ -181,15 +181,17 @@ KERNEL_AGGRS = ("softmax", "softmax_sg", "softmax_sum", "add", "sum", "mean")
 
 
 def fused_gather_ok(g, aggr: str) -> bool:
-    """GENConv's fused gather + softmax aggregation (K2 forward, K1 or K4
+    """GENConv's fused gather + softmax aggregation (K2 forward, K4
     backward) reads the graph's CSR ``row_ptr`` and its CSC ``csc_col_ptr``
-    and ``csc_receivers``: the gate of JAX's `fused_gather_ok`
+    and ``csc_receivers``, with each pointer array's ``row_order`` and
+    ``csc_order``: the gate of JAX's `fused_gather_ok`
     (`ops/segment.py:269-294`) without its platform clause, its tile
     alignment and its lane-padding clause (the port's kernels read CSR and
     CSC ranges at any padding and width)."""
     if aggr not in ("softmax", "softmax_sg", "softmax_sum"):
         return False  # the fused pair covers the softmax family only: not a miss
-    if g.row_ptr is None or g.csc_col_ptr is None or g.csc_receivers is None:
+    if any(a is None for a in (g.row_ptr, g.row_order, g.csc_col_ptr, g.csc_order,
+                               g.csc_receivers)):
         return miss("fused_gather_agg", "graph lacks CSR/CSC aux indices",
                     warn=g.senders.is_cuda)
     return True

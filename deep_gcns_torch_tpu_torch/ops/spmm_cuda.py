@@ -1,8 +1,11 @@
 """CSR segment sum (K1), fused softmax aggregation (K2, with or without edge
-embeddings, and its form over materialised messages), its CSC backward with
-edge embeddings (K4), and the GAT attention SpMM (K5 forward, K6 CSC
-backward): CUDA kernels, their plain PyTorch versions and the autograd
-Functions around them.
+embeddings, and its form over materialised messages), its CSC backward (K4,
+with or without edge embeddings), and the GAT attention SpMM (K5 forward,
+K6 CSC backward): CUDA kernels, their plain PyTorch versions and the
+autograd Functions around them. GENConv's softmax shifts each receiver by
+its own maximum score (the reference's scatter_softmax), where the JAX
+package shifts by one global bound a channel: K2 returns each receiver's
+log-normaliser and K4 reads it per edge.
 
 Counterpart of `deep_gcns_torch_tpu/ops/spmm_pallas.py:252-315, 322-459,
 466-803, 805-996`. The kernels are hand-written CUDA C++ for Hopper
@@ -28,10 +31,11 @@ so that the kernels take their wide loads).
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from ._build import library
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -193,38 +197,64 @@ def segment_sum_csr(msgs: torch.Tensor, receivers: torch.Tensor,
 # K2: fused gather + message + softmax aggregation
 # ---------------------------------------------------------------------------
 
-def softmax_agg_plain(x: torch.Tensor, senders: torch.Tensor, row_ptr: torch.Tensor,
-                      t: torch.Tensor, cmax: torch.Tensor, eps: float,
-                      ee: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, den) of K2: per receiver and channel, num = Σ round(w·m) and
-    den = Σ round(w) in float32 with m = relu(x[send] [+ ee[e]]) + ε,
-    w = exp(t·m − cmax) and round() the rounding to x's dtype; out = num/den
-    (0 where den = 0). ``ee`` is in receiver order. Both outputs are in x's
-    dtype."""
-    edges, rows = _edge_rows(row_ptr)
-    xj = x.index_select(0, senders[edges].long()).float()
-    if ee is not None:
-        xj = xj + ee.index_select(0, edges).float()
-    m = torch.relu(xj) + eps
-    w = torch.exp(m * t - cmax)
-    shape = (row_ptr.shape[0] - 1, x.shape[1])
-    num = torch.zeros(shape, dtype=torch.float32, device=x.device)
-    den = torch.zeros(shape, dtype=torch.float32, device=x.device)
-    num.index_add_(0, rows, (w * m).to(x.dtype).float())
-    den.index_add_(0, rows, w.to(x.dtype).float())
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' accumulation type: float32, or float64 for float64
+    inputs (the gradient checks)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _row_softmax_terms(m: torch.Tensor, rows: torch.Tensor, n_rows: int, t: torch.Tensor,
+                       dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of the per-receiver softmax aggregation of the messages
+    ``m`` [E, C] (in `_acc(dtype)`) of the edges whose receiver rows are
+    ``rows``: M = the row's maximum of round(t·m) in each channel,
+    w = exp(t·m − M), num = Σ round(w·m) and den = Σ round(w) with round()
+    the rounding to ``dtype``; out = num/den (0 where a row has no edge) in
+    ``dtype``, lse = M + log(den) (0 there) in the accumulation type."""
+    s = m * t
+    shape = (n_rows, m.shape[1])
+    mx = torch.full(shape, float("-inf"), dtype=m.dtype, device=m.device)
+    mx.scatter_reduce_(0, rows[:, None].expand_as(s), s, "amax")
+    w = torch.exp(s - mx.index_select(0, rows))
+    num = torch.zeros(shape, dtype=m.dtype, device=m.device)
+    den = torch.zeros(shape, dtype=m.dtype, device=m.device)
+    num.index_add_(0, rows, (w * m).to(dtype).to(m.dtype))
+    den.index_add_(0, rows, w.to(dtype).to(m.dtype))
     pos = den > 0
-    out = torch.where(pos, num / torch.where(pos, den, 1.0), 0.0)
-    return out.to(x.dtype), den.to(x.dtype)
+    safe = torch.where(pos, den, 1.0)
+    out = torch.where(pos, num / safe, 0.0)
+    lse = torch.where(pos, mx + torch.log(safe), 0.0)
+    return out.to(dtype), lse
 
 
-def _check_t_cmax(t: torch.Tensor, cmax: torch.Tensor, x: torch.Tensor):
-    c = x.shape[1]
+def softmax_agg_plain(x: torch.Tensor, senders: torch.Tensor, row_ptr: torch.Tensor,
+                      row_order: Optional[torch.Tensor], t: torch.Tensor, eps: float,
+                      ee: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of K2: per receiver row and channel, the softmax
+    aggregation (`_row_softmax_terms`) of m = relu(x[send] [+ ee[e]]) + ε
+    over the row's CSR range, shifted by the row's own maximum score.
+    ``ee`` is in receiver order; out is in x's dtype, lse in float32 (float64
+    for float64 inputs). Each row is summed alone, so ``row_order`` (the
+    kernel's order of the rows) changes nothing here."""
+    del row_order
+    acc = _acc(x.dtype)
+    edges, rows = _edge_rows(row_ptr)
+    xj = x.index_select(0, senders[edges].long()).to(acc)
+    if ee is not None:
+        xj = xj + ee.index_select(0, edges).to(acc)
+    m = torch.relu(xj) + eps
+    return _row_softmax_terms(m, rows, row_ptr.shape[0] - 1, t, x.dtype)
+
+
+def _check_order(name: str, order: torch.Tensor, ptr: torch.Tensor):
+    _check_index(name, order, ptr.device)
+    _require(order.shape[0] == ptr.shape[0] - 1,
+             f"{name} must hold one entry per row of its pointer array")
+
+
+def _check_t(t: torch.Tensor, x: torch.Tensor):
     _require(t.device == x.device and t.dtype == torch.float32 and t.numel() == 1,
              "t must be a one-element float32 tensor on x's device")
-    _require(cmax.device == x.device and cmax.dtype == torch.float32
-             and cmax.shape == (c,) and cmax.is_contiguous(),
-             "cmax must be a contiguous float32 [C] tensor on x's device")
 
 
 def _check_edge_rows(name: str, a: torch.Tensor, x: torch.Tensor, rows: int):
@@ -235,135 +265,146 @@ def _check_edge_rows(name: str, a: torch.Tensor, x: torch.Tensor, rows: int):
 
 
 def softmax_agg(x: torch.Tensor, senders: torch.Tensor, row_ptr: torch.Tensor,
-                t: torch.Tensor, cmax: torch.Tensor, eps: float,
+                row_order: torch.Tensor, t: torch.Tensor, eps: float,
                 ee: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 (`csrc/softmax_agg.cu`) on a CUDA tensor; the plain version on a CPU
-    one. ``t`` is a float32 one-element tensor read on the device; ``ee``
-    (optional) holds one row per edge slot of ``senders``, in x's dtype."""
+    one. ``row_order`` is the graph's (`Graph.row_order`): the rows longest
+    first, the order in which the kernel hands them to warps. ``t`` is a
+    float32 one-element tensor read on the device; ``ee`` (optional) holds
+    one row per edge slot of ``senders``, in x's dtype. Returns (out in x's
+    dtype, lse float32), both [rows of row_ptr, C]."""
     if x.device.type == "cpu":
-        return softmax_agg_plain(x, senders, row_ptr, t, cmax, eps, ee)
+        return softmax_agg_plain(x, senders, row_ptr, row_order, t, eps, ee)
     _check_rows("x", x)
     _check_index("senders", senders, x.device)
     _check_index("row_ptr", row_ptr, x.device)
-    _check_t_cmax(t, cmax, x)
+    _check_order("row_order", row_order, row_ptr)
+    _check_t(t, x)
     if ee is not None:
         _check_edge_rows("ee", ee, x, senders.shape[0])
     n_rows, c = row_ptr.shape[0] - 1, x.shape[1]
     out = torch.empty((n_rows, c), dtype=x.dtype, device=x.device)
-    den = torch.empty((n_rows, c), dtype=x.dtype, device=x.device)
+    lse = torch.empty((n_rows, c), dtype=torch.float32, device=x.device)
     if n_rows == 0 or c == 0:
-        return out, den
+        return out, lse
     t = t.contiguous()
-    vec = _vec(c, *((x, out, den) if ee is None else (x, out, den, ee)))
+    vec = _vec(c, *((x, out, lse) if ee is None else (x, out, lse, ee)))
     w, groups = k2_lane_groups(c, vec, x.dtype)
     fn = getattr(library("softmax_agg"), f"dgc_softmax_agg_{_SUFFIX[x.dtype]}")
     rc = fn(x.data_ptr(), None if ee is None else ee.data_ptr(), senders.data_ptr(),
-            row_ptr.data_ptr(), t.data_ptr(), cmax.data_ptr(), out.data_ptr(),
-            den.data_ptr(), n_rows, c, w, groups, float(eps), vec,
+            row_ptr.data_ptr(), row_order.data_ptr(), t.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), n_rows, c, w, groups, float(eps), vec,
             torch.cuda.current_stream(x.device).cuda_stream)
     if ee is None:
         softmax_agg.launches += 1
     else:
         softmax_agg.launches_ee += 1
     _raise_on(rc, "K2 softmax_agg")
-    return out, den
+    return out, lse
 
 
 softmax_agg.launches = 0     # K2 without edge embeddings
 softmax_agg.launches_ee = 0  # K2 with edge embeddings (the `has_ee` form)
 
 
-def fused_cmax(x: torch.Tensor, t: torch.Tensor, eps: float,
-               ee: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-channel GLOBAL upper bound of the scores t·(relu(x_j [+ ee_e]) + ε)
-    (`_fused_cmax`, spmm_pallas.py:649-662): m_ub = max relu(x), over all
-    N_pad rows, and with edge embeddings relu(m_ub + max ee) with the max
-    over all E_pad rows of ``ee``, padding included (padded rows carry the
-    edge encoder's bias). relu commutes with the max, so the maxima are
-    taken in the inputs' dtype."""
-    m_ub = torch.clamp_min(x.detach().amax(0).float(), 0.0)
-    if ee is not None:
-        m_ub = torch.relu(m_ub + ee.detach().amax(0).float())
-    m_ub = m_ub + eps
-    return torch.where(t > 0, t * m_ub, t * eps)
-
-
 # ---------------------------------------------------------------------------
-# K4: the CSC backward with edge embeddings
+# K4: the CSC backward, with edge embeddings or without (the gather form)
 # ---------------------------------------------------------------------------
 
-def softmax_bwd_csc_plain(x: torch.Tensor, ee_csc: torch.Tensor, qo: torch.Tensor,
-                          col_ptr: torch.Tensor, csc_receivers: torch.Tensor,
-                          t: torch.Tensor, cmax: torch.Tensor, eps: float,
-                          grad_weights: bool
-                          ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+def softmax_bwd_csc_plain(x: torch.Tensor, ee_csc: Optional[torch.Tensor], qo: torch.Tensor,
+                          lse: torch.Tensor, col_ptr: torch.Tensor,
+                          col_order: Optional[torch.Tensor], csc_receivers: torch.Tensor,
+                          t: torch.Tensor, eps: float, grad_weights: bool
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                     Optional[torch.Tensor]]:
     """(dx, dee_csc, dt) of K4. Per edge e of sender s's CSC range with
-    receiver r: xj = x[s] + ee_csc[e], m = relu(xj) + ε, w = exp(t·m − cmax),
-    q = qo[r, :C]; dm = q·w·(1 + t·(m − o)) with o = qo[r, C:] under
-    ``grad_weights``, else q·w; dxj = dm where xj > 0. dee_csc[e] = dxj in
-    ee's dtype (0 on rows outside every range), dx[s] = Σ dxj rounded to x's
-    dtype and summed in float32, dt = Σ q·w·m·(m − o) (None without
-    ``grad_weights``)."""
+    receiver r: xj = x[s] [+ ee_csc[e]], m = relu(xj) + ε, a = exp(t·m −
+    lse[r]) (the normalised weight), q = qo[r, :C]; dm = q·a·(1 + t·(m − o))
+    with o = qo[r, C:] under ``grad_weights``, else q·a; dxj = dm where
+    xj > 0. dee_csc[e] = dxj in ee's dtype (0 on rows outside every range;
+    None without ``ee_csc``), dx[s] = Σ dxj rounded to x's dtype and summed
+    in float32, dt = Σ q·a·m·(m − o) (None without ``grad_weights``).
+    ``col_order``, the kernel's order of the sender rows, changes nothing
+    here."""
+    del col_order
+    acc = _acc(x.dtype)
     edges, rows = _edge_rows(col_ptr)
     c = x.shape[1]
-    xj = x.index_select(0, rows).float() + ee_csc.index_select(0, edges).float()
+    xj = x.index_select(0, rows).to(acc)
+    if ee_csc is not None:
+        xj = xj + ee_csc.index_select(0, edges).to(acc)
     m = torch.relu(xj) + eps
-    w = torch.exp(m * t - cmax)
-    qr = qo.index_select(0, csc_receivers[edges].long()).float()
-    qw = qr[:, :c] * w
+    r = csc_receivers[edges].long()
+    a = torch.exp(m * t - lse.index_select(0, r))
+    qr = qo.index_select(0, r).to(acc)
+    qa = qr[:, :c] * a
     dt = None
     if grad_weights:
         dl = m - qr[:, c:]
-        dm = qw * (1.0 + t * dl)
-        dt = (qw * m * dl).sum()
+        dm = qa * (1.0 + t * dl)
+        dt = (qa * m * dl).sum()
     else:
-        dm = qw
+        dm = qa
     dxj = torch.where(xj > 0, dm, 0.0)
-    dee = torch.zeros_like(ee_csc)
-    dee[edges] = dxj.to(ee_csc.dtype)
-    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    dx.index_add_(0, rows, dxj.to(x.dtype).float())
+    dee = None
+    if ee_csc is not None:
+        dee = torch.zeros_like(ee_csc)
+        dee[edges] = dxj.to(ee_csc.dtype)
+    dx = torch.zeros(x.shape, dtype=acc, device=x.device)
+    dx.index_add_(0, rows, dxj.to(x.dtype).to(acc))
     return dx.to(x.dtype), dee, dt
 
 
-def softmax_bwd_csc(x: torch.Tensor, ee_csc: torch.Tensor, qo: torch.Tensor,
-                    col_ptr: torch.Tensor, csc_receivers: torch.Tensor, t: torch.Tensor,
-                    cmax: torch.Tensor, eps: float, grad_weights: bool
-                    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+def softmax_bwd_csc(x: torch.Tensor, ee_csc: Optional[torch.Tensor], qo: torch.Tensor,
+                    lse: torch.Tensor, col_ptr: torch.Tensor, col_order: torch.Tensor,
+                    csc_receivers: torch.Tensor, t: torch.Tensor, eps: float,
+                    grad_weights: bool
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """K4 (`csrc/softmax_bwd_csc.cu`) on a CUDA tensor; the plain version on a
-    CPU one. ``qo`` is [N_pad, C] (q = g/den) or, with ``grad_weights``,
-    [N_pad, 2C] ([q | out]), in x's dtype; the kernel gathers its rows by
-    receiver. dt comes back as the float32 sum of one partial per sender row."""
+    CPU one. ``qo`` is [N_pad, C] (the cotangent g of out) or, with
+    ``grad_weights``, [N_pad, 2C] ([g | out]), in x's dtype; ``lse`` is K2's
+    float32 [N_pad, C]; the kernel gathers both by receiver. ``col_order``
+    is the graph's `Graph.csc_order` (the sender rows longest first). Without
+    ``ee_csc`` (the gather form) no dee comes back. dt comes back as the
+    float32 sum of one partial per sender row. Every form counts in
+    ``softmax_bwd_csc.launches``."""
     if x.device.type == "cpu":
-        return softmax_bwd_csc_plain(x, ee_csc, qo, col_ptr, csc_receivers, t, cmax, eps,
-                                     grad_weights)
+        return softmax_bwd_csc_plain(x, ee_csc, qo, lse, col_ptr, col_order, csc_receivers, t,
+                                     eps, grad_weights)
     _check_rows("x", x)
     _check_index("col_ptr", col_ptr, x.device)
+    _check_order("col_order", col_order, col_ptr)
     _check_index("csc_receivers", csc_receivers, x.device)
-    _check_t_cmax(t, cmax, x)
+    _check_t(t, x)
     n_rows, c = col_ptr.shape[0] - 1, x.shape[1]
     e_pad = csc_receivers.shape[0]
     _require(n_rows == x.shape[0], f"col_ptr has {n_rows} ranges for {x.shape[0]} rows of x")
-    _check_edge_rows("ee_csc", ee_csc, x, e_pad)
+    if ee_csc is not None:
+        _check_edge_rows("ee_csc", ee_csc, x, e_pad)
     _check_rows("qo", qo)
     qc = 2 * c if grad_weights else c
     _require(qo.dtype == x.dtype and qo.device == x.device and qo.shape == (n_rows, qc),
              f"qo must be [{n_rows}, {qc}] of x's dtype, got {tuple(qo.shape)} {qo.dtype}")
+    _require(lse.device == x.device and lse.dtype == torch.float32
+             and lse.shape == (n_rows, c) and lse.is_contiguous(),
+             f"lse must be a contiguous float32 [{n_rows}, {c}] tensor on x's device")
     dx = torch.empty_like(x)
-    dee = torch.empty_like(ee_csc)
+    dee = None if ee_csc is None else torch.empty_like(ee_csc)
     dt_part = (torch.empty(n_rows, dtype=torch.float32, device=x.device)
                if grad_weights else None)
     if n_rows == 0 or c == 0:
-        return dx, dee.zero_(), None if dt_part is None else dt_part.sum()
+        return dx, None if dee is None else dee.zero_(), \
+            None if dt_part is None else dt_part.sum()
     t = t.contiguous()
-    vec = _vec(c, x, ee_csc, qo, dx, dee, cmax)
+    vec = _vec(c, *(t_ for t_ in (x, ee_csc, qo, lse, dx, dee) if t_ is not None))
     w, groups = k4_lane_groups(c, vec, x.dtype)
     fn = getattr(library("softmax_bwd_csc"), f"dgc_softmax_bwd_csc_{_SUFFIX[x.dtype]}")
-    rc = fn(x.data_ptr(), ee_csc.data_ptr(), qo.data_ptr(), col_ptr.data_ptr(),
-            csc_receivers.data_ptr(), t.data_ptr(), cmax.data_ptr(), dx.data_ptr(),
-            dee.data_ptr(), None if dt_part is None else dt_part.data_ptr(), n_rows, c,
-            e_pad, w, groups, float(eps), int(grad_weights), vec,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    rc = fn(x.data_ptr(), None if ee_csc is None else ee_csc.data_ptr(), qo.data_ptr(),
+            lse.data_ptr(), col_ptr.data_ptr(), col_order.data_ptr(),
+            csc_receivers.data_ptr(), t.data_ptr(),
+            dx.data_ptr(), None if dee is None else dee.data_ptr(),
+            None if dt_part is None else dt_part.data_ptr(), n_rows, c, e_pad, w, groups,
+            float(eps), int(grad_weights), vec, torch.cuda.current_stream(x.device).cuda_stream)
     softmax_bwd_csc.launches += 1
     _raise_on(rc, "K4 softmax_bwd_csc")
     return dx, dee, None if dt_part is None else dt_part.sum()
@@ -377,74 +418,60 @@ softmax_bwd_csc.launches = 0
 # ---------------------------------------------------------------------------
 
 class _FusedSoftmaxGatherAgg(torch.autograd.Function):
-    """Forward: K2 (with ``ee`` when there are edge embeddings).
+    """Forward: K2 (with ``ee`` when there are edge embeddings), which also
+    gives each receiver's log-normaliser lse.
 
-    Backward without edge embeddings: the node-factored formula of
-    spmm_pallas.py:727-760 with Aᵀq through K1 with the fused gather:
+    Backward: K4 over the CSC ranges (spmm_pallas.py:762-776 with edge
+    embeddings), each edge's normalised weight exp(t·m − lse[r]) read per
+    edge: with q = g,
 
-        softmax_sg: dx = relu'(x) ⊙ E ⊙ Aᵀq
-        learn_t:    dx = relu'(x) ⊙ E ⊙ [(1 + t·M)·S₁ − t·S₂],
-                    dt = Σ E⊙M⊙(M⊙S₁ − S₂),   [S₁|S₂] = Aᵀ[q | q⊙out]
+        softmax_sg: dm = q·a,   learn_t: dm = q·a·(1 + t·(m − out[r])),
+                                        dt = Σ q·a·m·(m − out[r])
 
-    with q = g/den, M = relu(x) + ε and E = exp(t·M − cmax). It holds only
-    because cmax is one shift for every receiver. With edge embeddings the
-    message is no node table, and the backward is K4 over the CSC ranges
-    (spmm_pallas.py:762-776): the whole edge cotangent goes to ``ee_csc``,
+    and dx = relu'(x_j) ⊙ dm summed over a sender's edges. The JAX package's
+    node-factored backward without edge embeddings (spmm_pallas.py:727-760,
+    a K1 segment sum of g/den times exp(t·M − cmax)) holds only under one
+    shift for every receiver, so here the gather form walks the edges as
+    well. With edge embeddings the whole edge cotangent goes to ``ee_csc``,
     and ``ee`` gets none."""
 
     @staticmethod
-    def forward(ctx, x, t, ee, ee_csc, senders, row_ptr, csc_receivers, csc_col_ptr, eps,
-                grad_weights, ops):
-        agg, seg, bwd = ops
-        t32 = t.detach().float().reshape(1)
-        cmax = fused_cmax(x, t32, eps, ee)
-        out, den = agg(x, senders, row_ptr, t32, cmax, eps, ee)
-        ctx.save_for_backward(x, t32, den, cmax, csc_receivers, csc_col_ptr,
+    def forward(ctx, x, t, ee, ee_csc, senders, row_ptr, row_order, csc_receivers,
+                csc_col_ptr, csc_order, eps, grad_weights, ops):
+        agg, bwd = ops
+        t32 = t.detach().to(_acc(x.dtype)).reshape(1)
+        out, lse = agg(x, senders, row_ptr, row_order, t32, eps, ee)
+        ctx.save_for_backward(x, t32, lse, csc_receivers, csc_col_ptr, csc_order,
                               out if grad_weights else None, ee_csc)
-        ctx.eps, ctx.grad_weights, ctx.t_shape = eps, grad_weights, t.shape
-        ctx.seg, ctx.bwd = seg, bwd
+        ctx.eps, ctx.grad_weights, ctx.t_like = eps, grad_weights, (t.shape, t.dtype)
+        ctx.bwd = bwd
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, t, den, cmax, csc_receivers, csc_col_ptr, out, ee_csc = ctx.saved_tensors
-        den = den.float()
-        pos = den > 0
-        q = torch.where(pos, g.float() / torch.where(pos, den, 1.0), 0.0)
-        dt = dee = None
-        if ee_csc is not None:
-            qo = torch.cat([q, out.float()], 1) if ctx.grad_weights else q
-            dx, dee, dt = ctx.bwd(x, ee_csc, qo.to(x.dtype).contiguous(), csc_col_ptr,
-                                  csc_receivers, t, cmax, ctx.eps, ctx.grad_weights)
-            if dt is not None:
-                dt = dt.reshape(ctx.t_shape)
-            return dx, dt, None, dee, None, None, None, None, None, None, None
-        m_node = torch.relu(x.float()) + ctx.eps
-        e_node = torch.exp(m_node * t - cmax)
-        qo = torch.cat([q, q * out.float()], 1) if ctx.grad_weights else q
-        s_all = ctx.seg(qo.to(x.dtype).contiguous(), csc_col_ptr, csc_receivers).float()
-        if ctx.grad_weights:
-            c = x.shape[1]
-            s1, s2 = s_all[:, :c], s_all[:, c:]
-            dm = e_node * ((1.0 + t * m_node) * s1 - t * s2)
-            dt = (e_node * m_node * (m_node * s1 - s2)).sum().reshape(ctx.t_shape)
-        else:
-            dm = e_node * s_all
-        dx = torch.where(x > 0, dm, 0.0).to(x.dtype)
-        return dx, dt, None, None, None, None, None, None, None, None, None
+        with span("gen.aggregate_bwd"):
+            x, t, lse, csc_receivers, csc_col_ptr, csc_order, out, ee_csc = ctx.saved_tensors
+            qo = torch.cat([g.to(x.dtype), out], 1) if ctx.grad_weights else g.to(x.dtype)
+            dx, dee, dt = ctx.bwd(x, ee_csc, qo.contiguous(), lse, csc_col_ptr, csc_order,
+                                  csc_receivers, t, ctx.eps, ctx.grad_weights)
+        if dt is not None:
+            dt = dt.reshape(ctx.t_like[0]).to(ctx.t_like[1])
+        return (dx, dt, None, dee) + (None,) * 9
 
 
-def _fused(ops, x, senders, row_ptr, csc_receivers, csc_col_ptr, t, ee, ee_csc, eps,
-           grad_weights):
+def _fused(ops, x, senders, row_ptr, row_order, csc_receivers, csc_col_ptr, csc_order, t, ee,
+           ee_csc, eps, grad_weights):
     _require((ee is None) == (ee_csc is None),
              "edge embeddings come in both orders: pass ee and ee_csc, or neither")
-    return _FusedSoftmaxGatherAgg.apply(x, t, ee, ee_csc, senders, row_ptr, csc_receivers,
-                                        csc_col_ptr, eps, grad_weights, ops)
+    return _FusedSoftmaxGatherAgg.apply(x, t, ee, ee_csc, senders, row_ptr, row_order,
+                                        csc_receivers, csc_col_ptr, csc_order, eps,
+                                        grad_weights, ops)
 
 
 def fused_softmax_gather_agg(x: torch.Tensor, senders: torch.Tensor,
-                             row_ptr: torch.Tensor, csc_receivers: torch.Tensor,
-                             csc_col_ptr: torch.Tensor, t: torch.Tensor,
+                             row_ptr: torch.Tensor, row_order: torch.Tensor,
+                             csc_receivers: torch.Tensor, csc_col_ptr: torch.Tensor,
+                             csc_order: torch.Tensor, t: torch.Tensor,
                              ee: Optional[torch.Tensor] = None,
                              ee_csc: Optional[torch.Tensor] = None,
                              eps: float = 1e-7, grad_weights: bool = False
@@ -453,27 +480,31 @@ def fused_softmax_gather_agg(x: torch.Tensor, senders: torch.Tensor,
 
         out[n] = Σ_{e: recv=n} softmax_e(t·m_e)·m_e,   m_e = relu(x[send_e] [+ ee_e]) + ε
 
-    ``grad_weights`` False keeps the reference's stop-gradient softmax
-    weights (softmax_sg); True differentiates through them and through ``t``.
-    Edge embeddings come in both edge orders, as in the JAX package
-    (spmm_pallas.py:666-686): ``ee`` in receiver order feeds the forward,
-    ``ee_csc`` in sender order the backward (K4), which returns the whole
-    edge cotangent for ``ee_csc``. Encode ``g.edge_attr`` and
+    with each receiver's softmax shifted by its own maximum, as the
+    reference's scatter_softmax does (the JAX package shifts by one global
+    bound a channel). ``grad_weights`` False keeps the reference's
+    stop-gradient softmax weights (softmax_sg); True differentiates through
+    them and through ``t``. Edge embeddings come in both edge orders, as in
+    the JAX package (spmm_pallas.py:666-686): ``ee`` in receiver order feeds
+    the forward, ``ee_csc`` in sender order the backward (K4), which returns
+    the whole edge cotangent for ``ee_csc``. Encode ``g.edge_attr`` and
     ``g.edge_attr_csc`` separately to make them; never permute on the card.
     The edge ranges come from ``row_ptr`` (receiver-sorted) and
-    ``csc_col_ptr`` (sender-sorted), so sentinel edges are never read."""
-    return _fused((softmax_agg, csr_seg_sum, softmax_bwd_csc), x, senders, row_ptr,
-                  csc_receivers, csc_col_ptr, t, ee, ee_csc, eps, grad_weights)
+    ``csc_col_ptr`` (sender-sorted), so sentinel edges are never read;
+    ``row_order`` and ``csc_order`` are the graph's rows of each longest
+    first (`Graph.row_order`, `Graph.csc_order`), the order in which K2 and
+    K4 hand them to warps."""
+    return _fused((softmax_agg, softmax_bwd_csc), x, senders, row_ptr, row_order,
+                  csc_receivers, csc_col_ptr, csc_order, t, ee, ee_csc, eps, grad_weights)
 
 
-def fused_softmax_gather_agg_plain(x, senders, row_ptr, csc_receivers, csc_col_ptr, t,
-                                   ee=None, ee_csc=None, eps: float = 1e-7,
+def fused_softmax_gather_agg_plain(x, senders, row_ptr, row_order, csc_receivers, csc_col_ptr,
+                                   csc_order, t, ee=None, ee_csc=None, eps: float = 1e-7,
                                    grad_weights: bool = False):
-    """The same Function on the plain versions of K1, K2 and K4, on any
-    device: the oracle that the kernels' forward and backward are held
-    against."""
-    return _fused((softmax_agg_plain, csr_seg_sum_plain, softmax_bwd_csc_plain), x, senders,
-                  row_ptr, csc_receivers, csc_col_ptr, t, ee, ee_csc, eps, grad_weights)
+    """The same Function on the plain versions of K2 and K4, on any device:
+    the oracle that the kernels' forward and backward are held against."""
+    return _fused((softmax_agg_plain, softmax_bwd_csc_plain), x, senders, row_ptr, row_order,
+                  csc_receivers, csc_col_ptr, csc_order, t, ee, ee_csc, eps, grad_weights)
 
 
 # the call site's name in the JAX package; on the GPU there are no lanes to pad
@@ -484,112 +515,81 @@ fused_softmax_gather_agg_auto = fused_softmax_gather_agg
 # K2's message form: the softmax aggregation of materialised messages
 # ---------------------------------------------------------------------------
 
-def msgs_cmax(msgs: torch.Tensor, row_ptr: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """The per-channel shift of the message form, JAX's exact maximum
-    (spmm_pallas.py:402-409): max over the valid edges of t·m, 0 where
-    nothing is finite, float32 [C], no gradient. The messages are in CSR
-    order, so JAX's valid edges (receiver < N_pad) are the first
-    ``row_ptr[-1]``, read in place (one host read of that count). Rounding
-    is monotone, so the maximum of the products is the product of t with
-    the channel's largest (t > 0) or smallest (t < 0) message, bit for bit;
-    both extremes come from one pass in the messages' dtype."""
-    n_valid = int(row_ptr[-1])
-    if n_valid == 0:
-        return torch.zeros(msgs.shape[1], dtype=torch.float32, device=msgs.device)
-    lo, hi = torch.aminmax(msgs.detach()[:n_valid], dim=0)
-    lo, hi = lo.float(), hi.float()
-    c = torch.where(t > 0, t * hi, torch.where(t < 0, t * lo, torch.zeros_like(hi)))
-    return torch.where(torch.isfinite(c), c, 0.0)
-
-
-def softmax_agg_msgs_plain(msgs: torch.Tensor, row_ptr: torch.Tensor, t: torch.Tensor,
-                           cmax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, den) of K2's message form: per receiver row of the CSR ranges
-    and channel, num = Σ round(w·m) and den = Σ round(w) in float32 with
-    w = exp(t·m − cmax) and round() the rounding to the messages' dtype;
-    out = num/den (0 where den = 0). Both outputs in the messages' dtype."""
+def softmax_agg_msgs_plain(msgs: torch.Tensor, row_ptr: torch.Tensor, t: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of K2's message form: per receiver row of the CSR ranges
+    and channel, the softmax aggregation (`_row_softmax_terms`) of the
+    messages as they are, shifted by the row's own maximum of t·m; out in
+    the messages' dtype, lse in float32."""
     edges, rows = _edge_rows(row_ptr)
-    m = msgs.index_select(0, edges).float()
-    w = torch.exp(m * t - cmax)
-    shape = (row_ptr.shape[0] - 1, msgs.shape[1])
-    num = torch.zeros(shape, dtype=torch.float32, device=msgs.device)
-    den = torch.zeros(shape, dtype=torch.float32, device=msgs.device)
-    num.index_add_(0, rows, (w * m).to(msgs.dtype).float())
-    den.index_add_(0, rows, w.to(msgs.dtype).float())
-    pos = den > 0
-    out = torch.where(pos, num / torch.where(pos, den, 1.0), 0.0)
-    return out.to(msgs.dtype), den.to(msgs.dtype)
+    m = msgs.index_select(0, edges).to(_acc(msgs.dtype))
+    return _row_softmax_terms(m, rows, row_ptr.shape[0] - 1, t, msgs.dtype)
 
 
-def softmax_agg_msgs(msgs: torch.Tensor, row_ptr: torch.Tensor, t: torch.Tensor,
-                     cmax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def softmax_agg_msgs(msgs: torch.Tensor, row_ptr: torch.Tensor, t: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2's message form (`csrc/softmax_agg.cu`, `dgc_softmax_agg_msgs_*`) on
     a CUDA tensor; the plain version on a CPU one. ``msgs`` [E_pad, C] are in
     receiver (CSR) order; ``t`` is a one-element float32 tensor read on the
-    device."""
+    device. Returns (out in the messages' dtype, lse float32)."""
     if msgs.device.type == "cpu":
-        return softmax_agg_msgs_plain(msgs, row_ptr, t, cmax)
+        return softmax_agg_msgs_plain(msgs, row_ptr, t)
     _check_rows("msgs", msgs)
     _check_index("row_ptr", row_ptr, msgs.device)
-    _check_t_cmax(t, cmax, msgs)
+    _check_t(t, msgs)
     n_rows, c = row_ptr.shape[0] - 1, msgs.shape[1]
     out = torch.empty((n_rows, c), dtype=msgs.dtype, device=msgs.device)
-    den = torch.empty((n_rows, c), dtype=msgs.dtype, device=msgs.device)
+    lse = torch.empty((n_rows, c), dtype=torch.float32, device=msgs.device)
     if n_rows == 0 or c == 0:
-        return out, den
+        return out, lse
     t = t.contiguous()
-    vec = _vec(c, msgs, out, den)
+    vec = _vec(c, msgs, out, lse)
     w, groups = k2_lane_groups(c, vec, msgs.dtype)
     fn = getattr(library("softmax_agg"), f"dgc_softmax_agg_msgs_{_SUFFIX[msgs.dtype]}")
-    rc = fn(msgs.data_ptr(), row_ptr.data_ptr(), t.data_ptr(), cmax.data_ptr(),
-            out.data_ptr(), den.data_ptr(), n_rows, c, w, groups, vec,
-            torch.cuda.current_stream(msgs.device).cuda_stream)
+    rc = fn(msgs.data_ptr(), row_ptr.data_ptr(), t.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            n_rows, c, w, groups, vec, torch.cuda.current_stream(msgs.device).cuda_stream)
     softmax_agg_msgs.launches += 1
     _raise_on(rc, "K2 softmax_agg_msgs")
-    return out, den
+    return out, lse
 
 
 softmax_agg_msgs.launches = 0  # K2's message form, counted apart from the gather forms
 
 
 class _SoftmaxAggMsgs(torch.autograd.Function):
-    """Forward: K2's message form with JAX's exact shift (`_softmax_fwd`,
-    spmm_pallas.py:425-435). Backward: JAX's `_softmax_bwd` (:438-456), which
-    is XLA there too: per edge w = exp(t·m − cmax)/den[r] from the saved den
-    (in the messages' dtype) and cmax, dm = g[r]·w, or with ``grad_weights``
-    dm = g[r]·w·(1 + t·(m − out[r])) and dt = Σ g[r]·w·m·(m − out[r]);
-    padding edges get 0."""
+    """Forward: K2's message form, each receiver shifted by its own maximum
+    (JAX's `_softmax_fwd`, spmm_pallas.py:425-435, takes one exact maximum a
+    channel). Backward: JAX's `_softmax_bwd` (:438-456), which is XLA there
+    too, with the normalised weight a = exp(t·m − lse[r]) from the saved
+    float32 lse: dm = g[r]·a, or with ``grad_weights`` dm = g[r]·a·(1 +
+    t·(m − out[r])) and dt = Σ g[r]·a·m·(m − out[r]); padding edges get 0."""
 
     @staticmethod
     def forward(ctx, msgs, t, receivers, row_ptr, grad_weights, agg):
-        t32 = t.detach().float().reshape(1)
-        cmax = msgs_cmax(msgs, row_ptr, t32)
-        out, den = agg(msgs.contiguous(), row_ptr, t32, cmax)
-        ctx.save_for_backward(msgs, receivers, t32, den, cmax,
-                              out if grad_weights else None)
-        ctx.grad_weights, ctx.t_shape = grad_weights, t.shape
+        t32 = t.detach().to(_acc(msgs.dtype)).reshape(1)
+        out, lse = agg(msgs.contiguous(), row_ptr, t32)
+        ctx.save_for_backward(msgs, receivers, t32, lse, out if grad_weights else None)
+        ctx.grad_weights, ctx.t_like = grad_weights, (t.shape, t.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        msgs, receivers, t, den, cmax, out = ctx.saved_tensors
-        n_pad = den.shape[0]
+        msgs, receivers, t, lse, out = ctx.saved_tensors
+        n_pad = lse.shape[0]
         r = torch.clamp(receivers.long(), max=n_pad - 1)
         valid = (receivers < n_pad)[:, None]
-        m = msgs.float()
-        den_e = den.index_select(0, r).float()
-        w = torch.exp(m * t - cmax).div_(torch.where(den_e > 0, den_e, 1.0))
-        del den_e
-        w = torch.where(valid, w, 0.0)
-        g_e = g.float().index_select(0, r)
+        m = msgs.to(lse.dtype)
+        a = torch.exp(m * t - lse.index_select(0, r))
+        a = torch.where(valid, a, 0.0)
+        g_e = g.to(lse.dtype).index_select(0, r)
         dt = None
         if ctx.grad_weights:
-            dl = m - out.float().index_select(0, r)
-            gw = g_e.mul_(w)
-            dm = gw * (1.0 + t * dl)
-            dt = (gw * m * dl).sum().reshape(ctx.t_shape)
+            dl = m - out.to(lse.dtype).index_select(0, r)
+            ga = g_e.mul_(a)
+            dm = ga * (1.0 + t * dl)
+            dt = (ga * m * dl).sum().reshape(ctx.t_like[0]).to(ctx.t_like[1])
         else:
-            dm = g_e.mul_(w)
+            dm = g_e.mul_(a)
         dm = torch.where(valid, dm, 0.0).to(msgs.dtype)
         return dm, dt, None, None, None, None
 

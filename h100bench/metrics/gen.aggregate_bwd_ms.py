@@ -1,0 +1,12 @@
+"""gen.aggregate_bwd_ms: Device ms of the port's `gen.aggregate_bwd` spans (the fused
+aggregation's backward (K4's gather form and its prologue)) over the profiled
+periods, per epoch."""
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.trace_steps:
+        return None
+    from deep_gcns_torch_tpu_torch.utils import profiling
+
+    s = getattr(profiling, "summary", dict)().get("gen.aggregate_bwd")
+    return None if s is None else s["device_ms"] / ctx.trace_steps

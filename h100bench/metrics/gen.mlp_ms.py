@@ -1,0 +1,11 @@
+"""gen.mlp_ms: Device ms of the port's `gen.mlp` spans (each GENConv's MLP on x + m)
+over the profiled periods, per epoch."""
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.trace_steps:
+        return None
+    from deep_gcns_torch_tpu_torch.utils import profiling
+
+    s = getattr(profiling, "summary", dict)().get("gen.mlp")
+    return None if s is None else s["device_ms"] / ctx.trace_steps

@@ -59,6 +59,22 @@ def gen_aggregate_ref(msgs, index, dim_size, aggr="softmax", t=1.0, p=1.0, y=0.0
     raise ValueError(aggr)
 
 
+def with_top_sender(x, senders, receivers):
+    """The graph with nodes 0, 1, ... made every channel's largest value
+    (x.max + 1) and each sending to 10 consecutive receivers, so that every
+    node receives from one: each receiver's largest message is then the
+    global one, so a per-receiver softmax shift equals the global shift of
+    the JAX package's kernels, and the two compute the same terms. No
+    sender's row grows by more than 10 edges."""
+    n = x.shape[0]
+    x = x.copy()
+    top = np.arange(n) // 10
+    x[top[0]:top[-1] + 1] = x.max(0) + 1.0
+    senders = np.concatenate([senders, top.astype(senders.dtype)])
+    receivers = np.concatenate([receivers, np.arange(n, dtype=receivers.dtype)])
+    return x, senders, receivers
+
+
 def random_graph(rng, n, e, c, sort=True):
     """Random COO graph with features; receivers sorted."""
     senders = rng.integers(0, n, e).astype(np.int32)

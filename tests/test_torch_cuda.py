@@ -9,10 +9,12 @@ no JAX, so it also runs on a machine that has only PyTorch:
 test files.)
 
 Tolerances (those of chip_smoke.py): each per-edge term of K1, K2 and K3 is
-bit for bit the plain version's; only the order of the float32 sums differs,
-so float32 agrees to 1e-5 relative and bfloat16 to one ulp (2^-7 relative) of
-the final rounding, each above a floor of 1e-5 of the largest value, where
-sums of mixed signs cancel.
+bit for bit the plain version's (K2's shift, each receiver's maximum score,
+is exact in both); only the order of the float32 sums differs, so float32
+agrees to 1e-5 relative and bfloat16 to one ulp (2^-7 relative) of the final
+rounding, each above a floor of 1e-5 of the largest value, where sums of
+mixed signs cancel. K2's float32 log-normaliser lse is held to the same
+tolerance as the output it comes with.
 """
 
 import numpy as np
@@ -27,7 +29,10 @@ from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
 
 TOL = {torch.float32: dict(rtol=1e-5, atol_rel=1e-5),
        torch.bfloat16: dict(rtol=2.0 ** -7, atol_rel=1e-5)}
-# the backward rounds den, q and K1's output to x's dtype once each
+# K2's lse is float32 in both dtypes, from the same bf16-rounded terms: only
+# the order of den's float32 sum differs
+TOL_LSE = TOL[torch.float32]
+# the backward rounds each edge's d(x_j) term and the summed dx to x's dtype
 TOL_BWD = {torch.float32: dict(rtol=1e-5, atol_rel=1e-5),
            torch.bfloat16: dict(rtol=2.0 ** -5, atol_rel=1e-4)}
 # the band route's outputs in bf16: A @ x is K3's sum plus the hub products
@@ -78,13 +83,12 @@ def test_forward_kernels_match_plain(cuda_device, dtype, c):
     tol = TOL[dtype]
     x = g.x.to(dtype).contiguous()
     t = torch.tensor([0.1], device=cuda_device)
-    cmax = tsp.fused_cmax(x, t, 1e-7)
     k1, k2 = tsp.csr_seg_sum.launches, tsp.softmax_agg.launches
 
-    out, den = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7)
-    out_p, den_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7)
+    out, lse = tsp.softmax_agg(x, g.senders, g.row_ptr, g.row_order, t, 1e-7)
+    out_p, lse_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, g.row_order, t, 1e-7)
     _assert_close(out, out_p, **tol)
-    _assert_close(den, den_p, **tol)
+    _assert_close(lse, lse_p, **TOL_LSE)
     msgs = torch.randn(g.num_edges_padded, c, device=cuda_device).to(dtype)
     _assert_close(tsp.csr_seg_sum(msgs, g.row_ptr), tsp.csr_seg_sum_plain(msgs, g.row_ptr),
                   **tol)
@@ -104,8 +108,8 @@ def test_fused_backward_matches_plain(cuda_device, dtype, grad_weights):
     for fn in (tsp.fused_softmax_gather_agg, tsp.fused_softmax_gather_agg_plain):
         xx = x.detach().clone().requires_grad_(True)
         tt = torch.tensor([0.1], device=cuda_device, requires_grad=grad_weights)
-        o = fn(xx, g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr, tt, eps=1e-7,
-               grad_weights=grad_weights)
+        o = fn(xx, g.senders, g.row_ptr, g.row_order, g.csc_receivers, g.csc_col_ptr,
+               g.csc_order, tt, eps=1e-7, grad_weights=grad_weights)
         (o.float() ** 2).sum().backward()
         res.append((o.detach(), xx.grad, tt.grad))
     _assert_close(res[0][0], res[1][0], **TOL[dtype])
@@ -149,16 +153,15 @@ def test_edge_kernels_match_plain(cuda_device, dtype, c):
     tol = TOL[dtype]
     x, ee, ee_csc = _edge_inputs(g, c, dtype)
     t = torch.tensor([0.9], device=cuda_device)
-    cmax = tsp.fused_cmax(x, t, 1e-7, ee)
     k2, k4 = tsp.softmax_agg.launches_ee, tsp.softmax_bwd_csc.launches
-    out, den = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
-    out_p, den_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+    out, lse = tsp.softmax_agg(x, g.senders, g.row_ptr, g.row_order, t, 1e-7, ee)
+    out_p, lse_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, g.row_order, t, 1e-7, ee)
     _assert_close(out, out_p, **tol)
-    _assert_close(den, den_p, **tol)
+    _assert_close(lse, lse_p, **TOL_LSE)
     q = torch.randn(g.num_nodes_padded, c, device=cuda_device).to(dtype)
     for gw in (False, True):
         qo = torch.cat([q, out_p], 1).contiguous() if gw else q
-        args = (x, ee_csc, qo, g.csc_col_ptr, g.csc_receivers, t, cmax, 1e-7, gw)
+        args = (x, ee_csc, qo, lse_p, g.csc_col_ptr, g.csc_order, g.csc_receivers, t, 1e-7, gw)
         dx, dee, dt = tsp.softmax_bwd_csc(*args)
         dx_p, dee_p, dt_p = tsp.softmax_bwd_csc_plain(*args)
         _assert_close(dx, dx_p, **tol)
@@ -189,8 +192,8 @@ def test_fused_with_edge_emb_matches_plain(cuda_device, dtype, grad_weights):
         xx = x.detach().clone().requires_grad_(True)
         ec = ee_csc.detach().clone().requires_grad_(True)
         tt = torch.tensor([1.0], device=cuda_device, requires_grad=grad_weights)
-        o = fn(xx, g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr, tt, ee=ee,
-               ee_csc=ec, eps=1e-7, grad_weights=grad_weights)
+        o = fn(xx, g.senders, g.row_ptr, g.row_order, g.csc_receivers, g.csc_col_ptr,
+               g.csc_order, tt, ee=ee, ee_csc=ec, eps=1e-7, grad_weights=grad_weights)
         (o.float() * co).sum().backward()
         res.append((o.detach(), xx.grad, ec.grad, tt.grad))
     bwd = dict(TOL_BWD[dtype])
@@ -243,8 +246,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         tsp.csr_seg_sum(x.t(), g.csc_col_ptr, g.csc_receivers)
     with pytest.raises(ValueError):
-        tsp.softmax_agg(x, g.senders, g.row_ptr.cpu(), torch.tensor([1.0], device=x.device),
-                        tsp.fused_cmax(x, torch.tensor([1.0], device=x.device), 1e-7), 1e-7)
+        tsp.softmax_agg(x, g.senders, g.row_ptr.cpu(), g.row_order,
+                        torch.tensor([1.0], device=x.device), 1e-7)
 
 
 @pytest.mark.cuda
@@ -731,22 +734,21 @@ def test_softmax_agg_lane_groups(cuda_device, dtype, c, with_ee):
     """K2's lane groups against the plain version, with and without edge
     embeddings: C=40, 64 and 128 (3, 2 and 1 lane groups in bf16, one in
     float32), C=41 (the scalar form), a hub row of 5,000 edges, rows with no
-    edge (out and den exact 0), and two launches bit for bit the same."""
+    edge (out and lse exact 0), and two launches bit for bit the same."""
     g = _k2_corner_graph(cuda_device)
     x, ee, _ = _edge_inputs(g, c, dtype, seed=4)
     ee = ee if with_ee else None
     t = torch.tensor([0.7], device=cuda_device)
-    cmax = tsp.fused_cmax(x, t, 1e-7, ee)
     before = (tsp.softmax_agg.launches, tsp.softmax_agg.launches_ee)
-    out, den = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
-    out_p, den_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+    out, lse = tsp.softmax_agg(x, g.senders, g.row_ptr, g.row_order, t, 1e-7, ee)
+    out_p, lse_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, g.row_order, t, 1e-7, ee)
     _assert_close(out, out_p, **TOL[dtype])
-    _assert_close(den, den_p, **TOL[dtype])
+    _assert_close(lse, lse_p, **TOL_LSE)
     empty = (g.row_ptr[1:] == g.row_ptr[:-1]).nonzero()[:, 0]
     assert empty.numel() >= 100
-    assert not out[empty].any() and not den[empty].any()
-    out2, den2 = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
-    assert torch.equal(out, out2) and torch.equal(den, den2)
+    assert not out[empty].any() and not lse[empty].any()
+    out2, lse2 = tsp.softmax_agg(x, g.senders, g.row_ptr, g.row_order, t, 1e-7, ee)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     torch.cuda.synchronize()
     after = (tsp.softmax_agg.launches, tsp.softmax_agg.launches_ee)
     assert (after[0] - before[0], after[1] - before[1]) == ((0, 2) if with_ee else (2, 0))
@@ -775,13 +777,13 @@ def test_softmax_bwd_csc_lane_groups(cuda_device, dtype, c, grad_weights):
     g = _k4_corner_graph(cuda_device)
     x, ee, ee_csc = _edge_inputs(g, c, dtype, seed=5)
     t = torch.tensor([0.7], device=cuda_device)
-    cmax = tsp.fused_cmax(x, t, 1e-7, ee)
+    _, lse = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, g.row_order, t, 1e-7, ee)
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     q = torch.randn(g.num_nodes_padded, c, device=cuda_device, generator=gen).to(dtype)
     if grad_weights:
         out = torch.randn(g.num_nodes_padded, c, device=cuda_device, generator=gen).to(dtype)
         q = torch.cat([q, out], 1).contiguous()
-    args = (x, ee_csc, q, g.csc_col_ptr, g.csc_receivers, t, cmax, 1e-7, grad_weights)
+    args = (x, ee_csc, q, lse, g.csc_col_ptr, g.csc_order, g.csc_receivers, t, 1e-7, grad_weights)
     before = tsp.softmax_bwd_csc.launches
     dx, dee, dt = tsp.softmax_bwd_csc(*args)
     dx_p, dee_p, dt_p = tsp.softmax_bwd_csc_plain(*args)
@@ -1138,28 +1140,26 @@ def test_ogb_kernel_shapes_match_plain(cuda_device, shape):
     layer) and C=128 (ogbg-ppa) on a 32-molecule batch (N_pad 1024, E_pad
     3072, padded edges outside every range: their d(ee) rows exact 0), and
     K2 and K1's gathered form at C=64 (ogbl-collab) without edge
-    embeddings."""
+    embeddings, K4's gather form there (no d(ee))."""
     g, x, ee, ee_csc = _ogb_inputs(cuda_device, shape)
     tol = TOL[torch.float32]
     t = torch.tensor([1.0], device=cuda_device)
-    cmax = tsp.fused_cmax(x, t, 1e-7, ee)
-    out, den = tsp.softmax_agg(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
-    out_p, den_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+    out, lse = tsp.softmax_agg(x, g.senders, g.row_ptr, g.row_order, t, 1e-7, ee)
+    out_p, lse_p = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, g.row_order, t, 1e-7, ee)
     _assert_close(out, out_p, **tol)
-    _assert_close(den, den_p, **tol)
+    _assert_close(lse, lse_p, **TOL_LSE)
     q = torch.randn(g.num_nodes_padded, x.shape[1], device=cuda_device)
-    if ee is None:
-        args = (q, g.csc_col_ptr, g.csc_receivers)
-        _assert_close(tsp.csr_seg_sum(*args), tsp.csr_seg_sum_plain(*args), **tol)
-        return
     for gw in (False, True):
         qo = torch.cat([q, out_p], 1).contiguous() if gw else q
-        args = (x, ee_csc, qo, g.csc_col_ptr, g.csc_receivers, t, cmax, 1e-7, gw)
+        args = (x, ee_csc, qo, lse_p, g.csc_col_ptr, g.csc_order, g.csc_receivers, t, 1e-7, gw)
         dx, dee, dt = tsp.softmax_bwd_csc(*args)
         dx_p, dee_p, dt_p = tsp.softmax_bwd_csc_plain(*args)
         _assert_close(dx, dx_p, **tol)
-        _assert_close(dee, dee_p, **tol)
-        assert not dee[g.n_edge:].any()
+        if ee is None:
+            assert dee is None and dee_p is None
+        else:
+            _assert_close(dee, dee_p, **tol)
+            assert not dee[g.n_edge:].any()
         if gw:
             _assert_close(dt, dt_p, **TOL_DT[torch.float32])
 
@@ -1245,23 +1245,22 @@ def test_small_collab_card_matches_cpu(cuda_device):
 def test_softmax_agg_msgs_matches_plain(cuda_device, dtype, c):
     """K2's message form against its plain version on the corner graph (a
     hub row of 5,000 edges, rows with no edge exact 0), messages of either
-    sign with the exact shift, two launches bit for bit; counted apart from
-    the gather forms."""
+    sign with each row's exact shift, two launches bit for bit; counted
+    apart from the gather forms."""
     g = _k2_corner_graph(cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     msgs = torch.randn(g.num_edges_padded, c, device=cuda_device, generator=gen).to(dtype)
     t = torch.tensor([0.7], device=cuda_device)
-    cmax = tsp.msgs_cmax(msgs, g.row_ptr, t)
     before = (tsp.softmax_agg_msgs.launches, tsp.softmax_agg.launches)
-    out, den = tsp.softmax_agg_msgs(msgs, g.row_ptr, t, cmax)
-    out_p, den_p = tsp.softmax_agg_msgs_plain(msgs, g.row_ptr, t, cmax)
+    out, lse = tsp.softmax_agg_msgs(msgs, g.row_ptr, t)
+    out_p, lse_p = tsp.softmax_agg_msgs_plain(msgs, g.row_ptr, t)
     _assert_close(out, out_p, **TOL[dtype])
-    _assert_close(den, den_p, **TOL[dtype])
+    _assert_close(lse, lse_p, **TOL_LSE)
     empty = (g.row_ptr[1:] == g.row_ptr[:-1]).nonzero()[:, 0]
     assert empty.numel() >= 100
-    assert not out[empty].any() and not den[empty].any()
-    out2, den2 = tsp.softmax_agg_msgs(msgs, g.row_ptr, t, cmax)
-    assert torch.equal(out, out2) and torch.equal(den, den2)
+    assert not out[empty].any() and not lse[empty].any()
+    out2, lse2 = tsp.softmax_agg_msgs(msgs, g.row_ptr, t)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     torch.cuda.synchronize()
     assert (tsp.softmax_agg_msgs.launches - before[0],
             tsp.softmax_agg.launches - before[1]) == (2, 0)

@@ -28,17 +28,22 @@ from deep_gcns_torch_tpu_torch.graph import build_graph
 from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
 from deep_gcns_torch_tpu_torch.utils.import_jax import deeper_gcn_state_dict_from_jax
+from np_ref import with_top_sender
 
 GOLD = os.path.join(os.path.dirname(__file__), "goldens")
 FWD = dict(rtol=2e-5, atol=2e-5)
 GRAD = dict(rtol=5e-4, atol=1e-5)
 
 
-def _graphs(seed, n=300, e=2000, c=128, edge_dim=8):
+def _graphs(seed, n=300, e=2000, c=128, edge_dim=8, top=False):
+    """The same random graph for JAX and the port; ``top`` adds a top sender
+    (`np_ref.with_top_sender`)."""
     rng = np.random.default_rng(seed)
     s, r = rng.integers(0, n, e), rng.integers(0, n, e)
     x = rng.standard_normal((n, c)).astype(np.float32)
-    ea = rng.standard_normal((e, edge_dim)).astype(np.float32)
+    if top:
+        x, s, r = with_top_sender(x, s, r)
+    ea = rng.standard_normal((s.shape[0], edge_dim)).astype(np.float32)
     kw = dict(edge_attr=ea, num_nodes=n, node_pad=384, edge_pad=2560)
     return jax_build_graph(x, s, r, **kw), build_graph(x, s, r, **kw)
 
@@ -49,7 +54,7 @@ def _jax_args(g):
 
 
 def _port_args(g):
-    return (g.senders, g.row_ptr, g.csc_receivers, g.csc_col_ptr)
+    return (g.senders, g.row_ptr, g.row_order, g.csc_receivers, g.csc_col_ptr, g.csc_order)
 
 
 @pytest.mark.parametrize("grad_weights", [False, True])
@@ -88,14 +93,69 @@ def test_fused_with_edge_emb_matches_pallas(grad_weights):
         assert tt.grad is None and float(gt_) == 0.0
 
 
+def _bf16_backward(gj, x, ee, co, t, grad_weights):
+    """(dx, d(ee_csc)) of the port's bf16 contract written out in float32 on
+    the bf16 values, edge by edge in receiver order: m = relu(x[s] + ee) + ε,
+    the row's shift M = max t·m, den = Σ bf16(exp(t·m − M)), lse = M +
+    log(den), out = Σ bf16(w·m)/den; a = exp(t·m − lse[r]), dm = g[r]·a
+    (·(1 + t·(m − out[r])) with learned weights), d(ee) = bf16(dm where
+    x[s] + ee > 0) and dx the float32 sum of those, rounded to bf16. Also
+    each term's slack against the Pallas pair, summed per sender for dx: one
+    bf16 ulp of the term (its two roundings), 2^-8 of it (the Pallas pair's
+    bf16 g/den), and with learned weights one ulp of out[r] (the two
+    forwards' outs, one ulp apart) times |g·a·t|."""
+    def bf(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).bfloat16().float()
+    ne, n_pad = gj.n_edge, gj.num_nodes_padded
+    s = torch.from_numpy(np.asarray(gj.senders[:ne], np.int64))
+    r = torch.from_numpy(np.asarray(gj.receivers[:ne], np.int64))
+    xj = bf(x)[s] + bf(ee)[:ne]
+    m = torch.relu(xj) + 1e-7
+    sc = m * t
+    c = sc.shape[1]
+    top = torch.full((n_pad, c), float("-inf")).scatter_reduce(0, r[:, None].expand(-1, c),
+                                                                sc, "amax")
+    w = torch.exp(sc - top[r])
+    den = torch.zeros(n_pad, c).index_add(0, r, w.bfloat16().float())
+    num = torch.zeros(n_pad, c).index_add(0, r, (w * m).bfloat16().float())
+    safe = torch.where(den > 0, den, 1.0)
+    out = (num / safe).bfloat16().float()
+    lse = top + torch.log(safe)
+    qa = bf(co)[r] * torch.exp(sc - lse[r])
+    dm, out_slack = qa, 0.0
+    if grad_weights:
+        dm = qa * (1.0 + t * (m - out[r]))
+        out_slack = 2 ** -7 * (qa * t * out[r]).abs()
+    dxj = torch.where(xj > 0, dm, 0.0).bfloat16().float()
+    slack = torch.where(xj > 0, (2 ** -7 + 2 ** -8) * dxj.abs() + out_slack, 0.0)
+    dx = torch.zeros(n_pad, c).index_add(0, s, dxj).bfloat16().float()
+    dx_slack = torch.zeros(n_pad, c).index_add(0, s, slack)
+    dee, dee_slack = torch.zeros(gj.num_edges_padded, c), torch.zeros(gj.num_edges_padded, c)
+    perm = torch.from_numpy(np.asarray(gj.csc_perm[:ne], np.int64))
+    dee[:ne], dee_slack[:ne] = dxj[perm], slack[perm]
+    return dx.numpy(), dee.numpy(), dx_slack.numpy(), dee_slack.numpy()
+
+
 @pytest.mark.parametrize("grad_weights", [False, True])
 def test_bf16_edge_terms_round_like_pallas(grad_weights):
     """bf16 x and embeddings: out, dx and d(ee_csc) against the Pallas pair,
-    which rounds each edge's terms to bf16 before its float32 sums."""
-    gj, gt = _graphs(2, n=250, e=1500)
+    which rounds each edge's terms to bf16 before its float32 sums, and dx
+    and d(ee_csc) also against the same rounding of the port's backward
+    written out here. The top senders' edges carry each channel's largest
+    embedding (over all E_pad rows, as the Pallas bound takes it), so each
+    receiver's own shift is the Pallas pair's global bound and the forward
+    terms are the same numbers. The backward's terms differ by one rounding:
+    the Pallas pair rounds g/den to bf16 (2^-8 relative at most) where the
+    port reads each edge's normalised weight from the float32
+    log-normaliser. So the gradients meet their own contract within one
+    bf16 ulp, and the Pallas pair's within one ulp of the result and each
+    term's slack (`_bf16_backward`), summed over a sender's terms for dx,
+    where terms of both signs cancel."""
+    gj, gt = _graphs(2, n=250, e=1500, top=True)
     rng = np.random.default_rng(3)
     x = np.asarray(gj.x, np.float32)
     ee = (rng.standard_normal((gj.num_edges_padded, 128)) * 0.5).astype(np.float32)
+    ee[np.asarray(gj.senders) < 25] = ee.max(0)  # nodes 0-24, the top senders
     ee_csc = ee[np.asarray(gj.csc_perm)]
     co = rng.standard_normal((gj.num_nodes_padded, 128)).astype(np.float32)
     bf = jnp.bfloat16
@@ -106,8 +166,9 @@ def test_bf16_edge_terms_round_like_pallas(grad_weights):
                                           True)
         return jnp.sum(out.astype(jnp.float32) * co), out
 
-    (_, want), (gx, gee) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+    (_, want), (jx, jee) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
         jnp.asarray(x, bf), jnp.asarray(ee_csc, bf))
+    gx, gee, gx_slack, gee_slack = _bf16_backward(gj, x, ee, co, np.float32(0.9), grad_weights)
 
     xt = torch.from_numpy(x).bfloat16().requires_grad_(True)
     et = torch.from_numpy(ee_csc).bfloat16().requires_grad_(True)
@@ -120,20 +181,12 @@ def test_bf16_edge_terms_round_like_pallas(grad_weights):
         ref = np.asarray(ref, np.float32)
         np.testing.assert_allclose(got.float().detach().numpy(), ref, rtol=2 ** -7,
                                    atol=1e-3 * np.abs(ref).max())
+    for got, ref, slack in ((xt.grad, jx, gx_slack), (et.grad, jee, gee_slack)):
+        got, ref = got.float().numpy(), np.asarray(ref, np.float32)
+        bound = 2 ** -7 * np.abs(ref) + slack + 1e-3 * np.abs(ref).max()
+        assert (np.abs(got - ref) <= bound).all(), np.max(np.abs(got - ref) - bound)
     n_valid = gt.n_edge
     assert not et.grad[n_valid:].any()  # padded edge rows get no cotangent
-
-
-def test_cmax_takes_the_padded_edge_rows():
-    """fused_cmax's edge maximum runs over all E_pad rows, as JAX's does."""
-    x = torch.tensor([[0.5, -1.0], [0.2, -2.0]])
-    ee = torch.tensor([[0.1, 0.3], [0.0, 0.0], [2.0, -5.0]])  # last row: padding
-    t = torch.tensor([1.0])
-    want = np.asarray(sp._fused_cmax(jnp.asarray(x.numpy()), jnp.asarray([1.0]), 1e-7, 2,
-                                     jnp.asarray(ee.numpy()))[0])
-    np.testing.assert_array_equal(tsp.fused_cmax(x, t, 1e-7, ee).numpy(), want)
-    assert float(tsp.fused_cmax(x, t, 1e-7, ee)[0]) > float(tsp.fused_cmax(x, t, 1e-7,
-                                                                          ee[:2])[0])
 
 
 def _conv_state(params, learn_t: bool) -> dict:
@@ -365,12 +418,11 @@ def test_softmax_agg_hub_and_empty_rows_match_pallas(with_ee, c):
     tt = torch.tensor([0.8])
     xt = torch.from_numpy(x)
     et = None if ee is None else torch.from_numpy(ee)
-    out, den = tsp.softmax_agg(xt, gt.senders, gt.row_ptr, tt, tsp.fused_cmax(xt, tt, 1e-7, et),
-                               1e-7, et)
+    out, lse = tsp.softmax_agg(xt, gt.senders, gt.row_ptr, gt.row_order, tt, 1e-7, et)
     np.testing.assert_allclose(out.numpy(), np.asarray(want), **FWD)
     empty = (gt.row_ptr[1:] == gt.row_ptr[:-1]).nonzero()[:, 0]
     assert empty.numel() >= 20
-    assert not out[empty].any() and not den[empty].any()
+    assert not out[empty].any() and not lse[empty].any()
     assert int(gt.row_ptr[8] - gt.row_ptr[7]) >= 600
 
 
@@ -380,8 +432,9 @@ def test_float32_hub_row_sums_keep_edge_order():
     sequential float32 sum carries an order-dependent bias, so the same
     terms summed by interleaved lane groups (3 groups, partial sums added
     in group order) move the result by more than float32's 1e-5 agreement.
-    The plain version's den is the sequential sum in edge order, bit for
-    bit."""
+    The plain version's den (read back from its log-normaliser, lse = M +
+    log(den) with M the row's maximum score) is the sequential sum in edge
+    order, bit for bit."""
     rng = np.random.default_rng(0)
     e, c, hub = 8000, 40, 3
     s = rng.integers(0, 64, e)
@@ -391,15 +444,16 @@ def test_float32_hub_row_sums_keep_edge_order():
     ee = torch.from_numpy((rng.standard_normal((g.num_edges_padded, c)) * 0.8)
                           .astype(np.float32))
     t = torch.tensor([0.9])
-    cmax = tsp.fused_cmax(x, t, 1e-7, ee)
-    _, den = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, t, cmax, 1e-7, ee)
+    _, lse = tsp.softmax_agg_plain(x, g.senders, g.row_ptr, g.row_order, t, 1e-7, ee)
     lo, hi = int(g.row_ptr[hub]), int(g.row_ptr[hub + 1])
     m = torch.relu(x[g.senders[lo:hi].long()] + ee[lo:hi]) + 1e-7
-    w = torch.exp(m * t - cmax).numpy()
+    top = (m * t).amax(0)
+    w = torch.exp(m * t - top).numpy()
     seq = np.zeros(c, np.float32)
     for row in w:
         seq = seq + row
-    np.testing.assert_array_equal(den[hub].numpy(), seq)
+    want = top + torch.log(torch.from_numpy(seq))
+    np.testing.assert_array_equal(lse[hub].numpy(), want.numpy())
     parts = []
     for grp in range(3):
         p = np.zeros(c, np.float32)

@@ -83,3 +83,29 @@ def test_graph_to_cpu_keeps_arrays():
     h = g.to("cpu")
     assert h.n_node == 2 and h.row_ptr.dtype == g.row_ptr.dtype
     np.testing.assert_array_equal(h.csc_col_ptr.numpy(), g.csc_col_ptr.numpy())
+
+
+@pytest.mark.parametrize("with_csc", [False, True])
+def test_rows_longest_first_beside_each_pointer_array(with_csc):
+    """`row_order` and `csc_order` (the order in which K2 and K4 hand rows to
+    warps) are permutations of the rows by decreasing length, ties in index
+    order, and exist exactly where their pointer array does."""
+    rng = np.random.default_rng(5)
+    n, e = 300, 2000
+    s, r = rng.integers(0, n, e), rng.integers(0, n, e)
+    s[:200], r[200:500] = 7, 11  # a hub sender and a hub receiver
+    g = tg.build_graph(None, s, r, num_nodes=n, with_csc=with_csc)
+    pairs = [(g.row_ptr, g.row_order), (g.csc_col_ptr, g.csc_order)]
+    for ptr, order in pairs if with_csc else pairs[:1]:
+        ptr, order = ptr.numpy(), order.numpy()
+        assert order.dtype == np.int32 and order.shape == (ptr.shape[0] - 1,)
+        lengths = np.diff(ptr)[order]
+        assert (np.diff(lengths) <= 0).all()
+        for k in np.unique(lengths):  # ties in index order
+            assert (np.diff(order[lengths == k]) > 0).all()
+        assert sorted(order) == list(range(ptr.shape[0] - 1))
+    assert int(g.row_order[0]) == 11
+    if not with_csc:
+        assert g.csc_col_ptr is None and g.csc_order is None
+    else:
+        assert int(g.csc_order[0]) == 7

@@ -68,8 +68,7 @@ def _case_call(case):
 
         g, _ = random_node_graph(np.random.default_rng(0), 2000, 14, 128, self_loops=True)
         t = torch.tensor([0.1])
-        cmax = tsp.fused_cmax(g.x, t, 1e-7)
-        return lambda: tsp.softmax_agg_plain(g.x, g.senders, g.row_ptr, t, cmax, 1e-7)
+        return lambda: tsp.softmax_agg_plain(g.x, g.senders, g.row_ptr, g.row_order, t, 1e-7)
     n = int(case.split()[1])
     band = _dense_band(n, long_rows=n == 4096)
     n_pad = band.a.shape[0]

@@ -14,8 +14,9 @@ import torch
 
 from deep_gcns_torch_tpu.graph import build_graph
 from deep_gcns_torch_tpu.ops import spmm_pallas as sp
+from deep_gcns_torch_tpu_torch.graph import longest_first
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
-from np_ref import random_graph
+from np_ref import random_graph, with_top_sender
 
 FWD = dict(rtol=2e-5, atol=2e-5)
 GRAD = dict(rtol=5e-4, atol=1e-5)
@@ -82,7 +83,9 @@ def _fused_args(g):
 
 
 def _port_args(g):
-    return (_t(g.senders), _t(g.row_ptr), _t(g.csc_receivers), _t(g.csc_col_ptr))
+    rp, cp = np.asarray(g.row_ptr), np.asarray(g.csc_col_ptr)
+    return (_t(g.senders), _t(rp), _t(longest_first(rp)), _t(g.csc_receivers), _t(cp),
+            _t(longest_first(cp)))
 
 
 @pytest.mark.parametrize("case,t", [("uniform", 0.1), ("uniform", 1.0),
@@ -123,8 +126,11 @@ def test_fused_softmax_gather_agg_grads(rng_np, grad_weights):
 
 def test_bf16_plain_rounds_like_jax(rng_np):
     """bf16 inputs: the plain K2 rounds each edge term to bf16 before the f32
-    sum and returns out and den in bf16, as the Pallas kernel does."""
-    g = _graph(rng_np, 250, 1500, 128, 256, 1536)
+    sum and returns out in bf16, as the Pallas kernel does. The graph has a
+    top sender (`with_top_sender`), so each receiver's own shift is the
+    Pallas kernel's global one and the terms are the same numbers."""
+    x, s, r = with_top_sender(*random_graph(rng_np, 250, 1500, 128))
+    g = build_graph(x, s, r, node_pad=256, edge_pad=2048)
     x = np.asarray(g.x, np.float32)
     xb = jnp.asarray(x).astype(jnp.bfloat16)
     want = sp.fused_softmax_gather_agg(xb, *_fused_args(g), jnp.float32(1.0), None, None,
