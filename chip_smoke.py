@@ -354,14 +354,17 @@ every check; nothing is caught):
    nodes, 2 epochs, `--save_ckpt`), each checkpoint scored by the test
    script in one process to the run's printed best validation accuracy
    exactly;
-71. K11 (RevGAT's fused norm → ReLU → dropout multiply, after phase 25) at
-   the cell's shapes: N_pad = 169,472 rows (169,343 valid), C = 384 as
+71. K11 (the fused norm → ReLU → dropout multiply, after phase 25) at the
+   cells' shapes: N_pad = 169,472 rows (169,343 valid), RevGAT's C = 384 as
    row-stride-768 chunk views (a block: the shared float mask, and none as
    in evaluation) and C = 768 contiguous (the head: the bool keep mask with
-   its 1/(1 − 0.75), and none); forward and backward against the plain
-   halves (the backward given the kernel's own statistics, so both take the
-   same ReLU gates) within TOL_K11, two launches bit for bit; each
-   direction's device ms beside its byte bound and the plain halves' ms.
+   its 1/(1 − 0.75), and none); ResGEN-28's C = 128 (a res+ prologue: the
+   keep mask with its 1/(1 − 0.5) and the running update, and the
+   evaluation form on the running statistics); forward and backward against
+   the plain halves (the backward given the kernel's own statistics, so
+   both take the same ReLU gates) within TOL_K11, two launches bit for bit;
+   each direction's device ms beside its byte bound and the plain halves'
+   ms (the evaluation form a forward only).
 
 Every time and memory figure of phases 30-71 is printed beside the card's
 name and power limit. A failed comparison saves its tensors (K2's with its
@@ -837,6 +840,19 @@ def no_launches():
     return {k: 0 for k in _counted()}
 
 
+def k11_expected(model, forwards, backwards):
+    """K11's launches in ``forwards`` forwards and ``backwards`` backwards of
+    a DeeperGCN on the card: one a res+ prologue and one for the final norm
+    with its ReLU, where `models.deeper_gcn.norm_relu_dropout` routes them
+    (a BatchNorm with its own moments, a float32 residual stream)."""
+    c, norm = model.cfg, model.norms[0]
+    if (c.block != "res+" or not isinstance(norm, BatchNorm) or norm.cross_rank
+            or c.residual_dtype != "float32"):
+        return {}
+    k = c.num_layers - 1 + int(c.final_relu)
+    return {"K11 fwd": k * forwards, "K11 bwd": k * backwards}
+
+
 def expected_launches(g, layers, steps, aggr="softmax_sg"):
     """Kernel launches of (steps + 1) train steps and one `predict`: every
     forward runs one aggregation per layer, every backward one more. The
@@ -844,11 +860,13 @@ def expected_launches(g, layers, steps, aggr="softmax_sg"):
     route K1 both ways: the CSR sum forward, the gather's CSC sum backward; a
     graph without its CSC the unfused branch: K2's message form forward,
     nothing backward); the band route K3 both ways, plus K1 wherever that
-    direction's leftover is not empty."""
+    direction's leftover is not empty. Every route runs K11 once a layer
+    each way (`main_model`'s 27 prologues and its final norm)."""
     want = no_launches()
     if g.senders.device.type != "cuda":
         return want  # CPU tensors never launch a kernel
     fwd, bwd = layers * (steps + 2), layers * (steps + 1)
+    want.update({"K11 fwd": fwd, "K11 bwd": bwd})
     if g.band is None:
         if g.csc_col_ptr is None:
             # no CSC: the unfused branch, whose gather has a plain backward;
@@ -1997,63 +2015,96 @@ def phase_gat_timing(g, errs, launches, iters):
 # magnitudes), and dx, given the same statistics, to 1e-5 above 1e-5 of
 # max|dx|
 TOL_K11 = dict(rtol=1e-5, atol_rel=1e-5)
-# (name, C, strided, multiplier) of phase 71: a block in training and in
-# evaluation, the head in training and in evaluation
-K11_CASES = (("block", 384, True, "float"), ("block eval", 384, True, "none"),
-             ("head", 768, False, "keep"), ("head eval", 768, False, "none"))
+# (name, C, strided, form, dropout rate) of phase 71: RevGAT's block in
+# training and in evaluation, its head in training and in evaluation, then
+# ResGEN-28's res+ prologue (DeeperGCN's BatchNorm) in training, with its
+# keep mask and the running update, and in evaluation, on the running
+# statistics
+K11_CASES = (("block", 384, True, "float", 0.75), ("block eval", 384, True, "none", 0.75),
+             ("head", 768, False, "keep", 0.75), ("head eval", 768, False, "none", 0.75),
+             ("resgen", 128, False, "running", 0.5), ("resgen eval", 128, False, "eval", 0.5))
 
 
 def phase_norm_act(dev, rehearse, iters):
-    """K11 forward and backward against the plain halves at the cell's
+    """K11 forward and backward against the plain halves at the cells'
     shapes, two launches bit for bit, and the times of both beside their
-    byte bounds and the plain halves' (phase 71)."""
+    byte bounds and the plain halves' (phase 71); the evaluation form, a
+    forward only."""
     n_pad, n_valid = (2_048, 2_000) if rehearse else (169_472, 169_343)
     gen = torch.Generator(device=dev).manual_seed(71)
     chk = Checks("norm-act")
     rows = []
-    for name, c, strided, form in K11_CASES:
+    for name, c, strided, form, rate in K11_CASES:
         wide = torch.randn(n_pad, 2 * c if strided else c, device=dev, generator=gen) * 3 + 20
         x = torch.chunk(wide, 2, dim=-1)[1] if strided else wide
         mask = torch.arange(n_pad, device=dev) < n_valid
         w = torch.rand(c, device=dev, generator=gen) + 0.5
         b = torch.randn(c, device=dev, generator=gen) * 0.5
-        keep_all = torch.rand(wide.shape, device=dev, generator=gen) >= 0.75
+        keep_all = torch.rand(wide.shape, device=dev, generator=gen) >= rate
         keep_all = torch.chunk(keep_all, 2, dim=-1)[1] if strided else keep_all
-        mult = keep_all.float() / 0.25 if form == "float" else None
-        keep = keep_all if form == "keep" else None
+        mult = keep_all.float() / (1 - rate) if form == "float" else None
+        keep = keep_all if form in ("keep", "running") else None
+        if form in ("running", "eval"):
+            rm = torch.randn(c, device=dev, generator=gen) * 5 + 20
+            rv = torch.rand(c, device=dev, generator=gen) * 4 + 8
         dy = torch.randn(n_pad, c, device=dev, generator=gen)
-        fa = (x, mask, w, b, mult, keep, 0.25)
-        y, mu, rstd, cnt = tna.batch_norm_act_fwd(*fa)
-        y_p = tna.batch_norm_act_fwd_plain(*fa)[0]
-        chk.close(f"K11 {name} C={c} y", y, y_p, **TOL_K11)
-        ba = (dy, x, mask, w, b, mult, keep, 0.25, mu, rstd, cnt)
+        label = f"K11 {name} C={c}"
+        full = n_pad * c * 4
+        m_bytes = {"float": full, "keep": n_pad * c, "running": n_pad * c}.get(form, 0)
+        if form == "eval":
+            fa = (x, rm, rv, w, b)
+            y = tna.batch_norm_act_eval_fwd(*fa)[0]
+            chk.close(f"{label} y", y, tna.batch_norm_act_eval_fwd_plain(*fa)[0], **TOL_K11)
+            chk.equal(f"{label} two launches bit for bit (y)", tna.batch_norm_act_eval_fwd(*fa)[0],
+                      y)
+            t_f = device_ms(lambda: tna.batch_norm_act_eval_fwd(*fa), dev, iters)
+            p_f = time_fn(lambda: tna.batch_norm_act_eval_fwd_plain(*fa), dev, 5)
+            # x read, y written
+            b_f = bound(2 * full, 0)[0]
+            log(f"[norm-act] {label} (running statistics): forward {t_f:.4f} ms device, bound "
+                f"{b_f:.4f} ms ({2 * full / 1e9:.3f} GB), plain {p_f:.3f} ms [{CARD}]")
+            rows.append({"name": f"K11 fwd {name} C={c}", "route": "cuda",
+                         "source": f"{PKG}/csrc/batch_norm_act.cu", "replaces": None,
+                         "ms": t_f, "plain_ms": p_f, "bound_ms": b_f, "bound_by": "bytes",
+                         "library_ms": None})
+            del wide, x, keep_all, dy, fa, y
+            free_memory(dev)
+            continue
+        fa = (x, mask, w, b, mult, keep, 1 - rate)
+        running = (rm.clone(), rv.clone(), 0.1) if form == "running" else None
+        y, mu, rstd, cnt = tna.batch_norm_act_fwd(*fa, running=running)
+        run_p = (rm.clone(), rv.clone(), 0.1) if form == "running" else None
+        y_p = tna.batch_norm_act_fwd_plain(*fa, running=run_p)[0]
+        chk.close(f"{label} y", y, y_p, **TOL_K11)
+        if running is not None:
+            chk.close(f"{label} running_mean", running[0], run_p[0], **TOL_K11)
+            chk.close(f"{label} running_var", running[1], run_p[1], **TOL_K11)
+        ba = (dy, x, mask, w, b, mult, keep, 1 - rate, mu, rstd, cnt)
         dx, dw, db = tna.batch_norm_act_bwd(*ba)
         dx_p, dw_p, db_p = tna.batch_norm_act_bwd_plain(*ba)
         xh = (x - mu) * rstd
-        g = torch.where(xh * w + b > 0, tna._apply_mult(dy, mult, keep, 0.25),
+        g = torch.where(xh * w + b > 0, tna._apply_mult(dy, mult, keep, 1 - rate),
                         torch.zeros((), device=dev))
-        chk.close(f"K11 {name} C={c} dx", dx, dx_p, **TOL_K11)
+        chk.close(f"{label} dx", dx, dx_p, **TOL_K11)
         for what, got, want, mag in (("db", db, db_p, g.abs().sum(0)),
                                      ("dw", dw, dw_p, (g * xh).abs().sum(0))):
             # each column within 1e-5 of the sum of its terms' magnitudes
             mag = mag + 1e-30
-            chk.close(f"K11 {name} C={c} {what}", got / mag, want / mag, 0.0, 1e-5, ref_max=1.0)
-        y2 = tna.batch_norm_act_fwd(*fa)[0]
+            chk.close(f"{label} {what}", got / mag, want / mag, 0.0, 1e-5, ref_max=1.0)
+        y2 = tna.batch_norm_act_fwd(*fa, running=running)[0]
         dx2 = tna.batch_norm_act_bwd(*ba)[0]
-        chk.equal(f"K11 {name} C={c} two launches bit for bit (y)", y2, y)
-        chk.equal(f"K11 {name} C={c} two launches bit for bit (dx)", dx2, dx)
+        chk.equal(f"{label} two launches bit for bit (y)", y2, y)
+        chk.equal(f"{label} two launches bit for bit (dx)", dx2, dx)
         del g, xh, y2, dx2, y_p, dx_p
-        t_f = device_ms(lambda: tna.batch_norm_act_fwd(*fa), dev, iters)
+        t_f = device_ms(lambda: tna.batch_norm_act_fwd(*fa, running=running), dev, iters)
         t_b = device_ms(lambda: tna.batch_norm_act_bwd(*ba), dev, iters)
-        p_f = time_fn(lambda: tna.batch_norm_act_fwd_plain(*fa), dev, 5)
+        p_f = time_fn(lambda: tna.batch_norm_act_fwd_plain(*fa, running=run_p), dev, 5)
         p_b = time_fn(lambda: tna.batch_norm_act_bwd_plain(*ba), dev, 5)
-        full = n_pad * c * 4
-        m_bytes = {"float": full, "keep": n_pad * c, "none": 0}[form]
         # forward: x twice (statistics, output pass), mult once, y written;
         # backward: x, dy and mult twice (column sums, dx pass), dx written
         b_f = bound(3 * full + m_bytes, 0)[0]
         b_b = bound(5 * full + 2 * m_bytes, 0)[0]
-        log(f"[norm-act] K11 {name} C={c}{' (row stride ' + str(2 * c) + ')' if strided else ''}"
+        log(f"[norm-act] {label}{' (row stride ' + str(2 * c) + ')' if strided else ''}"
             f" mult={form}: forward {t_f:.4f} ms device, bound {b_f:.4f} ms "
             f"({(3 * full + m_bytes) / 1e9:.3f} GB), plain {p_f:.3f} ms; backward {t_b:.4f} ms "
             f"device, bound {b_b:.4f} ms ({(5 * full + 2 * m_bytes) / 1e9:.3f} GB), plain "
@@ -2763,8 +2814,12 @@ def phase_remat(g, labels, layers):
     chk.raise_if_failed()
     want = {"plain": no_launches(), "remat": no_launches()}
     if dev.type == "cuda":
-        want["plain"].update(K4=layers, K2=layers)
-        want["remat"].update(K4=layers, K2=2 * layers - 1)
+        # K11: each of layers 1..L-1's prologues runs again in the body's
+        # recompute and once more in its own
+        want["plain"].update({"K4": layers, "K2": layers, "K11 fwd": layers,
+                              "K11 bwd": layers})
+        want["remat"].update({"K4": layers, "K2": 2 * layers - 1, "K11 fwd": 3 * layers - 2,
+                              "K11 bwd": layers})
         if not info["remat"]["peak_bytes"] < info["plain"]["peak_bytes"]:
             raise AssertionError(f"remat: peak {info['remat']['peak_bytes']} not below "
                                  f"{info['plain']['peak_bytes']}")
@@ -3570,13 +3625,16 @@ def _path_info(tag, dev, losses, times, score_s, launches, want, extra=None):
     return info
 
 
-def _graph_app_expected(dev, layers, steps, score_batches):
+def _graph_app_expected(dev, model, steps, score_batches):
     """ogbg apps: K2 with `ee` once a layer in every forward (steps + 1
     training batches and the scoring pass's batches), K4 once a layer in
-    every backward; nothing else launches."""
+    every backward, K11 in each res+ prologue (`k11_expected`); nothing else
+    launches."""
     want = no_launches()
     if dev.type == "cuda":
-        want.update({"K2 ee": layers * (steps + 1 + score_batches), "K4": layers * (steps + 1)})
+        layers, forwards = model.cfg.num_layers, steps + 1 + score_batches
+        want.update({"K2 ee": layers * forwards, "K4": layers * (steps + 1)})
+        want.update(k11_expected(model, forwards, steps + 1))
     return want
 
 
@@ -3624,7 +3682,7 @@ def phase_ogb_graph_app(dev, tag, app, test_app, argv, steps, epochs):
         raise AssertionError(f"{tag}: scoring gave {preds.shape}, finite "
                              f"{bool(np.isfinite(preds).all())}")
     info = _path_info(tag, dev, losses, times, score_s, launches,
-                      _graph_app_expected(dev, args.num_layers, steps, -(-len(test_gs) // B)))
+                      _graph_app_expected(dev, model, steps, -(-len(test_gs) // B)))
     phase_profile(dev, lambda: step(*batches[1]), tag=f"{tag}-profile")
     del batches, model, opt
     free_memory(dev)
@@ -3692,6 +3750,7 @@ def phase_ogb_collab(dev, steps, rehearse):
     want = no_launches()
     if dev.type == "cuda":
         want.update(K2=3 * (steps + 2), K4=3 * (steps + 1))
+        want.update(k11_expected(models["model"], steps + 2, steps + 1))
     info = _path_info("ogbl-collab", dev, losses, times, score_s, read_launches(), want,
                       {"hits@50": hits})
     phase_profile(dev, lambda: ogbl_collab.train_step(models, opt, g, *draws[1], gen),
@@ -3769,6 +3828,7 @@ def phase_ogb_products(dev, steps, rehearse):
     layers = args.num_layers
     if dev.type == "cuda":
         want.update(K2=layers * (steps + 2), K4=layers * (steps + 1))
+        want.update(k11_expected(model, steps + 2, steps + 1))
     info = _path_info("ogbn-products", dev, losses, times, score_s, read_launches(), want,
                       {"nodes": n, "edges": len(senders), "host_build_s": host_s,
                        "partition_s": part_s})
@@ -5865,7 +5925,7 @@ if __name__ == "__main__":
                                                   DeeperGCN, DeeperGCNConfig, DenseDeepGCN,
                                                   RevGAT, RevGATConfig, RevGCN, RevGCNConfig,
                                                   SparseDeepGCN)
-    from deep_gcns_torch_tpu_torch.nn.core import Linear
+    from deep_gcns_torch_tpu_torch.nn.core import BatchNorm, Linear
     from deep_gcns_torch_tpu_torch.ops import _build
     from deep_gcns_torch_tpu_torch.ops import band as tband
     from deep_gcns_torch_tpu_torch.ops import blocksparse as tbs

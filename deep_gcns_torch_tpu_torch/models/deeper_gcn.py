@@ -37,6 +37,19 @@ Spans (`utils/profiling.span`): ``deeper.norm`` around each res+ prologue
 (norm → relu → dropout) and the final norm, relu and dropout; GENConv's own
 ``gen.aggregate`` and ``gen.mlp`` sit inside each conv.
 
+On the card each res+ prologue, and the final norm → relu → dropout, is one
+autograd Function on K11 (`ops/norm_act.py`, `csrc/batch_norm_act.cu`) when
+the norm is a `BatchNorm` with its own moments and the residual stream is
+float32: in training the batch's masked statistics, the running statistics'
+update (none in a checkpointed recompute) and the dropout multiply by the
+keep mask, drawn first by `nn.core.dropout`'s own call, so the stream of
+draws is unchanged; in evaluation the running statistics, one launch. The
+eager chain runs everywhere else: on the CPU (bit for bit what it was), for
+LayerNorm and the `res`/`plain` epilogues, and on the card for a bf16
+residual carry or cross-rank moments (`sync_batch_norm`), which the route
+could serve in principle and which count as misses of ``deeper.norm_act``
+in `ops.route_misses`.
+
 Memory knobs (`deeper_gcn.py:62-76, 235, 271, 309, 325` there), both on
 `nn.core.checkpoint_replay` (`torch.utils.checkpoint`, non-reentrant; the
 recompute replays the dropout generator and leaves BatchNorm's running
@@ -58,8 +71,10 @@ from torch import nn
 
 from ..convs.sparse import GENConv
 from ..graph import Graph
-from ..nn.core import (MLP, Embedding, Linear, MultiEmbedding, checkpoint_replay, dropout,
-                       make_norm)
+from ..nn.core import (MLP, BatchNorm, Embedding, Linear, MultiEmbedding, checkpoint_replay,
+                       dropout, make_norm, running_stats_frozen)
+from ..ops.norm_act import batch_norm_act, batch_norm_act_eval
+from ..ops.route_misses import miss
 from ..ops.segment import scatter, segment_sum
 from ..utils.profiling import span
 
@@ -103,6 +118,42 @@ class DeeperGCNConfig:
 EDGE_MODES = ("none", "per_layer", "one_time", "bond", "one_time_bond")
 NODE_ENCODERS = ("linear", "atom")
 POOLINGS = ("", "mean", "sum", "add", "max", "min")
+
+
+def _k11_takes(norm: nn.Module, h: torch.Tensor) -> bool:
+    """Whether K11 serves ``norm`` → ReLU → dropout of ``h``: a `BatchNorm`
+    with its own moments on a float32 CUDA tensor. On the card a fallback
+    the route could serve counts as a miss of ``deeper.norm_act``."""
+    if not (h.is_cuda and isinstance(norm, BatchNorm)):
+        return False
+    if norm.cross_rank:
+        return miss("deeper.norm_act", "cross-rank moments", warn=True)
+    if h.dtype != torch.float32:
+        return miss("deeper.norm_act", f"{str(h.dtype).replace('torch.', '')} carry", warn=True)
+    return True
+
+
+def norm_relu_dropout(norm: nn.Module, h: torch.Tensor, mask: torch.Tensor, rate: float,
+                      train: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """dropout(relu(norm(h, mask))): one K11 Function where `_k11_takes`,
+    else the eager chain. The keep mask is `nn.core.dropout`'s draw, taken
+    before the kernel; the running statistics move as `BatchNorm` moves
+    them, and not under `_frozen_running_stats`."""
+    if not _k11_takes(norm, h):
+        return dropout(torch.relu(norm(h, mask)), rate, train=train, generator=generator)
+    if not norm.training:
+        y = batch_norm_act_eval(h, norm.running_mean, norm.running_var, norm.weight, norm.bias,
+                                norm.eps)
+        return dropout(y, rate, train=train, generator=generator)
+    keep = None
+    if train and rate > 0.0:
+        keep = torch.rand(h.shape, device=h.device, generator=generator) >= rate
+    running = None
+    if not running_stats_frozen():
+        running = (norm.running_mean, norm.running_var, norm.momentum)
+        norm.num_batches_tracked.add_(1)
+    return batch_norm_act(h, mask, norm.weight, norm.bias, keep=keep, rate=rate, eps=norm.eps,
+                          running=running)
 
 
 class DeeperGCN(nn.Module):
@@ -226,7 +277,8 @@ class DeeperGCN(nn.Module):
                 h = h.to(carry)
 
             def prologue(h, i):
-                return drop(torch.relu(self.norms[i - 1](h, mask)))
+                return norm_relu_dropout(self.norms[i - 1], h, mask, c.dropout, train,
+                                         generator)
 
             def body(h, vn, i):
                 with span("deeper.norm"):
@@ -240,11 +292,13 @@ class DeeperGCN(nn.Module):
             for i in range(1, c.num_layers):
                 h, vn = ckpt(c.remat, body, h, vn, i)
             with span("deeper.norm"):
-                h = self.norms[c.num_layers - 1](h, mask)
+                rate = c.dropout if c.final_dropout else 0.0
                 if c.final_relu:
-                    h = torch.relu(h)
-                if c.final_dropout:
-                    h = drop(h)
+                    h = norm_relu_dropout(self.norms[c.num_layers - 1], h, mask, rate, train,
+                                          generator)
+                else:
+                    h = dropout(self.norms[c.num_layers - 1](h, mask), rate, train=train,
+                                generator=generator)
         else:
             def epilogue(h1, h, i):
                 h3 = torch.relu(self.norms[i](h1, mask))

@@ -31,6 +31,11 @@ from torch import nn
 _STATS = threading.local()
 
 
+def running_stats_frozen() -> bool:
+    """Whether this thread is inside `_frozen_running_stats`."""
+    return getattr(_STATS, "frozen", False)
+
+
 @contextlib.contextmanager
 def _frozen_running_stats():
     """Inside, `BatchNorm` in training mode normalises with the batch's
@@ -218,7 +223,16 @@ class BatchNorm(nn.Module):
     `nn/core.py:285-290`) the training moments are the equal-weight means of
     the ranks' moments, E[x] and E[x²] = var + E[x]², and the count is the
     sum of the ranks' (clamped) counts, as JAX computes them; in a world of
-    one the local moments are used as they are."""
+    one the local moments are used as they are.
+
+    On the card, DeeperGCN's res+ prologues and final norm do not call this
+    forward: `models.deeper_gcn.norm_relu_dropout` hands the module's
+    parameters and running statistics, with the ReLU and the dropout after
+    it, to K11 (`ops/norm_act.py`), whose two-pass (Welford) variance does
+    not cancel on the residual stream's large column means as the one-pass
+    E[x²] − μ² here can. This forward remains for the CPU (the JAX-parity
+    path, bit for bit), the MLPs' norms, the `res`/`plain` epilogues,
+    cross-rank moments and inputs that are not float32."""
 
     # moments across the ranks of ``rank_group`` (`sync_batch_norm`; None is
     # the default process group)
@@ -251,19 +265,27 @@ class BatchNorm(nn.Module):
                 from ..parallel.comm import cross_rank_moments
 
                 mu, var, cnt = cross_rank_moments(mu, var, cnt, self.rank_group)
-            if not getattr(_STATS, "frozen", False):
+            if not running_stats_frozen():
                 self._update_running(mu, var, cnt)
         else:
             mu, var = self.running_mean, self.running_var
         y = (x - mu) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 
-    @torch.no_grad()
     def _update_running(self, mu, var, cnt):
-        unbiased = var * cnt / torch.clamp_min(cnt - 1.0, 1.0)
-        self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mu)
-        self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        update_running_stats(self.running_mean, self.running_var, mu, var, cnt, self.momentum)
         self.num_batches_tracked.add_(1)
+
+
+@torch.no_grad()
+def update_running_stats(running_mean: torch.Tensor, running_var: torch.Tensor,
+                         mu: torch.Tensor, var: torch.Tensor, cnt: torch.Tensor,
+                         momentum: float):
+    """`BatchNorm`'s running update, in place: the batch's mean and its
+    variance made unbiased by cnt / max(cnt − 1, 1), at ``momentum``."""
+    unbiased = var * cnt / torch.clamp_min(cnt - 1.0, 1.0)
+    running_mean.mul_(1 - momentum).add_(momentum * mu)
+    running_var.mul_(1 - momentum).add_(momentum * unbiased)
 
 
 def sync_batch_norm(module: nn.Module, group=None) -> nn.Module:

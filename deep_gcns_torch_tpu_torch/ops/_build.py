@@ -69,12 +69,14 @@ _SIGNATURES = {
                                  ("win_dsend", 12, 2))},
     "blocksparse": {name: [_P] * 5 + [_I, _I, _P] for name in ("dgc_bsp_f32", "dgc_bsp_bf16")},
     # K11 forward: x, sx, mask, w, b, mult, sm, mode, div, eps, y, mu, rstd,
-    # cnt, part; n_rows, C, vec, stream.  Backward: x, sx, dy, sdy, mask, w,
-    # b, mult, sm, mode, div, mu, rstd, cnt, dx, dw, db, part; n_rows, C,
-    # vec, stream
+    # cnt, part, run_mean, run_var, momentum, keep_f; n_rows, C, vec, stream.
+    # Evaluation: x, sx, run_mean, run_var, w, b, eps, y, rstd; n_rows, C,
+    # vec, stream.  Backward: x, sx, dy, sdy, mask, w, b, mult, sm, mode, div,
+    # mu, rstd, cnt, dx, dw, db, part; n_rows, C, vec, stream
     "batch_norm_act": {
-        "dgc_bn_act_fwd_f32": [_P, _L] + [_P] * 4 + [_L, _I, _F, _F] + [_P] * 5 + [_I] * 3
-        + [_P],
+        "dgc_bn_act_fwd_f32": [_P, _L] + [_P] * 4 + [_L, _I, _F, _F] + [_P] * 7 + [_F, _F]
+        + [_I] * 3 + [_P],
+        "dgc_bn_act_eval_f32": [_P, _L] + [_P] * 4 + [_F, _P, _P] + [_I] * 3 + [_P],
         "dgc_bn_act_bwd_f32": [_P, _L, _P, _L] + [_P] * 4 + [_L, _I, _F] + [_P] * 7 + [_I] * 3
         + [_P]},
 }

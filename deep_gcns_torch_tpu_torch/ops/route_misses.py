@@ -24,8 +24,8 @@ def miss(route: str, reason: str, *, warn: bool = False) -> bool:
     FASTPATH_MISSES[key] = FASTPATH_MISSES.get(key, 0) + 1
     if warn and key not in _warned_keys:
         _warned_keys.add(key)
-        _log.warning("kernel route disabled for %s: %s; the plain path runs instead. "
-                     "Rebuild the graph with its auxiliary indices.", route, reason)
+        _log.warning("kernel route disabled for %s: %s; the plain path runs instead.",
+                     route, reason)
     return False
 
 

@@ -1659,3 +1659,143 @@ def test_k11_function_matches_plain_function(cuda_device, layout, mult_form):
     mag_b, mag_w = _k11_grad_terms(x, mask, w, b, mult, keep, dy, mu, rstd)
     _k11_sums_close(res[0][2], res[1][2], mag_w)
     _k11_sums_close(res[0][3], res[1][3], mag_b)
+
+
+# K11's DeeperGCN forms at ResGEN's shape ([169,472 × 128], 169,343 valid)
+# and at an odd C (scalar loads): the training form with the running update
+# and a keep mask, and the evaluation form, against a float64 two-pass plain
+# twin (not the eager one-pass chain, whose variance cancels on the large
+# column means). Tolerances as K11's above: float32 statistics to 1e-5 of
+# the column's spread, y and the running statistics to 1e-5 relative above
+# a floor of 1e-5 of their largest value; dx, dw, db against the float64
+# backward given the kernel's own statistics, with every |z| above 0.4.
+def _k11_deeper_inputs(dev, c, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(K11_N, c, device=dev, generator=gen) * 3.0 + 20.0
+    mask = torch.arange(K11_N, device=dev) < K11_VALID
+    b = torch.where(torch.rand(c, device=dev, generator=gen) > 0.5, 1.0, -1.0)
+    w = torch.full((c,), 0.1, device=dev)  # |x̂| < 6 for 169k normal rows, so |z| > 0.4
+    keep = torch.rand(K11_N, c, device=dev, generator=gen) >= 0.5
+    rm = torch.randn(c, device=dev, generator=gen) * 5.0 + 20.0
+    rv = torch.rand(c, device=dev, generator=gen) * 4.0 + 8.0
+    dy = torch.randn(K11_N, c, device=dev, generator=gen)
+    return x, mask, w, b, keep, rm, rv, dy
+
+
+def _f64(*ts):
+    return [None if t is None else t.double() if t.is_floating_point() else t for t in ts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [128, 37])
+def test_k11_training_form_with_running_statistics(cuda_device, c):
+    """The forward with the keep mask and the running update, and its
+    backward, against the float64 twin; two calls give the same bits; one
+    launch each way."""
+    from deep_gcns_torch_tpu_torch.ops import norm_act as tna
+
+    x, mask, w, b, keep, rm0, rv0, dy = _k11_deeper_inputs(cuda_device, c)
+    f0, b0 = tna.batch_norm_act_fwd.launches, tna.batch_norm_act_bwd.launches
+    outs = []
+    for _ in range(2):
+        rm, rv = rm0.clone(), rv0.clone()
+        y, mu, rstd, cnt = tna.batch_norm_act_fwd(x, mask, w, b, None, keep, 0.5,
+                                                  running=(rm, rv, 0.1))
+        dx, dw, db = tna.batch_norm_act_bwd(dy, x, mask, w, b, None, keep, 0.5, mu, rstd, cnt)
+        outs.append((y, mu, rstd, rm, rv, dx, dw, db))
+    for a, a2 in zip(*outs):
+        assert torch.equal(a, a2), "two calls must give the same bits"
+    torch.cuda.synchronize()
+    assert (tna.batch_norm_act_fwd.launches - f0, tna.batch_norm_act_bwd.launches - b0) == (2, 2)
+    y, mu, rstd, rm, rv, dx, dw, db = outs[0]
+    x6, w6, b6, rm6, rv6 = _f64(x, w, b, rm0, rv0)
+    y6, mu6, rstd6, cnt6 = tna.batch_norm_act_fwd_plain(x6, mask, w6, b6, None, keep, 0.5,
+                                                        running=(rm6, rv6, 0.1))
+    assert float(cnt) == float(cnt6) == K11_VALID
+    np.testing.assert_array_less(np.abs((mu.double() - mu6).cpu().numpy()),
+                                 1e-5 / rstd6.cpu().numpy())
+    _assert_close(rstd, rstd6, 1e-5, 0.0)
+    _assert_close(y, y6, 1e-5, 1e-5)
+    _assert_close(rm, rm6, 1e-5, 1e-5)
+    _assert_close(rv, rv6, 1e-5, 1e-5)
+    dx6, dw6, db6 = tna.batch_norm_act_bwd_plain(*_f64(dy, x), mask, w6, b6, None, keep, 0.5,
+                                                 *_f64(mu, rstd, cnt))
+    mag_b, mag_w = _k11_grad_terms(x, mask, w, b, None, keep, dy, mu, rstd)
+    _k11_sums_close(db.double(), db6, mag_b)
+    _k11_sums_close(dw.double(), dw6, mag_w)
+    _assert_close(dx, dx6, 1e-5, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [128, 37])
+def test_k11_evaluation_form(cuda_device, c):
+    """y = relu((x − running_mean)·rsqrt(running_var + eps)·w + b) in one
+    launch against the float64 twin, the same bits twice; through autograd
+    dx, dw and db against the float64 Function on the plain halves."""
+    from deep_gcns_torch_tpu_torch.ops import norm_act as tna
+
+    x, mask, w, b, _, rm, rv, dy = _k11_deeper_inputs(cuda_device, c, seed=1)
+    f0 = tna.batch_norm_act_fwd.launches
+    y, rstd = tna.batch_norm_act_eval_fwd(x, rm, rv, w, b)
+    y2, rstd2 = tna.batch_norm_act_eval_fwd(x, rm, rv, w, b)
+    torch.cuda.synchronize()
+    assert tna.batch_norm_act_fwd.launches - f0 == 2
+    assert torch.equal(y, y2) and torch.equal(rstd, rstd2)
+    y6, rstd6 = tna.batch_norm_act_eval_fwd_plain(*_f64(x, rm, rv, w, b))
+    _assert_close(rstd, rstd6, 1e-6, 0.0)
+    _assert_close(y, y6, 1e-5, 1e-5)
+    res = []
+    for fn, args in ((tna.batch_norm_act_eval, (x, rm, rv, w, b)),
+                     (tna.batch_norm_act_eval_plain, _f64(x, rm, rv, w, b))):
+        xx, ww, bb = (a.detach().clone().requires_grad_(True) for a in (args[0], *args[3:]))
+        fn(xx, args[1], args[2], ww, bb).backward(dy.to(xx.dtype))
+        res.append((xx.grad, ww.grad, bb.grad))
+    _assert_close(res[0][0], res[1][0], 1e-5, 1e-5)
+    g = torch.where((x - rm) * rstd * w + b > 0, dy, torch.zeros((), device=x.device))
+    _k11_sums_close(res[0][2].double(), res[1][2], g.abs().sum(0))
+    _k11_sums_close(res[0][1].double(), res[1][1], (g * (x - rm) * rstd).abs().sum(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry", ["float32", "bfloat16"])
+def test_deeper_gcn_norms_take_k11(cuda_device, carry):
+    """A res+ DeeperGCN with batch norm on the card: with a float32
+    residual stream each prologue and the final norm is one K11 launch
+    forward (training and evaluation) and one backward, no route miss, and
+    the running statistics move once; a bfloat16 carry (with bfloat16
+    compute, which it needs) takes the eager chain and counts a miss a
+    norm."""
+    from deep_gcns_torch_tpu_torch.ops import norm_act as tna
+    from deep_gcns_torch_tpu_torch.ops.route_misses import fastpath_misses
+
+    rng = np.random.default_rng(3)
+    n, layers = 2000, 4
+    g = build_graph(rng.standard_normal((n, 32)).astype(np.float32),
+                    rng.integers(0, n, 20000), rng.integers(0, n, 20000),
+                    num_nodes=n).to(cuda_device)
+    cfg = DeeperGCNConfig(in_channels=32, hidden_channels=64, num_tasks=7, num_layers=layers,
+                          block="res+", aggr="softmax", t=0.5, norm="batch", dropout=0.5,
+                          residual_dtype=carry, compute_dtype=carry)
+    model = DeeperGCN(cfg, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    def misses():
+        return sum(v for k, v in fastpath_misses().items() if k.startswith("deeper.norm_act:"))
+
+    f0, b0 = tna.batch_norm_act_fwd.launches, tna.batch_norm_act_bwd.launches
+    m0, c0 = misses(), fastpath_misses().get("deeper.norm_act:bfloat16 carry", 0)
+    model.train()
+    model(g.x, g, gen).float().sum().backward()
+    model.eval()
+    with torch.no_grad():
+        model(g.x, g)
+    torch.cuda.synchronize()
+    launches = (tna.batch_norm_act_fwd.launches - f0, tna.batch_norm_act_bwd.launches - b0)
+    missed = misses() - m0
+    if carry == "float32":
+        assert launches == (2 * layers, layers) and missed == 0
+    else:
+        assert launches == (0, 0) and missed == 2 * layers
+        assert fastpath_misses()["deeper.norm_act:bfloat16 carry"] - c0 == missed
+    for norm in model.norms:
+        assert int(norm.num_batches_tracked) == 1
+        assert not torch.equal(norm.running_var, torch.ones_like(norm.running_var))
