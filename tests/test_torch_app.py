@@ -5,6 +5,7 @@ import math
 import pytest
 
 from deep_gcns_torch_tpu_torch.apps import ogbn_arxiv, ogbn_arxiv_dgl
+from torch_budget import budget  # noqa: F401
 
 
 def test_app_trains_on_cpu(capsys):

@@ -12,26 +12,14 @@ import os
 
 import numpy as np
 import pytest
-import torch
 
 from deep_gcns_torch_tpu_torch.apps import (ogbg_mol, ogbg_mol_test, ogbg_ppa, ogbg_ppa_test,
                                             ogbl_collab, ogbl_collab_test, ogbn_arxiv,
                                             ogbn_products, ogbn_products_test, ogbn_proteins)
+from torch_budget import budget  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = ["--synthetic", "--device", "cpu"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch's CPU `index_add` into a few rows (graph pooling and the
-    virtual node sum nodes into a batch's graphs) took 23-87 ms a call with 8
-    threads on an 8-core host, 0.02 ms with one, and far longer beside the
-    other test workers; one thread for this file's tiny models."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_app(name):

@@ -29,6 +29,7 @@ from deep_gcns_torch_tpu_torch.convs.sparse import GENConv
 from deep_gcns_torch_tpu_torch.graph import attach_band, build_graph
 from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig
 from deep_gcns_torch_tpu_torch.utils.import_jax import deeper_gcn_state_dict_from_jax
+from torch_budget import budget  # noqa: F401
 
 BN = 128
 FWD = dict(rtol=3e-4, atol=1e-4)
@@ -114,7 +115,7 @@ def test_band_spmm_forward_and_grad(drop):
         out = jband.band_spmm(x_, jp, True, jd)
         return jnp.sum(out * co), out
 
-    (_, want), gx = jax.value_and_grad(f, has_aux=True)(jnp.asarray(x))
+    (_, want), gx = jax.jit(jax.value_and_grad(f, has_aux=True))(jnp.asarray(x))
     xt = _t(x).requires_grad_(True)
     got = tband.band_spmm(xt, tp, td)
     (got * _t(co)).sum().backward()
@@ -135,7 +136,7 @@ def test_band_softmax_agg_out_dx_dt(grad_weights, kind):
         out = jband.band_softmax_agg(x_, jp, t_, 1e-7, grad_weights, True)
         return jnp.sum(out * co), out
 
-    (_, want), (gx, gt) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+    (_, want), (gx, gt) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
         jnp.asarray(x), jnp.asarray([0.7], jnp.float32))
     xt = _t(x).requires_grad_(True)
     tt = torch.tensor([0.7], requires_grad=grad_weights)
@@ -214,7 +215,7 @@ def test_genconv_band_route_matches_jax(band_mode, aggr, learn_t, learn_p):
     assert 0.5 < gt.band.fwd.coverage < 1.0 and jband.band_ok(gj, aggr)
     kw = dict(aggr=aggr, t=0.5, learn_t=learn_t, learn_p=learn_p, norm="layer")
     jconv = JaxGENConv(in_dim=32, emb_dim=32, **kw)
-    params, st = jconv.init(jax.random.PRNGKey(0))
+    params, st = jax.jit(jconv.init)(jax.random.PRNGKey(0))
     conv = GENConv(32, 32, **kw)
     # a fixed t/p/y is a JAX param but a port buffer rebuilt from the config
     own = conv.state_dict()
@@ -224,7 +225,7 @@ def test_genconv_band_route_matches_jax(band_mode, aggr, learn_t, learn_p):
         out, _ = jconv.apply(p, st, x_, gj)
         return jnp.sum(jnp.cos(out)), out
 
-    (_, want), (gp, gx) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+    (_, want), (gp, gx) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
         params, jnp.asarray(x))
     xt = _t(x).requires_grad_(True)
     got = conv(xt, gt)
@@ -252,13 +253,13 @@ def test_deeper_gcn_band_matches_jax(band_mode, aggr, learn_t):
     jcfg, tcfg = JaxConfig(**kw), DeeperGCNConfig(**kw)
     co = rng.standard_normal((gt.num_nodes_padded, 7)).astype(np.float32)
     jmodel = JaxDeeperGCN(jcfg)
-    params, state = jmodel.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
 
     def loss_j(p):
         logits, _ = jmodel.apply(p, state, jnp.asarray(gj.x), gj, train=True)
         return jnp.sum(logits * co), logits
 
-    (_, logits_j), gp = jax.value_and_grad(loss_j, has_aux=True)(params)
+    (_, logits_j), gp = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params)
     np_tree = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
     model = DeeperGCN(tcfg)
     model.load_state_dict(deeper_gcn_state_dict_from_jax(np_tree(params), np_tree(state),

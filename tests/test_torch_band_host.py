@@ -18,6 +18,7 @@ import deep_gcns_torch_tpu_torch.data.synthetic as tsyn
 import deep_gcns_torch_tpu_torch.graph as tgraph
 import deep_gcns_torch_tpu_torch.native as tnative
 import deep_gcns_torch_tpu_torch.ops.band as tband
+from torch_budget import budget  # noqa: F401
 
 BN = 128
 ARRAYS = ("w_lo", "a", "lo_src", "lo_dst", "lo_row_ptr", "hub_ids", "a_hub", "hub_row_ids",

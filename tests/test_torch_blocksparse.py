@@ -12,6 +12,7 @@ import torch
 
 from deep_gcns_torch_tpu.ops import blocksparse as jbs
 from deep_gcns_torch_tpu_torch.ops import blocksparse as tbs
+from torch_budget import budget  # noqa: F401
 
 TOL = dict(rtol=3e-4, atol=1e-4)
 
@@ -33,7 +34,7 @@ def _assert_tiles_equal(jt, tt):
 
 
 def _jax_grad(x, tiles, tiles_t, co):
-    return jax.grad(lambda x_: jnp.sum(jbs.block_spmm(x_, tiles, tiles_t, True) * co))(x)
+    return jax.jit(jax.grad(lambda x_: jnp.sum(jbs.block_spmm(x_, tiles, tiles_t, True) * co)))(x)
 
 
 def _torch_out_grad(x, tiles, tiles_t, co):

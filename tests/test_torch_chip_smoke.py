@@ -10,6 +10,9 @@ import sys
 
 import torch
 
+import torch_budget
+from torch_budget import budget  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -60,7 +63,8 @@ def test_kernel_times_mode_prints_one_time_per_kernel_form():
 
     run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rehearse-cpu",
                           "--kernel-times", "--output-hashes"], capture_output=True,
-                         text=True, timeout=300, check=True)
+                         text=True, timeout=torch_budget.SUBPROCESS_S, check=True,
+                         env=torch_budget.child_env())
     last = json.loads(run.stdout.strip().splitlines()[-1])
     want = {f"{k} {d}" for k in ("K2 C=128", "K2 ee C=40", "K2 ee C=64", "K4 C=40",
                                  "K4 dt C=64", "K10 C=128") for d in ("f32", "bf16")}
@@ -117,7 +121,9 @@ def test_ogb_mode_rehearses_the_ogb_phases():
     each OGB shape; it prints no device result and leaves no run
     directory."""
     run = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rehearse-cpu",
-                          "--ogb"], capture_output=True, text=True, timeout=300, check=True)
+                          "--ogb"], capture_output=True, text=True,
+                         timeout=torch_budget.SUBPROCESS_S, check=True,
+                         env=torch_budget.child_env())
     for tag in ("ogb kernels", "ogb agreement", "molhiv-dyresgen-7", "molpcba-resgen-14-vn",
                 "ppa-resgen-28", "ogbl-collab", "ogbn-products", "ogb timing"):
         assert f"[time] {tag} done" in run.stdout, tag

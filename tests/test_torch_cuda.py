@@ -26,6 +26,8 @@ from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig, RevGCN,
 from deep_gcns_torch_tpu_torch.nn.core import Linear
 from deep_gcns_torch_tpu_torch.ops import band as tband
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
+import torch_budget
+from torch_budget import budget  # noqa: F401
 
 TOL = {torch.float32: dict(rtol=1e-5, atol_rel=1e-5),
        torch.bfloat16: dict(rtol=2.0 ** -7, atol_rel=1e-5)}
@@ -1482,8 +1484,8 @@ def test_spatial_forward_card_matches_cpu(cuda_device, exchange, band):
     case = dict(kind="deeper", cfg=kw, exchange=exchange, shards=sh,
                 state={k: v.numpy() for k, v in model.state_dict().items()},
                 x=shard_nodes(rng.standard_normal((n, 32)).astype(np.float32), sh))
-    outs = [launch(tpc.run_cases, 2, ([case], d), device=d, deadline=300) for d in ("cuda",
-                                                                                    "cpu")]
+    outs = [launch(tpc.run_cases, 2, ([case], d), device=d,
+                   deadline=torch_budget.SUBPROCESS_S) for d in ("cuda", "cpu")]
     got, want = (np.concatenate([rk["results"][0]["logits"] for rk in o]) for o in outs)
     _assert_close(torch.from_numpy(got), torch.from_numpy(want), rtol=1e-4, atol_rel=1e-4)
     lo = int(band == "auto" and sh.loc_band[0].fwd.n_lo > 0)
@@ -1541,7 +1543,7 @@ def test_tensor_parallel_step_card_matches_cpu(cuda_device, kind):
                     labels=shard_nodes(rng.integers(0, 8, n)[:, None], sh)[..., 0])
         world = 4
     case["state"] = {k: v.numpy() for k, v in model.state_dict().items()}
-    outs = [launch(tpc.run_cases, world, ([case], d), device=d, deadline=300)
+    outs = [launch(tpc.run_cases, world, ([case], d), device=d, deadline=torch_budget.SUBPROCESS_S)
             for d in ("cuda", "cpu")]
     got, want = (o[0]["results"][0] for o in outs)
     assert abs(got["loss"] - want["loss"]) <= 1e-4 * max(1.0, abs(want["loss"]))

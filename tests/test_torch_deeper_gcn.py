@@ -19,6 +19,7 @@ from deep_gcns_torch_tpu_torch.graph import build_graph
 from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig
 from deep_gcns_torch_tpu_torch.utils.import_jax import deeper_gcn_state_dict_from_jax
 from deep_gcns_torch_tpu_torch.utils.optim import make_optimizer
+from torch_budget import budget  # noqa: F401
 
 # f32 on both sides; the difference is summation order through 4 layers
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -45,13 +46,13 @@ def test_deeper_gcn_matches_jax(block, aggr, learn_t):
     co[300:] = 0.0
 
     jmodel = JaxDeeperGCN(jcfg)
-    params, state = jmodel.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
 
     def loss_j(p):
         logits, ns = jmodel.apply(p, state, jnp.asarray(gj.x), gj, train=True)
         return jnp.sum(logits * co), (logits, ns)
 
-    (_, (logits_j, ns_j)), gp_j = jax.value_and_grad(loss_j, has_aux=True)(params)
+    (_, (logits_j, ns_j)), gp_j = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params)
 
     model = DeeperGCN(tcfg)
     model.load_state_dict(deeper_gcn_state_dict_from_jax(_np_tree(params), _np_tree(state),
@@ -160,7 +161,7 @@ def test_bf16_deeper_gcn_forward_matches_jax(monkeypatch):
               compute_dtype="bfloat16")
     jcfg = JaxConfig(**kw)
     jmodel = JaxDeeperGCN(jcfg)
-    params, state = jmodel.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
     want = np.asarray(jmodel.apply(params, state, jnp.asarray(gj.x), gj, train=True)[0])[:n]
     model = DeeperGCN(DeeperGCNConfig(**kw))
     model.load_state_dict(deeper_gcn_state_dict_from_jax(_np_tree(params), _np_tree(state),
@@ -207,7 +208,7 @@ def test_bf16_mean_deeper_gcn_matches_jax_kernel_route(monkeypatch):
     gt, _ = random_node_graph(np.random.default_rng(0), 300, 6, 16, self_loops=True)
     jcfg = JaxConfig(**kw)
     jmodel = JaxDeeperGCN(jcfg)
-    params, state = jmodel.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
     want = np.asarray(jmodel.apply(params, state, jnp.asarray(gj.x), gj, train=True)[0])[:300]
 
     calls = []

@@ -17,6 +17,7 @@ from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig
 from deep_gcns_torch_tpu_torch.models import deeper_gcn as dg
 from deep_gcns_torch_tpu_torch.nn.core import BatchNorm, _frozen_running_stats, dropout
 from deep_gcns_torch_tpu_torch.ops import norm_act as tna
+from torch_budget import budget  # noqa: F401
 
 N, C, VALID, RATE = 40, 128, 33, 0.5
 

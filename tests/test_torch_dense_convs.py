@@ -30,20 +30,10 @@ from deep_gcns_torch_tpu_torch.convs import dense as td
 from deep_gcns_torch_tpu_torch.ops import knn as tknn
 from deep_gcns_torch_tpu_torch.utils.agreement import knn_rank_margin, max_over_k_near_ties
 from deep_gcns_torch_tpu_torch.utils.import_jax import basic_conv_entries
+from torch_budget import budget  # noqa: F401
 
 F32 = dict(out=(1e-4, 1e-5), grad=(1e-3, 1e-4))
 BF16 = dict(out=(2.0 ** -6, 2.0 ** -7), grad=(2.0 ** -5, 2.0 ** -6))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this file's small tensors: with 8 threads beside
-    the other test workers, the CPU's `index_add` and small reductions wait
-    on each other far longer than they compute."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -75,7 +65,7 @@ def _carry(prefix, params, state, act, norm):
 def _run(jmod, tmod, prefix, act, norm, x, call_j, call_t, dtype, rng):
     """Forward and backward of both under one random cotangent; compares
     everything the module owns."""
-    params, state = jmod.init(jax.random.PRNGKey(1))
+    params, state = jax.jit(jmod.init)(jax.random.PRNGKey(1))
     tmod.load_state_dict(_carry(prefix, params, state, act, norm), strict=True)
     tmod.train()
     out0, _ = call_j(params, state, jnp.asarray(x))
@@ -85,7 +75,7 @@ def _run(jmod, tmod, prefix, act, norm, x, call_j, call_t, dtype, rng):
         out, ns = call_j(p, state, xx)
         return jnp.sum(out * co), (out, ns)
 
-    (_, (want, ns)), (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+    (_, (want, ns)), (gp, gx) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
         params, jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_(True)
     out = call_t(xt)

@@ -29,6 +29,7 @@ from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
 from deep_gcns_torch_tpu_torch.utils.import_jax import deeper_gcn_state_dict_from_jax
 from np_ref import with_top_sender
+from torch_budget import budget  # noqa: F401
 
 GOLD = os.path.join(os.path.dirname(__file__), "goldens")
 FWD = dict(rtol=2e-5, atol=2e-5)
@@ -74,7 +75,7 @@ def test_fused_with_edge_emb_matches_pallas(grad_weights):
                                           ea_csc @ w_, 1e-7, grad_weights, True)
         return jnp.sum(out * co), out
 
-    (_, want), (gx, gw, gt_) = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+    (_, want), (gx, gw, gt_) = jax.jit(jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True))(
         jnp.asarray(x), jnp.asarray(w), jnp.float32(0.8))
 
     xt = torch.from_numpy(x).requires_grad_(True)
@@ -166,7 +167,7 @@ def test_bf16_edge_terms_round_like_pallas(grad_weights):
                                           True)
         return jnp.sum(out.astype(jnp.float32) * co), out
 
-    (_, want), (jx, jee) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+    (_, want), (jx, jee) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
         jnp.asarray(x, bf), jnp.asarray(ee_csc, bf))
     gx, gee, gx_slack, gee_slack = _bf16_backward(gj, x, ee, co, np.float32(0.9), grad_weights)
 
@@ -215,7 +216,7 @@ def test_genconv_with_edges_matches_jax(aggr, learn_t, csc):
         gj = gj.replace(edge_attr_csc=None)
     jconv = JaxGENConv(16, 16, aggr=aggr, t=0.6, learn_t=learn_t, encode_edge=True,
                        edge_feat_dim=6, norm="layer", mlp_layers=1)
-    params, state = jconv.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jconv.init)(jax.random.PRNGKey(0))
     x = np.asarray(gj.x, np.float32)
     co = np.random.default_rng(5).standard_normal((gj.num_nodes_padded, 16)).astype(
         np.float32)
@@ -224,7 +225,7 @@ def test_genconv_with_edges_matches_jax(aggr, learn_t, csc):
         out, _ = jconv.apply(p, state, x_, gj, train=True)
         return jnp.sum(out * co), out
 
-    (_, want), (gp, gx) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+    (_, want), (gp, gx) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
         params, jnp.asarray(x))
     conv = GENConv(16, 16, aggr=aggr, t=0.6, learn_t=learn_t, encode_edge=True,
                    edge_feat_dim=6, norm="layer", mlp_layers=1)
@@ -297,14 +298,14 @@ def test_deeper_gcn_edge_modes_match_jax(edge_mode, block):
     co[n:] = 0.0
     jcfg = JaxConfig(**kw)
     jmodel = JaxDeeperGCN(jcfg)
-    params, state = jmodel.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
 
     def loss_j(p):
         out, _ = jmodel.apply(p, state, jnp.asarray(species), gj, train=True,
                               node_feats=jnp.asarray(nf))
         return jnp.sum(out * co), out
 
-    (_, want), gp = jax.value_and_grad(loss_j, has_aux=True)(params)
+    (_, want), gp = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params)
     tree = jax.tree_util.tree_map(np.asarray, params)
     model = DeeperGCN(DeeperGCNConfig(**kw))
     model.load_state_dict(deeper_gcn_state_dict_from_jax(tree, {}, jcfg))

@@ -33,6 +33,7 @@ from deep_gcns_torch_tpu_torch.graph import attach_band, build_graph
 from deep_gcns_torch_tpu_torch.ops import gather as tgather
 from deep_gcns_torch_tpu_torch.ops import segment as tseg
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
+from torch_budget import budget  # noqa: F401
 
 FUSED_GRAD = dict(rtol=5e-4, atol=1e-5)
 BAND_FWD = dict(rtol=3e-4, atol=1e-4)
@@ -88,7 +89,8 @@ def test_gat_softmax_spmm_matches_pallas_interpret(with_drop):
                                    jnp.asarray(gj.csc_col_ptr), kc, hd, h, 0.2, True)
         return jnp.sum(agg[:, :hd + h] * co), agg
 
-    (_, want), (gf_want, ga_want) = jax.value_and_grad(f_jax, argnums=(0, 1), has_aux=True)(
+    (_, want), (gf_want, ga_want) = jax.jit(jax.value_and_grad(f_jax, argnums=(0, 1),
+                                                               has_aux=True))(
         jnp.asarray(feat), jnp.asarray(attn))
     ft, at = _t(feat).requires_grad_(True), _t(attn).requires_grad_(True)
     el = (ft * at).sum(-1)
@@ -178,7 +180,7 @@ def test_band_gat_agg_matches_jax(band_mode, drop):
         num, den = jband.band_gat_agg(feat_, el_, gj.band, 0.2, interpret="xla", drop=jd)
         return jnp.sum(num * co_n) + jnp.sum(den * co_d), (num, den)
 
-    (_, (num_w, den_w)), (gf_w, ge_w) = jax.value_and_grad(f, (0, 1), has_aux=True)(
+    (_, (num_w, den_w)), (gf_w, ge_w) = jax.jit(jax.value_and_grad(f, (0, 1), has_aux=True))(
         jnp.asarray(feat), jnp.asarray(el))
     ft, et = _t(feat).requires_grad_(True), _t(el).requires_grad_(True)
     num, den = tband.band_gat_agg(ft, et, gt.band, 0.2, drop=td)
@@ -291,7 +293,7 @@ def test_safe_div_matches_jax(scale):
 
 
 def _conv_params(conv_j, key, port: SymGATConv):
-    params, _ = conv_j.init(jax.random.PRNGKey(key))
+    params, _ = jax.jit(conv_j.init)(jax.random.PRNGKey(key))
     sd = {"fc.weight": _t(np.asarray(params["fc"]).T),
           "attn_l": _t(np.asarray(params["attn_l"])[None])}
     if "attn_r" in params:
@@ -349,7 +351,7 @@ def test_symgat_conv_matches_jax(band_mode, route, kw):
         out, _ = conv_j.apply(p, {}, x_, gj, **jkw)
         return jnp.sum(out * co), out
 
-    (_, want), (gp, gx) = jax.value_and_grad(loss, (0, 1), has_aux=True)(params,
+    (_, want), (gp, gx) = jax.jit(jax.value_and_grad(loss, (0, 1), has_aux=True))(params,
                                                                          jnp.asarray(xp))
     xt = _t(xp).requires_grad_(True)
     out = conv_t(xt, gt, train=drop, drop_key=key if drop else None)
@@ -526,7 +528,7 @@ def test_pyg_gatconv_matches_jax(band_mode, band, self_loops, hubby, act, norm):
         gt, gj = gt.replace(band=None), gj.replace(band=None)
     h, d = 2, 16
     conv_j = JaxGATConv(32, d, heads=h, act=act, norm=norm, self_loops=self_loops)
-    params, state = conv_j.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(conv_j.init)(jax.random.PRNGKey(0))
     conv_t = GATConv(32, d, heads=h, act=act, norm=norm, self_loops=self_loops)
     sd = {}
     gat_conv_entries(sd, "", jax.tree_util.tree_map(np.asarray, params))
@@ -547,7 +549,8 @@ def test_pyg_gatconv_matches_jax(band_mode, band, self_loops, hubby, act, norm):
         out, _ = conv_j.apply(p, state, x_, gj, train=True)
         return jnp.sum(out * co), out
 
-    (_, want), (gp, gx) = jax.value_and_grad(loss, (0, 1), has_aux=True)(params, jnp.asarray(xp))
+    (_, want), (gp, gx) = jax.jit(jax.value_and_grad(loss, (0, 1), has_aux=True))(
+        params, jnp.asarray(xp))
     xt = _t(xp).requires_grad_(True)
     out = conv_t(xt, gt)
     (out * _t(co)).sum().backward()

@@ -25,6 +25,7 @@ from deep_gcns_torch_tpu.ops import gat_dense as jgd
 import deep_gcns_torch_tpu_torch.ops.band as tband
 from deep_gcns_torch_tpu_torch.graph import attach_band, build_graph
 from deep_gcns_torch_tpu_torch.ops import gat_dense as tgd
+from torch_budget import budget  # noqa: F401
 
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5), torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -95,20 +96,23 @@ def test_plain_kernels_match_pallas_interpret(hubby, dropping, dtype):
     gnt = _t(gn).reshape(np_, h * d).to(dtype)
     tol = TOL[dtype]
 
-    num, den, m = jgd._win_fused_call(gj.band.fwd, jnp.asarray(el), jnp.asarray(er),
-                                      jnp.asarray(mo), fc, 0.2, jd, cd, True)
+    def kernels(el_, er_, mo_, fc_, gn_, gd_):
+        num, den, m = jgd._win_fused_call(gj.band.fwd, el_, er_, mo_, fc_, 0.2, jd, cd, True)
+        der = jgd._win_der_call(gj.band.fwd, el_, er_, m, fc_, gn_, gd_, 0.2, jd, cd, True)
+        return (num, den, m, der) + jgd._win_dsend_call(gj.band.bwd, el_, er_, m, fc_, gn_, gd_,
+                                                        0.2, jd, cd, True)
+
+    # one program of the three kernels, so that their glue compiles once
+    num, den, m, der, d_el, d_f = jax.jit(kernels)(
+        jnp.asarray(el), jnp.asarray(er), jnp.asarray(mo), fc, jnp.asarray(gn), jnp.asarray(gd))
     tnum, tden, tm = tgd.win_fused_plain(gt.band.fwd, _t(el), _t(er), _t(mo), ft, 0.2, td)
     np.testing.assert_array_equal(tm.numpy(), np.asarray(m))
     np.testing.assert_allclose(tnum.numpy(), np.asarray(num).reshape(np_, h * d), **tol)
     np.testing.assert_allclose(tden.numpy(), np.asarray(den), **tol)
 
-    der = jgd._win_der_call(gj.band.fwd, jnp.asarray(el), jnp.asarray(er), m, fc,
-                            jnp.asarray(gn), jnp.asarray(gd), 0.2, jd, cd, True)
     tder = tgd.win_der_plain(gt.band.fwd, _t(el), _t(er), tm, ft, gnt, _t(gd), 0.2, td)
     np.testing.assert_allclose(tder.numpy(), np.asarray(der), **tol)
 
-    d_el, d_f = jgd._win_dsend_call(gj.band.bwd, jnp.asarray(el), jnp.asarray(er), m, fc,
-                                    jnp.asarray(gn), jnp.asarray(gd), 0.2, jd, cd, True)
     tdel, tdf = tgd.win_dsend_plain(gt.band.bwd, _t(el), _t(er), tm, ft, gnt, _t(gd), 0.2, td)
     np.testing.assert_allclose(tdel.numpy(), np.asarray(d_el), **tol)
     np.testing.assert_allclose(tdf.numpy(), np.asarray(d_f).reshape(np_, h * d), **tol)
@@ -130,7 +134,7 @@ def _jax_agg(gj, tb, jd, interp, cdt=None, self_flavour=False):
                                      gj.band, jd, 0.2, cdt, interp)
         return jnp.sum(num * tb["co_n"]) + jnp.sum(den * tb["co_d"]), (num, den)
 
-    (_, out), grads = jax.value_and_grad(loss, (0, 1, 2), has_aux=True)(
+    (_, out), grads = jax.jit(jax.value_and_grad(loss, (0, 1, 2), has_aux=True))(
         jnp.asarray(tb["feat"]), jnp.asarray(tb["el"]), jnp.asarray(tb["er"]))
     return out, grads, c_self
 

@@ -11,6 +11,7 @@ import deep_gcns_torch_tpu.graph as jg
 import deep_gcns_torch_tpu.data.synthetic as jsyn
 import deep_gcns_torch_tpu_torch.graph as tg
 import deep_gcns_torch_tpu_torch.data.synthetic as tsyn
+from torch_budget import budget  # noqa: F401
 
 FIELDS = ("x", "senders", "receivers", "edge_attr", "node_mask", "edge_mask",
           "node_graph", "row_ptr", "csc_perm", "csc_senders", "csc_col_ptr",

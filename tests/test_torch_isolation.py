@@ -6,6 +6,9 @@ import sys
 
 import pytest
 
+import torch_budget
+from torch_budget import budget  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "deep_gcns_torch_tpu_torch")
 MODULES = ["deep_gcns_torch_tpu_torch", "deep_gcns_torch_tpu_torch.device",
@@ -81,7 +84,7 @@ def test_import_leaves_jax_out():
             "or k == 'deep_gcns_torch_tpu' or k.startswith('deep_gcns_torch_tpu.'))\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=torch_budget.SUBPROCESS_S)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
 

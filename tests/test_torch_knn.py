@@ -25,19 +25,9 @@ from deep_gcns_torch_tpu_torch.ops import gather as tgather
 from deep_gcns_torch_tpu_torch.ops import knn as tknn
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
 from deep_gcns_torch_tpu_torch.utils.agreement import knn_flips, knn_rank_margin
+from torch_budget import budget  # noqa: F401
 
 MARGIN = 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this file's small tensors: with 8 threads beside
-    the other test workers, the CPU's `index_add` and small reductions wait
-    on each other far longer than they compute."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _points(seed, shape, k):

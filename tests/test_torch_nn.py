@@ -8,6 +8,7 @@ import torch
 
 import deep_gcns_torch_tpu.nn.core as jc
 import deep_gcns_torch_tpu_torch.nn.core as tc
+from torch_budget import budget  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # a gradient rounded once to bf16: one ulp (2^-7 relative at most) when
@@ -58,8 +59,8 @@ def test_batchnorm_matches_jax(masked):
         y, ns = mod.apply(p, s, x_, train=True, mask=m_j)
         return jnp.sum(y * co), (y, ns)
 
-    (_, (y_j, ns_j)), (gp_j, gx_j) = jax.value_and_grad(
-        loss_j, argnums=(0, 1), has_aux=True)(p, jnp.asarray(x))
+    (_, (y_j, ns_j)), (gp_j, gx_j) = jax.jit(jax.value_and_grad(
+        loss_j, argnums=(0, 1), has_aux=True))(p, jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_(True)
     y_t = bn(xt, m_t)
     (y_t * torch.from_numpy(co)).sum().backward()
@@ -106,7 +107,7 @@ def test_mlp_matches_jax_with_reference_names():
         y, _ = mod.apply(p, s, x_, train=True, mask=jnp.asarray(mask))
         return jnp.sum(y * co5), y
 
-    (_, y_j), (gp, gx) = jax.value_and_grad(loss_j, argnums=(0, 1), has_aux=True)(
+    (_, y_j), (gp, gx) = jax.jit(jax.value_and_grad(loss_j, argnums=(0, 1), has_aux=True))(
         p, jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_(True)
     y_t = mlp(xt, torch.from_numpy(mask))
@@ -166,7 +167,7 @@ def test_bf16_linear_backward_rounds_like_a_bf16_product():
     def loss(p, x):
         return (jc.Linear(32, 16).apply(p, {}, x, compute_dtype=jnp.bfloat16)[0] * co).sum()
 
-    gp, gx = jax.grad(loss, argnums=(0, 1))(p, jnp.asarray(x))
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(p, jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_(True)
     (lin(xt, torch.bfloat16) * torch.from_numpy(co)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), **BF16_GRAD_TOL)
@@ -207,7 +208,7 @@ def test_bf16_mlp_gradients_match_jax():
                         compute_dtype=jnp.bfloat16)
         return (y * co).sum()
 
-    gp, gx = jax.grad(loss, argnums=(0, 1))(p, jnp.asarray(x))
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(p, jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_(True)
     (mlp(xt, torch.from_numpy(mask), torch.bfloat16) * torch.from_numpy(co)).sum().backward()
     want = {"0.weight": gp[0]["lin"]["w"].T, "0.bias": gp[0]["lin"]["b"],

@@ -12,6 +12,7 @@ import torch
 from deep_gcns_torch_tpu_torch.models.rev_gat import BatchStatsNorm
 from deep_gcns_torch_tpu_torch.nn.core import InstanceNorm
 from deep_gcns_torch_tpu_torch.ops import norm_act as tna
+from torch_budget import budget  # noqa: F401
 
 N, C = 37, 6
 MULTS = ["float", "keep", "none"]

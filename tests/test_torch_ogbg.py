@@ -23,23 +23,12 @@ from deep_gcns_torch_tpu_torch.data.ogb_features import ATOM_FEATURE_DIMS, BOND_
 from deep_gcns_torch_tpu_torch.graph import batch_graphs
 from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig
 from deep_gcns_torch_tpu_torch.utils.import_jax import deeper_gcn_state_dict_from_jax
+from torch_budget import budget  # noqa: F401
 
 # elementwise ops: float32 on both sides, the same operations
 TOL = dict(rtol=1e-5, atol=1e-5)
 # through 2-3 layers of aggregation, BatchNorm and pooling: summation order
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch's CPU `index_add` into a few rows (graph pooling and the
-    virtual node sum nodes into a batch's graphs) took 23-87 ms a call with 8
-    threads on an 8-core host, 0.02 ms with one, and far longer beside the
-    other test workers; one thread for this file's tiny models."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -93,10 +82,10 @@ def test_activation_matches_jax(act):
         return jnp.sum(jc.activation(act, x_, prelu=p_) * co)
 
     if p_j is None:
-        gx = jax.grad(f)(jnp.asarray(x), None)
+        gx = jax.jit(jax.grad(f))(jnp.asarray(x), None)
         gp = None
     else:
-        gx, gp = jax.grad(f, (0, 1))(jnp.asarray(x), p_j)
+        gx, gp = jax.jit(jax.grad(f, (0, 1)))(jnp.asarray(x), p_j)
     want = jc.activation(act, jnp.asarray(x), prelu=p_j)
     xt = _t(x).requires_grad_(True)
     pt = None if p_j is None else _t(p_j).requires_grad_(True)
@@ -122,7 +111,7 @@ def test_prelu_and_identity_match_jax():
         y, _ = jc.PReLU(0.3).apply(p, {}, jnp.asarray(x))
         return jnp.sum(y * co), y
 
-    (_, want), gp = jax.value_and_grad(f, has_aux=True)(pj)
+    (_, want), gp = jax.jit(jax.value_and_grad(f, has_aux=True))(pj)
     got = mod(_t(x))
     (got * _t(co)).sum().backward()
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
@@ -150,7 +139,7 @@ def test_embeddings_match_jax_with_reference_names():
         y, _ = jc.MultiEmbedding(ATOM_FEATURE_DIMS, 16).apply(p_, {}, jnp.asarray(x))
         return jnp.sum(y * co), y
 
-    (_, want), gp = jax.value_and_grad(f, has_aux=True)(p)
+    (_, want), gp = jax.jit(jax.value_and_grad(f, has_aux=True))(p)
     got = enc(torch.from_numpy(x))
     (got * _t(co)).sum().backward()
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
@@ -200,7 +189,7 @@ def test_prelu_mlp_matches_jax():
         y, _ = mod.apply(p_, [{}, {}], jnp.asarray(x))
         return jnp.sum(y * co), y
 
-    (_, want), gp = jax.value_and_grad(f, has_aux=True)(p)
+    (_, want), gp = jax.jit(jax.value_and_grad(f, has_aux=True))(p)
     got = mlp(_t(x))
     (got * _t(co)).sum().backward()
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
@@ -221,7 +210,7 @@ def test_genconv_bond_encoder_matches_jax(aggr, learn_t):
     conv_j = JaxGENConv(c, c, aggr=aggr, t=0.7, learn_t=learn_t, encode_edge=True,
                         bond_encoder=True, bond_feature_dims=JAX_BOND, norm="batch",
                         mlp_layers=1)
-    params, state = conv_j.init(jax.random.PRNGKey(1))
+    params, state = jax.jit(conv_j.init)(jax.random.PRNGKey(1))
     x = rng.standard_normal((gt.num_nodes_padded, c)).astype(np.float32)
     co = rng.standard_normal((gt.num_nodes_padded, c)).astype(np.float32)
 
@@ -229,7 +218,8 @@ def test_genconv_bond_encoder_matches_jax(aggr, learn_t):
         out, _ = conv_j.apply(p, state, x_, gj, train=True)
         return jnp.sum(out * co), out
 
-    (_, want), (gp, gx) = jax.value_and_grad(loss, (0, 1), has_aux=True)(params, jnp.asarray(x))
+    (_, want), (gp, gx) = jax.jit(jax.value_and_grad(loss, (0, 1), has_aux=True))(
+        params, jnp.asarray(x))
     conv = GENConv(c, c, aggr=aggr, t=0.7, learn_t=learn_t, encode_edge=True,
                    bond_encoder=True, bond_feature_dims=BOND_FEATURE_DIMS, norm="batch",
                    mlp_layers=1)
@@ -283,7 +273,7 @@ def test_graph_level_deeper_gcn_matches_jax(name, fields, edge_float):
     gj, gt = _batches(_mols(rng, edge_float=edge_float))
     co = rng.standard_normal((4, 3)).astype(np.float32)
     jmodel = JaxDeeperGCN(jcfg)
-    params, state = jmodel.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
     if "vn_emb" in params:  # a non-zero virtual node exercises its gather
         params["vn_emb"] = jnp.asarray(rng.standard_normal((1, 16)).astype(np.float32))
 
@@ -291,7 +281,7 @@ def test_graph_level_deeper_gcn_matches_jax(name, fields, edge_float):
         logits, ns = jmodel.apply(p, state, gj.x, gj, train=True)
         return jnp.sum(logits * co), (logits, ns)
 
-    (_, (logits_j, ns_j)), gp_j = jax.value_and_grad(loss_j, has_aux=True)(params)
+    (_, (logits_j, ns_j)), gp_j = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params)
     model = DeeperGCN(tcfg)
     sd = deeper_gcn_state_dict_from_jax(_np(params), _np(state), jcfg)
     assert set(sd) == set(model.state_dict())

@@ -21,6 +21,7 @@ from deep_gcns_torch_tpu_torch.models import DeeperGCN, DeeperGCNConfig, LinkPre
 from deep_gcns_torch_tpu_torch.utils.import_jax import (deeper_gcn_state_dict_from_jax,
                                                         link_predictor_state_dict_from_jax)
 from deep_gcns_torch_tpu_torch.utils.optim import make_optimizer
+from torch_budget import budget  # noqa: F401
 
 # float32 on both sides; the difference is summation order
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -46,13 +47,13 @@ def test_link_predictor_matches_jax(norm):
     xj = rng.standard_normal((50, 12)).astype(np.float32)
     co = rng.standard_normal((50, 1)).astype(np.float32)
     jm = JaxLinkPredictor(12, 16, 1, 3, norm, 0.0)
-    params, state = jm.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jm.init)(jax.random.PRNGKey(0))
 
     def f(p, a, b):
         y, _ = jm.apply(p, state, a, b, train=True)
         return jnp.sum(y * co), y
 
-    (_, want), (gp, ga, gb) = jax.value_and_grad(f, (0, 1, 2), has_aux=True)(
+    (_, want), (gp, ga, gb) = jax.jit(jax.value_and_grad(f, (0, 1, 2), has_aux=True))(
         params, jnp.asarray(xi), jnp.asarray(xj))
     lp = LinkPredictor(12, 16, 1, 3, norm, 0.0)
     sd = link_predictor_state_dict_from_jax(_np(params), _np(state))
@@ -85,9 +86,9 @@ def test_collab_loss_matches_jax():
               aggr="softmax", t=1.0, norm="batch", mlp_layers=1, dropout=0.0)
     jcfg = JaxConfig(**kw)
     enc = JaxDeeperGCN(jcfg)
-    pe, se = enc.init(jax.random.PRNGKey(0))
+    pe, se = jax.jit(enc.init)(jax.random.PRNGKey(0))
     jlp = JaxLinkPredictor(c, c, 1, 3, "none", 0.0)
-    pl, sl = jlp.init(jax.random.PRNGKey(1))
+    pl, sl = jax.jit(jlp.init)(jax.random.PRNGKey(1))
 
     def loss_j(ap):
         h, _ = enc.apply(ap["enc"], se, gj.x, gj, train=True)
@@ -95,7 +96,7 @@ def test_collab_loss_matches_jax():
         q, _ = jlp.apply(ap["lp"], sl, h[neg[0]], h[neg[1]], train=True)
         return -jnp.log(p + 1e-15).mean() - jnp.log(1 - q + 1e-15).mean()
 
-    want, gp = jax.value_and_grad(loss_j)({"enc": pe, "lp": pl})
+    want, gp = jax.jit(jax.value_and_grad(loss_j))({"enc": pe, "lp": pl})
     model = DeeperGCN(DeeperGCNConfig(**kw))
     model.load_state_dict(deeper_gcn_state_dict_from_jax(_np(pe), _np(se), jcfg))
     lp = LinkPredictor(c, c, 1, 3, "none", 0.0)

@@ -27,6 +27,9 @@ import numpy as np
 import pytest
 import torch
 
+import torch_budget
+from torch_budget import budget  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # K2 at the CPU rehearsal's graph; K7 on a 1,024-node band with hub columns
 # and on the 4,096-node band whose rows pass its list, with the drop
@@ -104,7 +107,8 @@ def run_case(case, procs):
     out = []
     for _ in range(procs):
         run = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", case],
-                             capture_output=True, text=True, timeout=300, check=True, env=env)
+                             capture_output=True, text=True, timeout=torch_budget.SUBPROCESS_S,
+                             check=True, env=env)
         out.append(json.loads(run.stdout.strip().splitlines()[-1]))
     return out
 
@@ -130,7 +134,7 @@ def test_first_exp_after_import_equals_second():
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = [subprocess.Popen([sys.executable, "-c", _FIRST_EXP], stdout=subprocess.PIPE,
                               text=True, env=env) for _ in range(16)]
-    outs = [p.communicate(timeout=300)[0] for p in procs]
+    outs = [p.communicate(timeout=torch_budget.SUBPROCESS_S)[0] for p in procs]
     assert all(p.returncode == 0 for p in procs)
     assert [int(o.strip().splitlines()[-1]) for o in outs] == [0] * 16
 

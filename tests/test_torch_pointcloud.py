@@ -30,23 +30,13 @@ from deep_gcns_torch_tpu_torch.utils.agreement import KnnReplay, knn_rank_margin
 from deep_gcns_torch_tpu_torch.utils.import_jax import (deepgcn_cls_state_dict_from_jax,
                                                         dense_deepgcn_state_dict_from_jax,
                                                         sparse_deepgcn_state_dict_from_jax)
+from torch_budget import budget  # noqa: F401
 
 TOL = {None: dict(out=(1e-4, 1e-4), grad=(1e-3, 2e-4)),
        "bfloat16": dict(out=(2.0 ** -5, 2.0 ** -6), grad=(2.0 ** -5, 2.0 ** -6))}
 KINDS = {"dense": (JaxDense, DenseDeepGCN, dense_deepgcn_state_dict_from_jax),
          "cls": (JaxCls, DeepGCNCls, deepgcn_cls_state_dict_from_jax),
          "sparse": (JaxSparse, SparseDeepGCN, sparse_deepgcn_state_dict_from_jax)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this file's small tensors: with 8 threads beside
-    the other test workers, the CPU's `index_add` and small reductions wait
-    on each other far longer than they compute."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -93,7 +83,7 @@ def test_point_models_match_jax(kind, block, dtype):
     jcls, tcls, carry = KINDS[kind]
     jcfg = JaxConfig(**kw)
     jmodel = jcls(jcfg)
-    params, state = jmodel.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
     sd = carry(_np(params), _np(state), jcfg)
     probe = tcls(DeepGCNConfig(**kw))
     probe.load_state_dict(sd)

@@ -12,7 +12,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from deep_gcns_torch_tpu.data import pointcloud as jpc
 from deep_gcns_torch_tpu.utils import pc_export as jexport
@@ -23,19 +22,9 @@ from deep_gcns_torch_tpu_torch.apps import (modelnet_cls, part_sem_seg, part_sem
 from deep_gcns_torch_tpu_torch.data import pointcloud as tpc
 from deep_gcns_torch_tpu_torch.utils import pc_export as texport
 from deep_gcns_torch_tpu_torch.utils.logger import ScalarLogger
+from torch_budget import budget  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this file's small tensors: with 8 threads beside
-    the other test workers, the CPU's `index_add` and small reductions wait
-    on each other far longer than they compute."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_app(name, script):

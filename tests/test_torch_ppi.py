@@ -31,6 +31,7 @@ from deep_gcns_torch_tpu_torch.models import (DeepGCNCls, DeepGCNConfig, DeepGCN
                                               DenseDeepGCN, SparseDeepGCN)
 from deep_gcns_torch_tpu_torch.utils.import_jax import deepgcn_static_state_dict_from_jax
 from deep_gcns_torch_tpu_torch.utils.import_torch import export_deepgcn, import_deepgcn
+from torch_budget import budget  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -53,7 +54,7 @@ def test_deepgcn_static_matches_jax(block, conv):
               norm="batch", dropout=0.0)
     jcfg = JaxConfig(**kw)
     jmodel = JaxDeepGCN(jcfg)
-    params, state = jmodel.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
     gt, gj, rng = _graphs(1)
     co = rng.standard_normal((gt.num_nodes_padded, 9)).astype(np.float32)
     co[gt.n_node:] = 0.0
@@ -62,7 +63,7 @@ def test_deepgcn_static_matches_jax(block, conv):
         out, ns = jmodel.apply(p, state, jnp.asarray(gj.x), gj, train=True)
         return jnp.sum(out * co), (out, ns)
 
-    (_, (want, ns)), gp = jax.value_and_grad(loss_j, has_aux=True)(params)
+    (_, (want, ns)), gp = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params)
     model = DeepGCNStatic(DeepGCNConfig(**kw))
     model.load_state_dict(deepgcn_static_state_dict_from_jax(_np_tree(params),
                                                              _np_tree(state), jcfg))

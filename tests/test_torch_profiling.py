@@ -15,6 +15,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from deep_gcns_torch_tpu_torch.utils import profiling
 from deep_gcns_torch_tpu_torch.utils.profiling import span, spans_on
+from torch_budget import budget  # noqa: F401
 
 
 def _names():

@@ -25,6 +25,7 @@ from deep_gcns_torch_tpu_torch.utils.loss import bce_with_logits
 from deep_gcns_torch_tpu_torch.utils.metrics import roc_auc
 from deep_gcns_torch_tpu_torch.utils.optim import clip_grad_global_norm_, make_optimizer
 from test_torch_graph import assert_same_graph
+from torch_budget import budget  # noqa: F401
 
 
 def _edges(seed, n=500, e=6000):

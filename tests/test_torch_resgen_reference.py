@@ -20,6 +20,7 @@ from deep_gcns_torch_tpu_torch.graph import add_self_loops, build_graph, to_undi
 from deep_gcns_torch_tpu_torch.utils.loss import cross_entropy
 
 import torch_ref_resgen as ref
+from torch_budget import budget  # noqa: F401
 
 N, C_IN, K = 300, 128, 40
 # float32 on both sides, in other orders of summation: the port takes the
@@ -31,16 +32,6 @@ N, C_IN, K = 300, 128, 40
 # mixed signs; a bias that a norm follows has a gradient of round-off alone).
 LOGIT_RTOL, LOSS_RTOL = 1e-4, 1e-4
 GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-4
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """28 layers of 300-row tensors: more threads than two only add
-    scheduling, which dominates under a parallel test run; restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _case(scale: float, seed: int = 0):

@@ -23,6 +23,7 @@ from deep_gcns_torch_tpu_torch.nn.core import shared_dropout_mask
 from deep_gcns_torch_tpu_torch.rev import GENBlock, GroupAdditiveCoupling, reversible_stack
 from deep_gcns_torch_tpu_torch.rev.rev_layer import GATBlock, GCNBlock, SAGEBlock
 from deep_gcns_torch_tpu_torch.utils.import_jax import rev_gcn_state_dict_from_jax
+from torch_budget import budget  # noqa: F401
 
 GOLD = os.path.join(os.path.dirname(__file__), "goldens")
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -126,14 +127,14 @@ def test_revgcn_matches_jax(aggr, learn_t, one_hot):
     co[80:] = 0.0
     jcfg = JaxRevGCNConfig(**kw)
     jmodel = JaxRevGCN(jcfg)
-    params, state = jmodel.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
 
     def loss_j(p):
         out, _ = jmodel.apply(p, state, jnp.asarray(x), gj, node_feats=jnp.asarray(nf),
                               train=True, rng=jax.random.PRNGKey(1))
         return jnp.sum(out * co), out
 
-    (_, want), gp = jax.value_and_grad(loss_j, has_aux=True)(params)
+    (_, want), gp = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params)
 
     model = RevGCN(RevGCNConfig(**kw))
     model.load_state_dict(rev_gcn_state_dict_from_jax(_jax_tree(params), jcfg))
@@ -194,14 +195,14 @@ def test_revgcn_gcn_sage_matches_jax(conv):
     co[80:] = 0.0
     jcfg = JaxRevGCNConfig(**kw)
     jmodel = JaxRevGCN(jcfg)
-    params, state = jmodel.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
 
     def loss_j(p):
         out, _ = jmodel.apply(p, state, jnp.asarray(x), gj, node_feats=jnp.asarray(nf),
                               train=True, rng=jax.random.PRNGKey(1))
         return jnp.sum(out * co), out
 
-    (_, want), gp = jax.value_and_grad(loss_j, has_aux=True)(params)
+    (_, want), gp = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params)
     model = RevGCN(RevGCNConfig(**kw))
     assert model.edge_encoder is None
     model.load_state_dict(rev_gcn_state_dict_from_jax(_jax_tree(params), jcfg))
@@ -227,7 +228,7 @@ def test_weight_carry_covers_every_entry(kw):
     base = dict(hidden_channels=16, num_tasks=5, num_layers=3, group=2)
     base.update(kw)
     jcfg = JaxRevGCNConfig(**base)
-    params, _ = JaxRevGCN(jcfg).init(jax.random.PRNGKey(0))
+    params, _ = jax.jit(JaxRevGCN(jcfg).init)(jax.random.PRNGKey(0))
     sd = rev_gcn_state_dict_from_jax(_jax_tree(params), jcfg)
     model = RevGCN(RevGCNConfig(**base))
     own = model.state_dict()
@@ -291,14 +292,14 @@ def test_revgcn_gat_matches_jax(band_mode, band):
     co[n:] = 0.0
     jcfg = JaxRevGCNConfig(**kw)
     jmodel = JaxRevGCN(jcfg)
-    params, state = jmodel.init(jax.random.PRNGKey(0))
+    params, state = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
 
     def loss_j(p):
         out, _ = jmodel.apply(p, state, jnp.asarray(x), gj, node_feats=jnp.asarray(nf),
                               train=True, rng=jax.random.PRNGKey(1))
         return jnp.sum(out * co), out
 
-    (_, want), gp = jax.value_and_grad(loss_j, has_aux=True)(params)
+    (_, want), gp = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params)
     model = RevGCN(RevGCNConfig(**kw))
     assert isinstance(model.gcns[0].Fms[1], GATBlock) and model.edge_encoder is None
     model.load_state_dict(rev_gcn_state_dict_from_jax(_jax_tree(params), jcfg))

@@ -16,6 +16,7 @@ from deep_gcns_torch_tpu_torch.convs.sparse import GENConv
 from deep_gcns_torch_tpu_torch.graph import build_graph
 from deep_gcns_torch_tpu_torch.ops import segment as tseg
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
+from torch_budget import budget  # noqa: F401
 
 AGGRS = ("softmax", "softmax_sg", "softmax_sum", "power", "power_sum", "add", "mean",
          "max", "min")
@@ -49,7 +50,7 @@ def test_generalized_aggregate_matches_jax(aggr):
                                          y=y, learn_t=learn_t, mask=jnp.asarray(mask))
         return jnp.sum(out * co), out
 
-    (_, want), grads = jax.value_and_grad(f_jax, argnums=(0, 1, 2, 3), has_aux=True)(
+    (_, want), grads = jax.jit(jax.value_and_grad(f_jax, argnums=(0, 1, 2, 3), has_aux=True))(
         jnp.asarray(msgs), *(jnp.asarray(v) for v in scal.values()))
 
     m_t = torch.from_numpy(msgs).requires_grad_(True)
@@ -118,7 +119,7 @@ def test_scatter_matches_jax(name):
                            indices_are_sorted=False)
         return jnp.sum(out * co), out
 
-    (_, want), gwant = jax.value_and_grad(f, has_aux=True)(jnp.asarray(data))
+    (_, want), gwant = jax.jit(jax.value_and_grad(f, has_aux=True))(jnp.asarray(data))
     d_t = torch.from_numpy(data).requires_grad_(True)
     got = tseg.scatter(name, d_t, torch.from_numpy(ids), 40, torch.from_numpy(mask))
     (got * torch.from_numpy(co)).sum().backward()

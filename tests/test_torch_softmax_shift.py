@@ -21,6 +21,7 @@ import torch
 
 from deep_gcns_torch_tpu_torch.graph import build_graph
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
+from torch_budget import budget  # noqa: F401
 
 EPS = 1e-7
 T = float(np.float32(0.1))  # ResGEN-28's t, as the float32 the Functions read

@@ -18,7 +18,6 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-import torch
 
 import torch_parallel_cases as tpc
 from deep_gcns_torch_tpu.models import DeeperGCNConfig as JaxConfig
@@ -29,21 +28,13 @@ from deep_gcns_torch_tpu.parallel.spatial import spatial_forward as jax_spatial_
 from deep_gcns_torch_tpu.parallel.spatial import spatial_train_step as jax_spatial_step
 from deep_gcns_torch_tpu_torch.parallel import launch, shard_graph, shard_nodes
 from deep_gcns_torch_tpu_torch.utils.import_jax import deeper_gcn_state_dict_from_jax
+import torch_budget
+from torch_budget import budget  # noqa: F401
 
 FWD = dict(rtol=2e-4, atol=2e-5)
 STEP = dict(rtol=3e-4, atol=3e-5)
 BASE = dict(hidden_channels=24, num_tasks=5, num_layers=3, block="res+", aggr="softmax",
             norm="layer", mlp_layers=1, dropout=0.0)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One torch thread in this process (the ranks take one each too): beside
-    tier-1's other workers more threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -80,7 +71,7 @@ class Case:
         s, r, x, ea, labels = _graph(n, e, c, edge_dim, seed, local)
         jcfg = JaxConfig(**kw)
         model = JaxSpatial(jcfg, exchange=exchange, band_interpret=band != "off")
-        params, state = model.init(jax.random.PRNGKey(seed))
+        params, state = jax.jit(model.init)(jax.random.PRNGKey(seed))
         params, state = _np(params), _np(state)
         jsh = jax_shard_graph(s, r, n, d, edge_attr=ea, band=band)
         sh = shard_graph(s, r, n, d, edge_attr=ea, band=band)
@@ -171,7 +162,7 @@ def _run(d):
         for i, c in enumerate(cases.values()):
             c.index = i + 1
             port.append(c.port)
-        _RUNS[d] = cases, launch(tpc.run_cases, d, (port,), deadline=240)
+        _RUNS[d] = cases, launch(tpc.run_cases, d, (port,), deadline=torch_budget.SUBPROCESS_S)
     return _RUNS[d]
 
 

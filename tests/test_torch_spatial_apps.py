@@ -15,21 +15,12 @@ import torch
 
 from deep_gcns_torch_tpu_torch.apps import (ogbn_arxiv, ogbn_arxiv_test, ogbn_products,
                                             ogbn_proteins, ogbn_proteins_rev)
+from torch_budget import budget  # noqa: F401
 
 ARXIV = ["--synthetic", "--device", "cpu", "--synthetic_nodes", "600", "--num_layers", "2",
          "--hidden_channels", "16"]
 PROTEINS = ["--synthetic", "--device", "cpu", "--synthetic_nodes", "600", "--num_layers", "3",
             "--synthetic_degree", "8", "--epochs", "2", "--spatial", "2"]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One torch thread in this process (the ranks take one each too): beside
-    tier-1's other workers more threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _finite(out):

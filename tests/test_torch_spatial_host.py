@@ -21,6 +21,7 @@ from deep_gcns_torch_tpu_torch.ops.segment import generalized_aggregate_split
 from deep_gcns_torch_tpu_torch.parallel import launch
 from deep_gcns_torch_tpu_torch.parallel.launch import RankFailed
 from deep_gcns_torch_tpu_torch.parallel.spatial import shard_graph, shard_nodes
+from torch_budget import budget  # noqa: F401
 
 FIELDS = ("senders", "receivers", "edge_attr", "edge_mask", "row_ptr", "node_mask",
           "senders_ext", "loc_senders", "loc_receivers", "loc_row_ptr", "loc_edge_attr",
@@ -28,16 +29,6 @@ FIELDS = ("senders", "receivers", "edge_attr", "edge_mask", "row_ptr", "node_mas
 BAND_ARRAYS = ("w_lo", "a", "lo_src", "lo_dst", "lo_row_ptr", "hub_ids", "a_hub",
                "hub_row_ids", "a_row", "a_t", "a_hub_t")
 BAND_STATIC = ("window", "n_edges", "n_lo", "n_hub", "n_hub_row")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One torch thread in this process (the ranks take one each too): beside
-    tier-1's other workers more threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _graph(n, e, edge_dim, seed=0, local=False):
@@ -143,7 +134,7 @@ def test_generalized_aggregate_split_matches_jax(aggr, learn):
 
     jms = [jnp.asarray(m) for m, _, _ in parts]
     jt, jp, jy = (jnp.asarray([v], jnp.float32) for v in (t0, p0, y0))
-    (_, want), grads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3), has_aux=True)(
+    (_, want), grads = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2, 3), has_aux=True))(
         jms, jt, jp, jy)
 
     tms = [torch.from_numpy(m).requires_grad_(True) for m, _, _ in parts]

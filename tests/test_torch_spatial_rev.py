@@ -35,6 +35,8 @@ from deep_gcns_torch_tpu_torch.parallel import launch, shard_graph, shard_nodes
 from deep_gcns_torch_tpu_torch.utils.import_jax import (deeper_gcn_state_dict_from_jax,
                                                         rev_gcn_state_dict_from_jax)
 from deep_gcns_torch_tpu_torch.utils.loss import cross_entropy
+import torch_budget
+from torch_budget import budget  # noqa: F401
 
 FWD = dict(rtol=2e-4, atol=2e-5)
 STEP = dict(rtol=3e-4, atol=3e-5)
@@ -42,16 +44,6 @@ DP = dict(rtol=1e-4, atol=1e-5)
 REV = dict(in_channels=8, node_feat_dim=8, edge_feat_dim=8, hidden_channels=16, num_tasks=5,
            num_layers=3, group=2, aggr="softmax", t=0.7, dropout=0.0, norm="layer",
            use_one_hot_encoding=True)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One torch thread in this process (the ranks take one each too): beside
-    tier-1's other workers more threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -80,7 +72,7 @@ class RevCase:
         labels = rng.integers(0, 5, n)
         jcfg = JaxRevConfig(**kw)
         model = JaxSpatialRev(jcfg, exchange=exchange)
-        params, _ = model.init(jax.random.PRNGKey(seed))
+        params, _ = jax.jit(model.init)(jax.random.PRNGKey(seed))
         params = _np(params)
         jsh = jax_shard_graph(s, r, n, d, edge_attr=ea)
         sh = shard_graph(s, r, n, d, edge_attr=ea)
@@ -153,7 +145,7 @@ class DPCase:
                       edge_mode="per_layer", edge_feat_dim=8)
             jcfg = JaxDeeperConfig(**kw)
             jm = JaxDeeperGCN(jcfg)
-        params, state = jm.init(jax.random.PRNGKey(3))
+        params, state = jax.jit(jm.init)(jax.random.PRNGKey(3))
         params, state = _np(params), _np(state)
         conv = ((lambda p, s: rev_gcn_state_dict_from_jax(p, jcfg)) if model == "rev" else
                 (lambda p, s: deeper_gcn_state_dict_from_jax(p, s, jcfg)))
@@ -230,7 +222,8 @@ def _run(d):
         assert list(cases) == NAMES[d]
         for i, c in enumerate(cases.values()):
             c.index = i
-        out = launch(tpc.run_cases, d, ([c.port for c in cases.values()],), deadline=240)
+        out = launch(tpc.run_cases, d, ([c.port for c in cases.values()],),
+                     deadline=torch_budget.SUBPROCESS_S)
         assert all(rk["jax_free"] for rk in out)
         _RUNS[d] = cases, [rk["results"] for rk in out]
     return _RUNS[d]

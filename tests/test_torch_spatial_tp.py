@@ -16,7 +16,6 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-import torch
 
 import torch_parallel_cases as tpc
 from deep_gcns_torch_tpu.models import DeeperGCN as JaxDeeperGCN
@@ -30,20 +29,14 @@ from deep_gcns_torch_tpu.parallel import spatial_tp_train_step as jax_step
 from deep_gcns_torch_tpu.parallel import unshard_deeper_params as jax_unshard
 from deep_gcns_torch_tpu_torch.parallel import launch, shard_graph, shard_nodes
 from deep_gcns_torch_tpu_torch.utils.import_jax import deeper_gcn_state_dict_from_jax
+import torch_budget
+from torch_budget import budget  # noqa: F401
 
 GP, TP = 2, 2
 FWD = dict(rtol=3e-4, atol=3e-5)
 STEP = dict(rtol=5e-4, atol=5e-5)
 BASE = dict(in_channels=16, hidden_channels=32, num_tasks=8, num_layers=3, block="res+",
             aggr="softmax", t=0.5, norm="batch", mlp_layers=1, dropout=0.0)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -141,7 +134,8 @@ def _run():
         for i, c in enumerate(cases.values()):
             c.index = i
         _RUN["out"] = cases, launch(tpc.run_cases, GP * TP,
-                                    ([c.port for c in cases.values()],), deadline=300)
+                                    ([c.port for c in cases.values()],),
+                                    deadline=torch_budget.SUBPROCESS_S)
     return _RUN["out"]
 
 

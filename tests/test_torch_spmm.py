@@ -17,6 +17,7 @@ from deep_gcns_torch_tpu.ops import spmm_pallas as sp
 from deep_gcns_torch_tpu_torch.graph import longest_first
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
 from np_ref import random_graph, with_top_sender
+from torch_budget import budget  # noqa: F401
 
 FWD = dict(rtol=2e-5, atol=2e-5)
 GRAD = dict(rtol=5e-4, atol=1e-5)
@@ -52,7 +53,7 @@ def test_segment_sum_csr_forward_and_grad(rng_np):
         out = sp.segment_sum_csr(m, recv, rp, True)
         return jnp.sum(out * co), out
 
-    (_, want), gm = jax.value_and_grad(f, has_aux=True)(jnp.asarray(msgs))
+    (_, want), gm = jax.jit(jax.value_and_grad(f, has_aux=True))(jnp.asarray(msgs))
     m_t = _t(msgs).requires_grad_(True)
     got = tsp.segment_sum_csr(m_t, _t(g.receivers), _t(g.row_ptr))
     (got * _t(co)).sum().backward()
@@ -111,7 +112,7 @@ def test_fused_softmax_gather_agg_grads(rng_np, grad_weights):
                                           True)
         return jnp.sum(out ** 2)
 
-    gx, gt = jax.grad(f, argnums=(0, 1))(jnp.asarray(x), jnp.float32(0.9))
+    gx, gt = jax.jit(jax.grad(f, argnums=(0, 1)))(jnp.asarray(x), jnp.float32(0.9))
     x_t = _t(x).requires_grad_(True)
     t_t = torch.tensor([0.9], requires_grad=grad_weights)
     out = tsp.fused_softmax_gather_agg(x_t, *_port_args(g), t_t, eps=1e-7,

@@ -23,7 +23,6 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-import torch
 
 import torch_parallel_cases as tpc
 from deep_gcns_torch_tpu.graph import build_graph as jax_build_graph
@@ -40,6 +39,8 @@ from deep_gcns_torch_tpu_torch.models import DeeperGCNConfig
 from deep_gcns_torch_tpu_torch.parallel import (check_tp_supported, launch, shard_deeper_params,
                                                 unshard_deeper_params)
 from deep_gcns_torch_tpu_torch.utils.import_jax import deeper_gcn_state_dict_from_jax
+import torch_budget
+from torch_budget import budget  # noqa: F401
 
 N_DEV = 4
 FWD = dict(rtol=2e-4, atol=2e-5)
@@ -47,14 +48,6 @@ STEP = dict(rtol=4e-4, atol=4e-5)
 STEP_MLP2 = dict(rtol=5e-4, atol=5e-5)
 BASE = dict(in_channels=16, hidden_channels=32, num_tasks=8, num_layers=3, block="res+",
             aggr="softmax", t=0.5, norm="batch", mlp_layers=1, dropout=0.0)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -158,7 +151,8 @@ def _run():
         for i, c in enumerate(cases.values()):
             c.index = i + 1
             port.append(c.port)
-        _RUN["out"] = cases, launch(tpc.run_cases, N_DEV, (port,), deadline=300)
+        _RUN["out"] = cases, launch(tpc.run_cases, N_DEV, (port,),
+                                    deadline=torch_budget.SUBPROCESS_S)
     return _RUN["out"]
 
 

@@ -19,7 +19,6 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-import torch
 
 import torch_parallel_cases as tpc
 from deep_gcns_torch_tpu.graph import build_graph as jax_build_graph
@@ -37,18 +36,12 @@ from deep_gcns_torch_tpu_torch.models import RevGCNConfig
 from deep_gcns_torch_tpu_torch.parallel import (check_tp_rev_supported, launch,
                                                 shard_rev_params, unshard_rev_params)
 from deep_gcns_torch_tpu_torch.utils.import_jax import rev_gcn_state_dict_from_jax
+import torch_budget
+from torch_budget import budget  # noqa: F401
 
 N_DEV = 4
 FWD = dict(rtol=2e-4, atol=2e-5)
 STEP = dict(rtol=3e-4, atol=3e-5)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -159,7 +152,7 @@ def _run():
         for i, c in enumerate(cases.values()):
             c.index = i
         _RUN["out"] = cases, launch(tpc.run_cases, N_DEV, ([c.port for c in cases.values()],),
-                                    deadline=300)
+                                    deadline=torch_budget.SUBPROCESS_S)
     return _RUN["out"]
 
 

@@ -17,6 +17,7 @@ from deep_gcns_torch_tpu_torch.device import resolve_device
 from deep_gcns_torch_tpu_torch.utils.loss import cross_entropy, kd_loss
 from deep_gcns_torch_tpu_torch.utils.metrics import accuracy
 from deep_gcns_torch_tpu_torch.utils.optim import linear_schedule, make_optimizer
+from torch_budget import budget  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -32,7 +33,7 @@ def test_cross_entropy_matches_jax(masked):
         return jloss.cross_entropy(lg, jnp.asarray(labels),
                                    None if mask is None else jnp.asarray(mask))
 
-    want, gwant = jax.value_and_grad(f)(jnp.asarray(logits))
+    want, gwant = jax.jit(jax.value_and_grad(f))(jnp.asarray(logits))
     lt = torch.from_numpy(logits).requires_grad_(True)
     got = cross_entropy(lt, torch.from_numpy(labels),
                         None if mask is None else torch.from_numpy(mask))
@@ -109,7 +110,7 @@ def test_kd_loss_matches_jax(masked):
         return jloss.kd_loss(s_, jnp.asarray(t), 0.7,
                              None if mask is None else jnp.asarray(mask))
 
-    want, gwant = jax.value_and_grad(f)(jnp.asarray(s))
+    want, gwant = jax.jit(jax.value_and_grad(f))(jnp.asarray(s))
     st = torch.from_numpy(s).requires_grad_(True)
     got = kd_loss(st, torch.from_numpy(t), 0.7, None if mask is None else torch.from_numpy(mask))
     got.backward()
@@ -243,7 +244,7 @@ def test_smooth_cross_entropy_matches_jax(masked):
         return jloss.smooth_cross_entropy(lg, jnp.asarray(labels), 0.2,
                                           None if mask is None else jnp.asarray(mask))
 
-    want, gwant = jax.value_and_grad(f)(jnp.asarray(logits))
+    want, gwant = jax.jit(jax.value_and_grad(f))(jnp.asarray(logits))
     lt = torch.from_numpy(logits).requires_grad_(True)
     got = smooth_cross_entropy(lt, torch.from_numpy(labels), 0.2,
                                None if mask is None else torch.from_numpy(mask))

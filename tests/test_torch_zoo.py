@@ -47,6 +47,7 @@ from deep_gcns_torch_tpu_torch.ops import segment as tseg
 from deep_gcns_torch_tpu_torch.ops import spmm_cuda as tsp
 from deep_gcns_torch_tpu_torch.utils.import_jax import _genconv, zoo_conv_entries
 from deep_gcns_torch_tpu_torch.utils.import_torch import import_deepgcn
+from torch_budget import budget  # noqa: F401
 
 GOLD = os.path.join(os.path.dirname(__file__), "goldens")
 FWD = dict(rtol=2e-4, atol=2e-4)
@@ -109,7 +110,7 @@ def _genconv_pair(aggr, learn_t, c=16, seed=0):
     kw = dict(aggr=aggr, t=0.8, learn_t=learn_t, learn_y=aggr == "softmax_sum", y=0.3,
               norm="batch", mlp_layers=2)
     jconv = jcs.GENConv(c, c, **kw)
-    params, state = jconv.init(jax.random.PRNGKey(seed))
+    params, state = jax.jit(jconv.init)(jax.random.PRNGKey(seed))
     holder = nn.Module()
     holder.conv = tcs.GENConv(c, c, **kw)
     cfg = SimpleNamespace(mlp_layers=2, learn_t=learn_t, aggr=aggr, learn_p=False,
@@ -129,7 +130,7 @@ def _genconv_matches_jax(gt, gj, rng, aggr, learn_t):
         out, ns = jconv.apply(p, state, x_, gj, train=True)
         return jnp.sum(out * co), (out, ns)
 
-    (_, (want, _)), (gp, gx) = jax.value_and_grad(loss_j, argnums=(0, 1), has_aux=True)(
+    (_, (want, _)), (gp, gx) = jax.jit(jax.value_and_grad(loss_j, argnums=(0, 1), has_aux=True))(
         params, jnp.asarray(x))
     sd = {}
     _genconv(sd, "conv", _np_tree(params), _np_tree(state), cfg, "batch", ())
@@ -211,7 +212,7 @@ def test_generalized_aggregate_with_row_ptr_matches_jax(aggr):
                                          y=y, learn_t=learn_t, mask=jnp.asarray(mask))
         return jnp.sum(out * co), out
 
-    (_, want), grads = jax.value_and_grad(f_jax, argnums=(0, 1, 2, 3), has_aux=True)(
+    (_, want), grads = jax.jit(jax.value_and_grad(f_jax, argnums=(0, 1, 2, 3), has_aux=True))(
         jnp.asarray(msgs), *(jnp.asarray(v) for v in scal.values()))
     m_t = torch.from_numpy(msgs).requires_grad_(True)
     sc_t = {k: torch.tensor([v], requires_grad=True) for k, v in scal.items()}
@@ -249,7 +250,7 @@ def test_scatter_with_row_ptr_matches_jax(name, c, node_pad, monkeypatch):
         out = jseg.scatter(name, d, jnp.asarray(recv), node_pad, jnp.asarray(mask))
         return jnp.sum(out * co), out
 
-    (_, want), gwant = jax.value_and_grad(f, has_aux=True)(jnp.asarray(data))
+    (_, want), gwant = jax.jit(jax.value_and_grad(f, has_aux=True))(jnp.asarray(data))
     calls = []
     monkeypatch.setattr(tseg, "segment_sum_csr",
                         lambda *a: calls.append(1) or tsp.segment_sum_csr(*a))
@@ -285,7 +286,7 @@ def test_message_form_matches_jax_kernel_route(aggr, monkeypatch):
         return jnp.sum(out * co), out
 
     args = (jnp.asarray(msgs), jnp.asarray([-0.9], jnp.float32), jnp.asarray([0.4]))
-    (_, want), grads = jax.value_and_grad(f_jax, argnums=(0, 1, 2), has_aux=True)(*args)
+    (_, want), grads = jax.jit(jax.value_and_grad(f_jax, argnums=(0, 1, 2), has_aux=True))(*args)
     m_t = torch.from_numpy(msgs).requires_grad_(True)
     t_t = torch.tensor([-0.9], requires_grad=True)
     y_t = torch.tensor([0.4], requires_grad=True)
@@ -326,7 +327,7 @@ def test_message_form_function_matches_jax(dtype, grad_weights):
         out = sp.gen_softmax_aggregate_csr(m, recv, rp, t, grad_weights, True)
         return jnp.sum(out.astype(jnp.float32) * co), out
 
-    (_, want), (gm, gt) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+    (_, want), (gm, gt) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
         jnp.asarray(msgs).astype(jd), jnp.asarray([0.6], jnp.float32))
     m_t = torch.from_numpy(msgs).to(td).requires_grad_(True)
     t_t = torch.tensor([0.6], requires_grad=grad_weights)
@@ -373,7 +374,7 @@ def test_route_misses_are_counted():
 def _zoo_pair(conv, c_in=16, c_out=16, norm="batch", seed=0):
     heads = 4 if conv == "gat" else 1
     jconv = jcs.graph_conv(c_in, c_out, conv, "relu", norm, True, heads)
-    params, state = jconv.init(jax.random.PRNGKey(seed))
+    params, state = jax.jit(jconv.init)(jax.random.PRNGKey(seed))
     tconv = tcs.GraphConv(c_in, c_out, conv, "relu", norm, True, heads)
     sd = {}
     zoo_conv_entries(sd, "gconv", _np_tree(params), _np_tree(state), conv, norm)
@@ -391,7 +392,7 @@ def _run_zoo(conv, gt, gj, rng, norm="batch", c=16):
         out, ns = jconv.apply(p, state, x_, gj, train=True)
         return jnp.sum(out * co), (out, ns)
 
-    (_, (want, ns)), (gp, gx) = jax.value_and_grad(loss_j, argnums=(0, 1), has_aux=True)(
+    (_, (want, ns)), (gp, gx) = jax.jit(jax.value_and_grad(loss_j, argnums=(0, 1), has_aux=True))(
         params, jnp.asarray(x))
     tconv.train()
     xt = torch.from_numpy(x).requires_grad_(True)
@@ -441,7 +442,7 @@ def test_band_extreme_matches_jax(kind, band_mode):
         out = jband.band_extreme(x_, gj.band, gj.senders, gj.receivers, gj.edge_mask, kind)
         return jnp.sum(out * co), out
 
-    (_, want), gx = jax.value_and_grad(f, has_aux=True)(jnp.asarray(x))
+    (_, want), gx = jax.jit(jax.value_and_grad(f, has_aux=True))(jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_(True)
     got = tband.band_extreme(xt, gt.band, gt.senders, gt.receivers, gt.edge_mask, kind)
     (got * torch.from_numpy(co)).sum().backward()
@@ -464,7 +465,7 @@ def test_genconv_band_extreme_matches_jax(aggr, band_mode):
         out, _ = jconv.apply(p, state, x_, gj, train=True)
         return jnp.sum(out * co), out
 
-    (_, want), (gp, gx) = jax.value_and_grad(loss_j, argnums=(0, 1), has_aux=True)(
+    (_, want), (gp, gx) = jax.jit(jax.value_and_grad(loss_j, argnums=(0, 1), has_aux=True))(
         params, jnp.asarray(x))
     sd = {}
     _genconv(sd, "conv", _np_tree(params), _np_tree(state), cfg, "batch", ())
