@@ -15,10 +15,16 @@ every check; nothing is caught):
    plain versions at
    the main path's shapes (ogbn-arxiv size: N=169,343, 14 random in-edges per
    node plus self-loops, C=128); K2 launched twice, bit for bit; K2's corner
-   cases on a 3,000-node graph with a hub row of 5,000 edges and 100 rows
-   with no edge (and, for K4 in phase 14, a hub sender of 4,000 edges and
-   100 senders with none), at C=40, 64, 128 and 41, f32 and bf16 (empty rows
-   exact 0, two launches bit for bit);
+   cases on a 3,000-node graph with a hub row of 5,000 edges, rows of
+   D − 1, D and D + 1 edges (D = `K2_SPLIT_EDGES`) and 100 rows with no edge
+   (and, for K4 in phase 14, a hub sender of 4,000 edges and 100 senders
+   with none), at C=40, 64, 128 and 41, f32 and bf16 (empty rows exact 0,
+   two launches bit for bit); there K2's long-row split, at the graph's
+   count of split rows and with every row split, against the plain version
+   and bit for bit the launch that splits none, its rows counted in
+   `softmax_agg.split_rows`; and the fused Function at C=128 with the
+   graph's count, forward and backward, against the plain Function and bit
+   for bit the one that splits none (phase 14 repeats both with `ee`);
 3. agreement: a small DeeperGCN on the card (kernels) against the same
    weights on the CPU (plain versions): logits and gradients;
 4. main path, gather route: ResGEN-28 (res+, softmax_sg t=0.1, batch norm,
@@ -376,18 +382,21 @@ CPU at a tiny size through the plain versions, for checking the script
 without a card; it prints no device result.
 
 `--kernel-times` runs phase 1 and then only times K2 (C=128, and with `ee`
-at C=40 and 64), K4 (without dt at C=40, with dt at C=64) and K10 (C=128)
-in float32 and bfloat16, K7, K8 and K9 in bfloat16 at 3x128, 3x256 and
-1x40 and in float32 at 3x128, and K5 and K6 in bfloat16 at P=392, 776 and
-48 and in float32 at P=392, at the shapes and on the inputs of phases 6,
+at C=40 and 64; and float32 C=128 on the `resgen28-arxiv-gather` benchmark
+cell's graph as it is, without its long-row split, with every row cut to
+128 edges and with its 8 longest rows alone), K4 (without dt at C=40, with
+dt at C=64) and K10 (C=128) in float32 and bfloat16, K7, K8 and K9 in
+bfloat16 at 3x128, 3x256 and 1x40 and in float32 at 3x128, and K5 and K6 in
+bfloat16 at P=392, 776 and 48 and in float32 at P=392, at the shapes and on
+the inputs of phases 6,
 19, 25, 29 and 32, and K1 at phase 39's shapes (also as device times),
 printing one JSON line and no device result. It uses the package beside
 the script, so two commits compare on one card by copying this script into
 a checkout of each (`git archive <commit>` into a git-ignored directory)
 and running the copies in turns: parent, change, change, parent;
 `--output-hashes` adds a digest of each K1, K5, K6 (its dmsg and d_el
-columns apart), K7, K8 and K9 output to that line, so that the two
-commits' kernels compare bit for bit.
+columns apart), K7, K8 and K9 output, and of K2's on the cell's graph, to
+that line, so that the two commits' kernels compare bit for bit.
 
 `--norm-act` runs phase 1 and then only phase 71, printing its `kernels`
 rows as one JSON line and no device result.
@@ -662,6 +671,7 @@ def phase_kernels(g):
         errs[tag] = {"K1": max(e1a, e1b), "K2": e2, "K4": e4}
     corner = k2_corner_graph(dev)
     k2_corner_checks(chk, corner, False, gen)
+    fused_split_checks(chk, corner, False, gen)
     k4_corner_checks(chk, corner, gen, with_ee=False)
     sync(dev)
     chk.raise_if_failed()
@@ -670,14 +680,18 @@ def phase_kernels(g):
 
 def k2_corner_graph(dev):
     """K2's and K4's corner cases in one graph: 3,000 nodes, 30,000 random
-    edges with 8-dim edge features, a hub row of 5,000 in-edges (row 11) and
-    100 rows with no edge (the last nodes receive none); for K4, whose rows
-    are senders, a hub sender of 4,000 out-edges (node 17) and 100 senders
-    with no edge (the 100 nodes before the last 100 send none)."""
+    edges with 8-dim edge features, a hub row of 5,000 in-edges (row 11),
+    rows of exactly D − 1, D and D + 1 in-edges (rows 20, 21 and 22, D =
+    `K2_SPLIT_EDGES`, so that K2 splits the hub and row 22) and 100 rows
+    with no edge (the last nodes receive none); for K4, whose rows are
+    senders, a hub sender of 4,000 out-edges (node 17) and 100 senders with
+    no edge (the 100 nodes before the last 100 send none)."""
     rng = np.random.default_rng(13)
-    n, e = 3000, 30_000
+    n, e, d = 3000, 30_000, tsp.K2_SPLIT_EDGES
     s, r = rng.integers(0, n, e), rng.integers(0, n - 100, e)
     r[:5000] = 11
+    r[(r >= 20) & (r <= 22)] = 23
+    r[9000:9000 + 3 * d] = np.repeat([20, 21, 22], [d - 1, d, d + 1])
     s[(s >= n - 200) & (s < n - 100)] = 17
     s[5000:9000] = 17
     return build_graph(None, s, r, edge_attr=rng.random((e, 8)).astype(np.float32),
@@ -689,11 +703,14 @@ def k2_corner_checks(chk, g, with_ee, gen):
     `k2_corner_graph` at C = 40, 64 and 128 (3, 2 and 1 lane groups) and 41
     (the scalar form), float32 and bf16: the hub row within the tolerance,
     the rows with no edge exact 0 (out and lse), two launches bit for bit
-    the same."""
+    the same; and K2's long-row split (`k2_split_checks`)."""
     dev = g.senders.device
     t = torch.tensor([0.7], device=dev)
     empty = (g.row_ptr[1:] == g.row_ptr[:-1]).nonzero()[:, 0]
     name = "K2 ee" if with_ee else "K2"
+    if g.split_rows != 2 or sorted(g.row_order[:2].tolist()) != [11, 22]:
+        raise AssertionError(f"corner graph: K2 splits rows {g.row_order[:g.split_rows]}, "
+                             "not the hub (11) and the row of D + 1 edges (22)")
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
         tag = "f32" if dtype == torch.float32 else "bf16"
@@ -713,6 +730,85 @@ def k2_corner_checks(chk, g, with_ee, gen):
             out2, lse2 = tsp.softmax_agg(x, g.senders, g.row_ptr, g.row_order, t, 1e-7, ee)
             chk.equal(f"{name} two launches bit for bit C={c} {tag} (out)", out2, out)
             chk.equal(f"{name} two launches bit for bit C={c} {tag} (lse)", lse2, lse)
+            k2_split_checks(chk, g, (x, g.senders, g.row_ptr, g.row_order, t, 1e-7, ee),
+                            (out, lse), (out_p, lse_p), f"{name} C={c} {tag}", tol)
+
+
+def k2_split_rows_counted(c, dtype, dev, n_split):
+    """What a K2 launch adds to `softmax_agg.split_rows`: the rows it split,
+    all ``n_split`` in the one-group layout (float32, and bf16 rows of 32
+    vector slots or more) on the card; none in the grouped bf16 layouts, and
+    none on the CPU, where the plain version runs."""
+    one_group = tsp.k2_lane_groups(c, 4 if c % 4 == 0 else 1, dtype)[1] == 1
+    return n_split if one_group and dev.type == "cuda" else 0
+
+
+def k2_split_checks(chk, g, args, unsplit, plain, name, tol):
+    """K2's long-row split: the launch of ``args`` with the graph's own
+    count of split rows (`Graph.split_rows`) and with every row split
+    (short and empty rows too) against the plain version within ``tol``,
+    bit for bit the launch that splits none (``unsplit``), and counted in
+    `softmax_agg.split_rows`."""
+    x = args[0]
+    n_rows = g.row_ptr.shape[0] - 1
+    for k, how in ((g.split_rows, "long rows"), (n_rows, "every row")):
+        before = tsp.softmax_agg.split_rows
+        out, lse = tsp.softmax_agg(*args, split_rows=k)
+        grew = tsp.softmax_agg.split_rows - before
+        want = k2_split_rows_counted(x.shape[1], x.dtype, x.device, k)
+        sname = f"{name} {how} split"
+        chk.close(f"{sname} out", out, plain[0], **tol)
+        chk.close(f"{sname} lse", lse, plain[1], **TOL_LSE)
+        chk.equal(f"{sname} bit for bit the unsplit launch (out)", out, unsplit[0])
+        chk.equal(f"{sname} bit for bit the unsplit launch (lse)", lse, unsplit[1])
+        chk.equal(f"{sname} counted ({grew} rows, {want} expected)", torch.tensor(grew),
+                  torch.tensor(want))
+
+
+def fused_split_checks(chk, g, with_ee, gen):
+    """The fused Function on `k2_corner_graph` at C = 128, float32 and bf16,
+    softmax_sg and learn_t: forward and backward with K2 splitting the
+    graph's long rows (``split_rows=g.split_rows``, as GENConv passes it)
+    against the Function on the plain versions within the phase's
+    tolerances, bit for bit the Function that splits none, and one forward's
+    split rows counted."""
+    dev = g.senders.device
+    c = 128
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x, ee, ee_csc = edge_inputs(g, c, dtype, gen)
+        ee, ee_csc = (ee, ee_csc) if with_ee else (None, None)
+        co = torch.randn(g.num_nodes_padded, c, device=dev, generator=gen)
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        for gw in (False, True):
+            res = []
+            for fn, k in ((tsp.fused_softmax_gather_agg, g.split_rows),
+                          (tsp.fused_softmax_gather_agg, 0),
+                          (tsp.fused_softmax_gather_agg_plain, g.split_rows)):
+                xx = x.detach().clone().requires_grad_(True)
+                ec = None if ee_csc is None else ee_csc.detach().clone().requires_grad_(True)
+                tt = torch.tensor([0.7], device=dev).requires_grad_(gw)
+                before = tsp.softmax_agg.split_rows
+                o = fn(xx, g.senders, g.row_ptr, g.row_order, g.csc_receivers, g.csc_col_ptr,
+                       g.csc_order, tt, ee=ee, ee_csc=ec, eps=1e-7, grad_weights=gw,
+                       split_rows=k)
+                (o.float() * co).sum().backward()
+                res.append((tsp.softmax_agg.split_rows - before,
+                            [o.detach(), xx.grad] + ([ec.grad] if with_ee else [])
+                            + ([tt.grad] if gw else [])))
+            name = (f"fused {'ee ' if with_ee else ''}{'learn_t' if gw else 'softmax_sg'} "
+                    f"long rows split C={c} {tag}")
+            tol_b = (TOL_F32 if dtype == torch.float32 else
+                     TOL_EE_LEARN_T_BF16 if gw and with_ee else TOL_BWD_BF16)
+            parts = ["out", "dx"] + (["d(ee_csc)"] if with_ee else []) + (["dt"] if gw else [])
+            for i, part in enumerate(parts):
+                lim = (tol if part == "out" else TOL_DT[tag] if part == "dt" else tol_b)
+                chk.close(f"{name} {part}", res[0][1][i], res[2][1][i], **lim)
+                chk.equal(f"{name} {part} bit for bit the unsplit Function", res[0][1][i],
+                          res[1][1][i])
+            want = k2_split_rows_counted(c, dtype, dev, g.split_rows)
+            chk.equal(f"{name} counted ({res[0][0]} rows, {want} expected)",
+                      torch.tensor(res[0][0]), torch.tensor(want))
+            del res
 
 
 def k4_corner_checks(chk, g, gen, with_ee=True):
@@ -1336,6 +1432,7 @@ def phase_edge_kernels(g):
         errs[tag] = {"K2 ee": e2, "K4": e4}
     corner = k2_corner_graph(dev)
     k2_corner_checks(chk, corner, True, gen)
+    fused_split_checks(chk, corner, True, gen)
     k4_corner_checks(chk, corner, gen)
     sync(dev)
     chk.raise_if_failed()
@@ -3016,8 +3113,71 @@ def k1_inputs(g, lo, gen):
                                    band_src)}
 
 
+# the seed of the `resgen28-arxiv-gather` benchmark cell's graph that PERF.md's
+# K2 hub timings were taken on
+K2_CELL_SEED = 2147022031
+
+
+def k2_cell_ranges(n):
+    """Host (row_ptr, senders) of the `resgen28-arxiv-gather` benchmark cell's
+    graph at ``n`` nodes (the cell's own at 169,343), and its padded node
+    count: `h100bench/traffic/arxiv-powerlaw.json`'s power-law community
+    edges drawn as `graphgen.make_inputs` draws them from `K2_CELL_SEED`,
+    made undirected with one self-loop a node and built as the harness
+    builds them."""
+    from h100bench import graphgen
+
+    with open(os.path.join(ROOT, "h100bench", "traffic", "arxiv-powerlaw.json")) as f:
+        traffic = json.load(f)
+    s, r = graphgen.GENERATORS[traffic["generator"]](
+        np.random.default_rng([K2_CELL_SEED, 0]), **{**traffic["params"], "n": n})
+    s, r = add_self_loops(*to_undirected(s, r), n)
+    g = build_graph(None, s, r, num_nodes=n, with_csc=False)
+    return g.row_ptr.numpy(), g.senders[:g.n_edge].numpy(), g.num_nodes_padded
+
+
+def _cut_rows(row_ptr, senders, keep_row, cap):
+    """Host (row_ptr, senders) of the rows in ``keep_row``, each cut to its
+    first ``cap`` edges; the other rows empty."""
+    counts = np.diff(row_ptr).astype(np.int64)
+    new = np.where(keep_row, np.minimum(counts, cap), 0)
+    pos = np.arange(senders.shape[0]) - np.repeat(row_ptr[:-1].astype(np.int64), counts)
+    rp = np.zeros(row_ptr.shape[0], np.int64)
+    np.cumsum(new, out=rp[1:])
+    return rp.astype(np.int32), senders[np.repeat(new, counts) > pos]
+
+
+def k2_cell_times(n, dev, gen, iters, res, digests=None):
+    """K2 float32 at C = 128 on `k2_cell_ranges`' graph: ``cell`` the graph as
+    the program runs it (its long rows split, `k2_split_rows`), ``cell
+    unsplit`` the same launch splitting none, ``cell rest`` every row cut to
+    its first 128 edges, ``cell hubs`` its 8 longest rows alone; each
+    variant but the unsplit one at its own count of split rows. ``digests``
+    takes a digest of ``cell``'s out and lse."""
+    rp_h, s_h, n_pad = k2_cell_ranges(n)
+    counts = np.diff(rp_h)
+    hubs = np.zeros(n_pad, bool)
+    hubs[np.argsort(-counts, kind="stable")[:8]] = True
+    x = torch.randn(n_pad, 128, device=dev, generator=gen)
+    t = torch.tensor([0.1], device=dev)
+    for name, (rp, sd) in (("cell", (rp_h, s_h)),
+                           ("cell rest", _cut_rows(rp_h, s_h, np.ones(n_pad, bool), 128)),
+                           ("cell hubs", _cut_rows(rp_h, s_h, hubs, counts.max()))):
+        k = tsp.k2_split_rows(rp)
+        args = (x, torch.from_numpy(np.ascontiguousarray(sd, np.int32)).to(dev),
+                torch.from_numpy(rp).to(dev), torch.from_numpy(longest_first(rp)).to(dev),
+                t, 1e-7)
+        res[f"K2 {name} f32"] = time_fn(lambda: tsp.softmax_agg(*args, split_rows=k), dev,
+                                        iters)
+        if name == "cell":
+            res["K2 cell unsplit f32"] = time_fn(lambda: tsp.softmax_agg(*args), dev, iters)
+            if digests is not None:
+                digests["K2 cell f32"] = _sha256(*tsp.softmax_agg(*args, split_rows=k))
+
+
 def phase_kernel_times(dev, n, cluster, iters, hashes=False):
-    """`--kernel-times`: `time_fn`'s times of K2 at C=128 on the main graph;
+    """`--kernel-times`: `time_fn`'s times of K2 at C=128 on the main graph
+    and on the benchmark cell's graph (`k2_cell_times`);
     K2 with `ee` at C=40 and 64, K4 without dt at C=40 and with dt at C=64
     on the cluster graph (phase 14's inputs); K7, K9 and K8 at 3x128, 3x256
     and 1x40 on the RevGAT graph's band with the step's hash drop (phase
@@ -3028,7 +3188,8 @@ def phase_kernel_times(dev, n, cluster, iters, hashes=False):
     each in float32 and bfloat16 unless said, as one JSON line beside the
     card's name and power limit. No check and no model
     runs. ``hashes`` (`--output-hashes`) adds a digest of each K1, K5, K6
-    (dmsg and d_el apart), K7, K8 and K9 output, so that two commits'
+    (dmsg and d_el apart), K7, K8 and K9 output and K2's on the cell's
+    graph, so that two commits'
     kernels compare bit for bit on one card."""
     res, dev_res, digests = {}, {}, {}
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -3038,6 +3199,7 @@ def phase_kernel_times(dev, n, cluster, iters, hashes=False):
         x = g.x.to(dtype).contiguous()
         res[f"K2 C=128 {tag}"] = time_fn(
             lambda: tsp.softmax_agg(x, g.senders, g.row_ptr, g.row_order, t, 1e-7), dev, iters)
+    k2_cell_times(n, dev, gen, iters, res, digests if hashes else None)
     g_main = g  # K1's main-graph shapes, timed beside the leftovers below
     gb, _, _ = band_graph(n, dev)
     k1_lo = {"band": (gb.band.fwd.lo_row_ptr, gb.band.fwd.lo_src)}
@@ -5919,7 +6081,7 @@ if __name__ == "__main__":
     from deep_gcns_torch_tpu_torch.data.synthetic import (powerlaw_community_edges,
                                                           random_node_graph)
     from deep_gcns_torch_tpu_torch.graph import (add_self_loops, attach_band, build_graph,
-                                                 to_undirected)
+                                                 longest_first, to_undirected)
     from deep_gcns_torch_tpu_torch.data import pointcloud as data_pointcloud
     from deep_gcns_torch_tpu_torch.models import (DeepGCNCls, DeepGCNConfig, DeepGCNStatic,
                                                   DeeperGCN, DeeperGCNConfig, DenseDeepGCN,

@@ -249,7 +249,8 @@ class GENConv(nn.Module):
             m = fused_softmax_gather_agg_auto(
                 xc.contiguous(), g.senders, g.row_ptr, g.row_order, g.csc_receivers,
                 g.csc_col_ptr, g.csc_order, t,
-                ee=ee, ee_csc=ee_csc, eps=self.eps, grad_weights=self.grad_w)
+                ee=ee, ee_csc=ee_csc, eps=self.eps, grad_weights=self.grad_w,
+                split_rows=g.split_rows)
             if self.aggr == "softmax_sum":
                 deg = segment_degree(g.receivers, n, g.edge_mask)
                 m = torch.pow(deg, torch.sigmoid(self.y))[:, None].to(m.dtype) * m

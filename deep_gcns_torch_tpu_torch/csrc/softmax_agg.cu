@@ -44,10 +44,12 @@
 // per edge plus the node tables (plus one streamed ee row per edge with
 // embeddings); the operations are ~10 float32 operations and one accurate
 // expf, which takes the special-function units, per (edge, channel).  The
-// latter bounds C=128 (chip_smoke.py prints the bound).  x (43 MB in bf16 at
+// latter bounds C=128 (chip_smoke.py prints the bound).  In bf16 x (43 MB at
 // ResGEN-28's shape, 2 MB at a RevGCN group's) fits the 50 MB L2, so most
-// gathered rows come from L2, and what sets the time is how many of them a
-// warp keeps in flight: each edge is a dependent senders[e] -> x[s] chain.
+// gathered rows come from L2; in float32 ResGEN-28's x is 86.7 MB, so the
+// first walk streams most of its rows from HBM and the second finds some of
+// them in L2.  Either way what sets the time is how many rows a warp keeps
+// in flight: each edge is a dependent senders[e] -> x[s] chain.
 // Lanes laid across the channels alone, 4 to a lane, leave 22 of 32 lanes
 // idle at C=40 and walk a ~60-edge row in 15 dependent steps.
 //
@@ -86,6 +88,30 @@
 // hub late in the grid ran alone after the others, and the kernel's time
 // followed the graph's largest rows.  Each row's arithmetic, and so its
 // result, is the same in either order.
+//
+// The long-row split.  Longest first cured a hub's late start, not its
+// serial walk: one warp a row, four edges in flight a lane, takes a
+// 1,105-edge row through ~277 dependent steps a walk.  On ResGEN-28's
+// float32 graph (C=128, 2.78 M edges) the kernel took 0.80 ms, the same
+// graph with every row cut to 128 edges 0.52, and its 8 longest rows alone
+// 0.47 (H100, chip_smoke.py --kernel-times).  So in the one-group layout (MULTI
+// false: float32, and bf16 rows of 32 vector slots or more) the gather forms
+// give each of the first n_split rows of `order` (those of more than
+// K2_SPLIT_EDGES edges, counted by spmm_cuda.py::k2_split_rows, longest first)
+// S = ceil(C / 32) warps, one 32-channel slice each, one channel a lane (one
+// 128-byte line an edge in float32), with kSplitU = 16 edges in flight a
+// lane: registers allow four times the one-group form's, as a lane holds
+// one channel and not four.  Each warp walks every edge of its row in edge
+// order, both walks, so each channel's shift, terms and sums are the
+// one-group walk's in the same order, and out and lse are the unsplit
+// launch's bit for bit; the slices share nothing, so nothing is merged.  One
+// launch: the grid's first n_split * S warps take the split rows, and each
+// later warp one of the remaining rows.  Measured on the H100 (700 W) at
+// that shape: 0.836 -> 0.543 ms with D = 128 (D = 64 0.558, 256 0.547; 8
+// edges in flight, or two channels a lane, within 1-3 % at their best D);
+// bf16 C=128 0.652 -> 0.472, float32 C=64 0.563 -> 0.384.  split_slice is a function of
+// its own: inlined, it left the kernel's own walk (the unsplit rows) 7-9 %
+// slower, though that walk's loops compiled to the same instructions.
 //
 // The message form (SRC == kMsgs, `dgc_softmax_agg_msgs_*`) is the TPU
 // kernel's `relu_eps=None` path (spmm_pallas.py:345-346, launched by
@@ -189,22 +215,89 @@ __device__ __forceinline__ void load_message(const T* __restrict__ x, const T* _
   }
 }
 
+// The long-row split: the edges in flight a lane
+constexpr int kSplitU = 16;
+
+// The warps that split one row: one 32-channel slice each
+__host__ __device__ __forceinline__ int split_warps(int C) { return (C + 31) / 32; }
+
+// One warp's slice of a long row (a gather form): each lane holds one channel c
+// and walks every edge of [start, end) in edge order, the max walk and then
+// the sum walk, with kSplitU edges in flight.  Each channel's shift, terms
+// and sums are the one-group walk's, in the same order, so out and lse are
+// that walk's bit for bit.  No shuffles: the lanes past C return at once.
+// Not inlined (see the head of this file).
+template <typename T, int SRC>
+__device__ __noinline__ void split_slice(const T* __restrict__ x, const T* __restrict__ ee,
+                                         const int* __restrict__ senders, int row, int start,
+                                         int end, int C, int c, float t, float eps,
+                                         T* __restrict__ out, float* __restrict__ lse) {
+  constexpr int U = kSplitU;
+  if (c >= C) return;
+  float cm = __int_as_float(0xff800000);  // -inf
+  int e = start;
+  for (; e + U <= end; e += U) {
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      load_message<T, 1, SRC>(x, ee, senders[e + u], e + u, C, c, &v[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) track_max<1, true>(&v[u], t, eps, &cm);
+  }
+  for (; e < end; ++e) {
+    float v;
+    load_message<T, 1, SRC>(x, ee, senders[e], e, C, c, &v);
+    track_max<1, true>(&v, t, eps, &cm);
+  }
+  float num = 0.f, den = 0.f;
+  for (e = start; e + U <= end; e += U) {
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      load_message<T, 1, SRC>(x, ee, senders[e + u], e + u, C, c, &v[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) accumulate<T, 1, true, true>(&v[u], &cm, t, eps, &num, &den);
+  }
+  for (; e < end; ++e) {
+    float v;
+    load_message<T, 1, SRC>(x, ee, senders[e], e, C, c, &v);
+    accumulate<T, 1, true, true>(&v, &cm, t, eps, &num, &den);
+  }
+  const long long i = (long long)row * C + c;
+  out[i] = from_f32<T>(den > 0.f ? num / den : 0.f);
+  lse[i] = den > 0.f ? __fadd_rn(cm, logf(den)) : 0.f;
+}
+
 // MULTI is false when the row takes one group (w = 32, G = 1): the layout is
 // then known at compile time and the kernel is the plain lanes-over-channels
-// walk, whose edge order is the sequential one.
+// walk, whose edge order is the sequential one.  In that layout the gather
+// forms split the first n_split rows of `order` (its longest): the grid's
+// first n_split * split_warps(C) warps walk their slices (split_slice), and
+// each later warp takes one of the remaining rows.
 template <typename T, int VEC, int SRC, bool MULTI>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 softmax_agg_kernel(const T* __restrict__ x, const T* __restrict__ ee,
                    const int* __restrict__ senders, const int* __restrict__ row_ptr,
                    const int* __restrict__ order, const float* __restrict__ t_ptr,
-                   T* __restrict__ out, float* __restrict__ lse, int n_rows, int C, int w_arg,
-                   int G_arg, float eps) {
+                   T* __restrict__ out, float* __restrict__ lse, int n_rows, int n_split,
+                   int C, int w_arg, int G_arg, float eps) {
   constexpr int U = 4;  // edges in flight a lane
   constexpr bool RELU_EPS = SRC != kMsgs;
   const int w = MULTI ? w_arg : 32;
   const int G = MULTI ? G_arg : 1;
-  const int slot = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
+  int slot = warp;
+  if constexpr (RELU_EPS && !MULTI) {
+    const int S = split_warps(C);
+    if (warp < n_split * S) {
+      const int row = order[warp / S];
+      split_slice<T, SRC>(x, ee, senders, row, row_ptr[row], row_ptr[row + 1], C,
+                          (warp % S) * 32 + lane, *t_ptr, eps, out, lse);
+      return;
+    }
+    slot = warp - n_split * S + n_split;
+  }
   if (slot >= n_rows) return;  // the whole warp: the shuffles below see 32 lanes
   const int row = SRC == kMsgs ? slot : order[slot];
   const int g = lane / w;
@@ -236,8 +329,9 @@ softmax_agg_kernel(const T* __restrict__ x, const T* __restrict__ ee,
         track_max<VEC, RELU_EPS>(v, t, eps, cm);
       }
     }
-    // every group takes the maximum over all groups (the idle lanes hold -inf)
-    {
+    // every group takes the maximum over all groups (the idle lanes hold -inf);
+    // one group has it already, and its warp needs no shuffle
+    if constexpr (MULTI) {
       float pm[VEC];
 #pragma unroll
       for (int k = 0; k < VEC; ++k) pm[k] = cm[k];
@@ -273,17 +367,19 @@ softmax_agg_kernel(const T* __restrict__ x, const T* __restrict__ ee,
       }
     }
     // the groups' partial sums, added in the order g = 0, 1, ..., G-1
-    float pn[VEC], pd[VEC];
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      pn[k] = num[k];
-      pd[k] = den[k];
-    }
-    for (int h = 1; h < G; ++h) {
+    if constexpr (MULTI) {
+      float pn[VEC], pd[VEC];
 #pragma unroll
       for (int k = 0; k < VEC; ++k) {
-        num[k] += __shfl_sync(0xffffffffu, pn[k], h * w + j);
-        den[k] += __shfl_sync(0xffffffffu, pd[k], h * w + j);
+        pn[k] = num[k];
+        pd[k] = den[k];
+      }
+      for (int h = 1; h < G; ++h) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          num[k] += __shfl_sync(0xffffffffu, pn[k], h * w + j);
+          den[k] += __shfl_sync(0xffffffffu, pd[k], h * w + j);
+        }
       }
     }
     if (on && g == 0) {
@@ -301,9 +397,10 @@ softmax_agg_kernel(const T* __restrict__ x, const T* __restrict__ ee,
 
 template <typename T, int VEC, int SRC>
 void launch_one(const void* x, const void* ee, const void* senders, const void* row_ptr,
-                const void* order, const void* t, void* out, void* lse, int n_rows, int C,
-                int w, int G, float eps, cudaStream_t s) {
-  const dim3 grid(blocks_for_rows(n_rows)), block(kWarpsPerBlock * 32);
+                const void* order, const void* t, void* out, void* lse, int n_rows,
+                int n_split, int C, int w, int G, float eps, cudaStream_t s) {
+  const int warps = n_rows - n_split + n_split * split_warps(C);
+  const dim3 grid(blocks_for_rows(warps)), block(kWarpsPerBlock * 32);
   auto kernel = softmax_agg_kernel<T, VEC, SRC, false>;
   if constexpr (sizeof(T) == 2) {  // lane groups: bf16 only (see the head of this file)
     if (G > 1) kernel = softmax_agg_kernel<T, VEC, SRC, true>;
@@ -311,15 +408,15 @@ void launch_one(const void* x, const void* ee, const void* senders, const void* 
   kernel<<<grid, block, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(ee), static_cast<const int*>(senders),
       static_cast<const int*>(row_ptr), static_cast<const int*>(order),
-      static_cast<const float*>(t), static_cast<T*>(out), static_cast<float*>(lse), n_rows, C,
-      w, G, eps);
+      static_cast<const float*>(t), static_cast<T*>(out), static_cast<float*>(lse), n_rows,
+      n_split, C, w, G, eps);
 }
 
 template <typename T, int VEC>
 void launch_vec(const void* x, const void* ee, const void* senders, const void* row_ptr,
-                const void* order, const void* t, void* out, void* lse, int n_rows, int C,
-                int w, int G, float eps, bool msgs, cudaStream_t s) {
-#define DGC_K2_ARGS x, ee, senders, row_ptr, order, t, out, lse, n_rows, C, w, G, eps, s
+                const void* order, const void* t, void* out, void* lse, int n_rows,
+                int n_split, int C, int w, int G, float eps, bool msgs, cudaStream_t s) {
+#define DGC_K2_ARGS x, ee, senders, row_ptr, order, t, out, lse, n_rows, n_split, C, w, G, eps, s
   if (msgs)
     launch_one<T, VEC, kMsgs>(DGC_K2_ARGS);
   else if (ee)
@@ -331,22 +428,25 @@ void launch_vec(const void* x, const void* ee, const void* senders, const void* 
 
 // vec: 4 or 1, as the wrapper found the rows aligned; w and G: the lane
 // groups (w * G <= 32, w * VEC >= C unless w == 32; float32 takes G = 1);
-// order: the rows in the order the warps take them; msgs: x holds one
-// materialised message row per edge (senders, ee, order and eps are not
-// read)
+// order: the rows in the order the warps take them; n_split: how many of
+// order's first rows are split over warps (the gather forms at G = 1 only;
+// 0 otherwise); msgs: x holds one materialised message row per edge
+// (senders, ee, order and eps are not read)
 template <typename T>
 int launch_softmax_agg(const void* x, const void* ee, const void* senders, const void* row_ptr,
                        const void* order, const void* t, void* out, void* lse, int n_rows,
-                       int C, int w, int G, float eps, int vec, bool msgs, void* stream) {
+                       int n_split, int C, int w, int G, float eps, int vec, bool msgs,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w < 1 || w > 32 || G < 1 || w * G > 32 || (sizeof(T) == 4 && G != 1))
+  if (w < 1 || w > 32 || G < 1 || w * G > 32 || (sizeof(T) == 4 && G != 1) || n_split < 0 ||
+      n_split > n_rows || (n_split > 0 && (G != 1 || msgs)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec == 4)
-    launch_vec<T, 4>(x, ee, senders, row_ptr, order, t, out, lse, n_rows, C, w, G, eps, msgs,
-                     s);
+    launch_vec<T, 4>(x, ee, senders, row_ptr, order, t, out, lse, n_rows, n_split, C, w, G,
+                     eps, msgs, s);
   else if (vec == 1)
-    launch_vec<T, 1>(x, ee, senders, row_ptr, order, t, out, lse, n_rows, C, w, G, eps, msgs,
-                     s);
+    launch_vec<T, 1>(x, ee, senders, row_ptr, order, t, out, lse, n_rows, n_split, C, w, G,
+                     eps, msgs, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -356,23 +456,26 @@ int launch_softmax_agg(const void* x, const void* ee, const void* senders, const
 
 // Plain C interface for ctypes.  `ee` may be null (no edge embeddings); it
 // has x's type and [E_pad, C] rows in receiver order.  `order` is a
-// permutation of [0, n_rows), longest rows first.  out has x's type, lse is float32 [n_rows, C].  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a lane
-// layout or vec the kernel does not take.
+// permutation of [0, n_rows), longest rows first; its first n_split rows are
+// split over warps (0 <= n_split <= n_rows, and 0 unless G == 1).  out has
+// x's type, lse is float32 [n_rows, C].  Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for a lane layout, vec or n_split the
+// kernel does not take.
 extern "C" int dgc_softmax_agg_f32(const void* x, const void* ee, const void* senders,
                                    const void* row_ptr, const void* order, const void* t,
-                                   void* out, void* lse, int n_rows, int C, int w, int G,
-                                   float eps, int vec, void* stream) {
-  return dgc::launch_softmax_agg<float>(x, ee, senders, row_ptr, order, t, out, lse, n_rows, C,
-                                        w, G, eps, vec, false, stream);
+                                   void* out, void* lse, int n_rows, int n_split, int C, int w,
+                                   int G, float eps, int vec, void* stream) {
+  return dgc::launch_softmax_agg<float>(x, ee, senders, row_ptr, order, t, out, lse, n_rows,
+                                        n_split, C, w, G, eps, vec, false, stream);
 }
 
 extern "C" int dgc_softmax_agg_bf16(const void* x, const void* ee, const void* senders,
                                     const void* row_ptr, const void* order, const void* t,
-                                    void* out, void* lse, int n_rows, int C, int w, int G,
-                                    float eps, int vec, void* stream) {
+                                    void* out, void* lse, int n_rows, int n_split, int C,
+                                    int w, int G, float eps, int vec, void* stream) {
   return dgc::launch_softmax_agg<__nv_bfloat16>(x, ee, senders, row_ptr, order, t, out, lse,
-                                                n_rows, C, w, G, eps, vec, false, stream);
+                                                n_rows, n_split, C, w, G, eps, vec, false,
+                                                stream);
 }
 
 // The message form: msgs [E_pad, C] of the output's type in receiver order,
@@ -381,13 +484,13 @@ extern "C" int dgc_softmax_agg_msgs_f32(const void* msgs, const void* row_ptr, c
                                         void* out, void* lse, int n_rows, int C, int w, int G,
                                         int vec, void* stream) {
   return dgc::launch_softmax_agg<float>(msgs, nullptr, nullptr, row_ptr, nullptr, t, out, lse,
-                                        n_rows, C, w, G, 0.f, vec, true, stream);
+                                        n_rows, 0, C, w, G, 0.f, vec, true, stream);
 }
 
 extern "C" int dgc_softmax_agg_msgs_bf16(const void* msgs, const void* row_ptr, const void* t,
                                          void* out, void* lse, int n_rows, int C, int w, int G,
                                          int vec, void* stream) {
   return dgc::launch_softmax_agg<__nv_bfloat16>(msgs, nullptr, nullptr, row_ptr, nullptr, t,
-                                                out, lse, n_rows, C, w, G, 0.f, vec, true,
+                                                out, lse, n_rows, 0, C, w, G, 0.f, vec, true,
                                                 stream);
 }

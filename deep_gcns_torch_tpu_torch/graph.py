@@ -12,7 +12,9 @@ conventions so that both packages build identical arrays from the same input:
   ``csc_senders``, ``csc_col_ptr``, ``csc_receivers``, ``edge_attr_csc``;
 * beside each pointer array, its rows longest first (``row_order``,
   ``csc_order``): the order in which the fused softmax kernels (K2, K4)
-  hand rows to warps, so that a hub's long walk starts in the first wave.
+  hand rows to warps, so that a hub's long walk starts in the first wave;
+  and ``split_rows``, how many of ``row_order``'s first rows K2 splits over
+  warps (`ops.spmm_cuda.k2_split_rows`).
 
 Index arrays are int32 tensors: the CUDA kernels read them as ``int``.
 `attach_band` adds the band-dense adjacency (`ops/band.BandPair`) of the
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
+from .ops.spmm_cuda import k2_split_rows
 
 _TENSOR_FIELDS = ("x", "senders", "receivers", "edge_attr", "node_mask", "edge_mask",
                   "node_graph", "row_ptr", "row_order", "csc_perm", "csc_senders",
@@ -56,6 +59,8 @@ class Graph:
     edge_attr_csc: Optional[torch.Tensor] = None  # [E_pad, Ce]
     row_order: Optional[torch.Tensor] = None      # [N_pad] int32, with row_ptr
     csc_order: Optional[torch.Tensor] = None      # [N_pad] int32, with csc_col_ptr
+    # the rows of row_order's prefix that K2 splits (ops.spmm_cuda.k2_split_rows)
+    split_rows: int = 0
     # band-dense adjacency (ops/band.BandPair) of a locality-ordered graph;
     # GENConv routes its aggregation through it when present (band_ok)
     band: Optional[Any] = None
@@ -205,6 +210,7 @@ def build_graph(
         node_graph=_tensor(ng),
         row_ptr=_tensor(rp),
         row_order=_tensor(longest_first(rp)),
+        split_rows=k2_split_rows(rp),
         csc_perm=_tensor(csc_perm),
         csc_senders=_tensor(csc_senders),
         csc_col_ptr=_tensor(csc_col_ptr),

@@ -39,10 +39,10 @@ _SIGNATURES = {
     # src, idx, ptr, out; n_rows, C, vec, w, G, stream
     "seg_sum": {name: [_P] * 4 + [_I] * 5 + [_P]
                 for name in ("dgc_seg_sum_f32", "dgc_seg_sum_bf16")},
-    # x, ee, senders, row_ptr, order, t, out, lse; n_rows, C, w, G; eps, vec,
-    # stream; the message form: msgs, row_ptr, t, out, lse; n_rows, C, w, G,
-    # vec, stream
-    "softmax_agg": {**{name: [_P] * 8 + [_I] * 4 + [_F, _I, _P]
+    # x, ee, senders, row_ptr, order, t, out, lse; n_rows, n_split, C, w, G;
+    # eps, vec, stream; the message form: msgs, row_ptr, t, out, lse; n_rows,
+    # C, w, G, vec, stream
+    "softmax_agg": {**{name: [_P] * 8 + [_I] * 5 + [_F, _I, _P]
                        for name in ("dgc_softmax_agg_f32", "dgc_softmax_agg_bf16")},
                     **{name: [_P] * 5 + [_I] * 5 + [_P]
                        for name in ("dgc_softmax_agg_msgs_f32", "dgc_softmax_agg_msgs_bf16")}},

@@ -18,6 +18,7 @@ plain version, a CUDA tensor launches the kernel (or raises). Each kernel
 wrapper counts its launches in a plain int attribute (`csr_seg_sum.launches`,
 `softmax_agg.launches` and, for its edge-embedding form,
 `softmax_agg.launches_ee`, `softmax_agg_msgs.launches` for its message form,
+with `softmax_agg.split_rows` the long rows its gather forms split over warps,
 `softmax_bwd_csc.launches`, `gat_fwd.launches`,
 `gat_bwd_csc.launches`), so a run can show that its main path went through
 the kernels.
@@ -65,6 +66,22 @@ def _check_rows(name: str, a: torch.Tensor):
 def _vec(c: int, *tensors: torch.Tensor) -> int:
     """4-wide loads when every row start is aligned for them, else scalar."""
     return 4 if c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
+
+
+# K2's long-row split: a receiver row of more than this many edges is walked
+# by ⌈C/32⌉ warps, one 32-channel slice each, in the one-group layout
+# (`csrc/softmax_agg.cu`). Chosen on an H100 from 64, 128 and 256 (PERF.md).
+K2_SPLIT_EDGES = 128
+
+
+def k2_split_rows(row_ptr) -> int:
+    """How many rows of the ranges ``row_ptr`` (host numpy, or None) K2
+    splits over warps: those of more than `K2_SPLIT_EDGES` edges, which
+    `graph.longest_first` puts first in ``row_order``. `graph.build_graph`
+    stores the count as `Graph.split_rows`."""
+    if row_ptr is None:
+        return 0
+    return int((row_ptr[1:] - row_ptr[:-1] > K2_SPLIT_EDGES).sum())
 
 
 def k2_lane_groups(c: int, vec: int, dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
@@ -229,14 +246,16 @@ def _row_softmax_terms(m: torch.Tensor, rows: torch.Tensor, n_rows: int, t: torc
 
 def softmax_agg_plain(x: torch.Tensor, senders: torch.Tensor, row_ptr: torch.Tensor,
                       row_order: Optional[torch.Tensor], t: torch.Tensor, eps: float,
-                      ee: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                      ee: Optional[torch.Tensor] = None, split_rows: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) of K2: per receiver row and channel, the softmax
     aggregation (`_row_softmax_terms`) of m = relu(x[send] [+ ee[e]]) + ε
     over the row's CSR range, shifted by the row's own maximum score.
     ``ee`` is in receiver order; out is in x's dtype, lse in float32 (float64
-    for float64 inputs). Each row is summed alone, so ``row_order`` (the
-    kernel's order of the rows) changes nothing here."""
-    del row_order
+    for float64 inputs). Each row is summed alone, so ``row_order`` and
+    ``split_rows`` (the kernel's order of the rows and its split of the
+    longest) change nothing here."""
+    del row_order, split_rows
     acc = _acc(x.dtype)
     edges, rows = _edge_rows(row_ptr)
     xj = x.index_select(0, senders[edges].long()).to(acc)
@@ -266,15 +285,21 @@ def _check_edge_rows(name: str, a: torch.Tensor, x: torch.Tensor, rows: int):
 
 def softmax_agg(x: torch.Tensor, senders: torch.Tensor, row_ptr: torch.Tensor,
                 row_order: torch.Tensor, t: torch.Tensor, eps: float,
-                ee: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                ee: Optional[torch.Tensor] = None, split_rows: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 (`csrc/softmax_agg.cu`) on a CUDA tensor; the plain version on a CPU
     one. ``row_order`` is the graph's (`Graph.row_order`): the rows longest
     first, the order in which the kernel hands them to warps. ``t`` is a
     float32 one-element tensor read on the device; ``ee`` (optional) holds
-    one row per edge slot of ``senders``, in x's dtype. Returns (out in x's
-    dtype, lse float32), both [rows of row_ptr, C]."""
+    one row per edge slot of ``senders``, in x's dtype. ``split_rows`` (the
+    graph's `Graph.split_rows`) is how many of ``row_order``'s first rows
+    the one-group layout (float32, and bf16 rows of 32 vector slots or more)
+    walks with ⌈C/32⌉ warps, one 32-channel slice each: any count gives the
+    same bits, only the pace moves. The grouped bf16 layouts split no row;
+    ``softmax_agg.split_rows`` counts the rows a launch split. Returns (out
+    in x's dtype, lse float32), both [rows of row_ptr, C]."""
     if x.device.type == "cpu":
-        return softmax_agg_plain(x, senders, row_ptr, row_order, t, eps, ee)
+        return softmax_agg_plain(x, senders, row_ptr, row_order, t, eps, ee, split_rows)
     _check_rows("x", x)
     _check_index("senders", senders, x.device)
     _check_index("row_ptr", row_ptr, x.device)
@@ -283,6 +308,7 @@ def softmax_agg(x: torch.Tensor, senders: torch.Tensor, row_ptr: torch.Tensor,
     if ee is not None:
         _check_edge_rows("ee", ee, x, senders.shape[0])
     n_rows, c = row_ptr.shape[0] - 1, x.shape[1]
+    _require(0 <= split_rows <= n_rows, f"split_rows {split_rows} outside [0, {n_rows}]")
     out = torch.empty((n_rows, c), dtype=x.dtype, device=x.device)
     lse = torch.empty((n_rows, c), dtype=torch.float32, device=x.device)
     if n_rows == 0 or c == 0:
@@ -290,21 +316,24 @@ def softmax_agg(x: torch.Tensor, senders: torch.Tensor, row_ptr: torch.Tensor,
     t = t.contiguous()
     vec = _vec(c, *((x, out, lse) if ee is None else (x, out, lse, ee)))
     w, groups = k2_lane_groups(c, vec, x.dtype)
+    n_split = split_rows if groups == 1 else 0
     fn = getattr(library("softmax_agg"), f"dgc_softmax_agg_{_SUFFIX[x.dtype]}")
     rc = fn(x.data_ptr(), None if ee is None else ee.data_ptr(), senders.data_ptr(),
             row_ptr.data_ptr(), row_order.data_ptr(), t.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), n_rows, c, w, groups, float(eps), vec,
+            out.data_ptr(), lse.data_ptr(), n_rows, n_split, c, w, groups, float(eps), vec,
             torch.cuda.current_stream(x.device).cuda_stream)
     if ee is None:
         softmax_agg.launches += 1
     else:
         softmax_agg.launches_ee += 1
+    softmax_agg.split_rows += n_split
     _raise_on(rc, "K2 softmax_agg")
     return out, lse
 
 
 softmax_agg.launches = 0     # K2 without edge embeddings
 softmax_agg.launches_ee = 0  # K2 with edge embeddings (the `has_ee` form)
+softmax_agg.split_rows = 0   # rows split over warps, summed over both forms' launches
 
 
 # ---------------------------------------------------------------------------
@@ -437,10 +466,10 @@ class _FusedSoftmaxGatherAgg(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, t, ee, ee_csc, senders, row_ptr, row_order, csc_receivers,
-                csc_col_ptr, csc_order, eps, grad_weights, ops):
+                csc_col_ptr, csc_order, eps, grad_weights, ops, split_rows):
         agg, bwd = ops
         t32 = t.detach().to(_acc(x.dtype)).reshape(1)
-        out, lse = agg(x, senders, row_ptr, row_order, t32, eps, ee)
+        out, lse = agg(x, senders, row_ptr, row_order, t32, eps, ee, split_rows)
         ctx.save_for_backward(x, t32, lse, csc_receivers, csc_col_ptr, csc_order,
                               out if grad_weights else None, ee_csc)
         ctx.eps, ctx.grad_weights, ctx.t_like = eps, grad_weights, (t.shape, t.dtype)
@@ -456,16 +485,16 @@ class _FusedSoftmaxGatherAgg(torch.autograd.Function):
                                   csc_receivers, t, ctx.eps, ctx.grad_weights)
         if dt is not None:
             dt = dt.reshape(ctx.t_like[0]).to(ctx.t_like[1])
-        return (dx, dt, None, dee) + (None,) * 9
+        return (dx, dt, None, dee) + (None,) * 10
 
 
 def _fused(ops, x, senders, row_ptr, row_order, csc_receivers, csc_col_ptr, csc_order, t, ee,
-           ee_csc, eps, grad_weights):
+           ee_csc, eps, grad_weights, split_rows):
     _require((ee is None) == (ee_csc is None),
              "edge embeddings come in both orders: pass ee and ee_csc, or neither")
     return _FusedSoftmaxGatherAgg.apply(x, t, ee, ee_csc, senders, row_ptr, row_order,
                                         csc_receivers, csc_col_ptr, csc_order, eps,
-                                        grad_weights, ops)
+                                        grad_weights, ops, split_rows)
 
 
 def fused_softmax_gather_agg(x: torch.Tensor, senders: torch.Tensor,
@@ -474,8 +503,8 @@ def fused_softmax_gather_agg(x: torch.Tensor, senders: torch.Tensor,
                              csc_order: torch.Tensor, t: torch.Tensor,
                              ee: Optional[torch.Tensor] = None,
                              ee_csc: Optional[torch.Tensor] = None,
-                             eps: float = 1e-7, grad_weights: bool = False
-                             ) -> torch.Tensor:
+                             eps: float = 1e-7, grad_weights: bool = False,
+                             split_rows: int = 0) -> torch.Tensor:
     """GENConv aggregation fused at the node level:
 
         out[n] = Σ_{e: recv=n} softmax_e(t·m_e)·m_e,   m_e = relu(x[send_e] [+ ee_e]) + ε
@@ -493,18 +522,21 @@ def fused_softmax_gather_agg(x: torch.Tensor, senders: torch.Tensor,
     ``csc_col_ptr`` (sender-sorted), so sentinel edges are never read;
     ``row_order`` and ``csc_order`` are the graph's rows of each longest
     first (`Graph.row_order`, `Graph.csc_order`), the order in which K2 and
-    K4 hand them to warps."""
+    K4 hand them to warps; K2 splits the first ``split_rows`` of
+    ``row_order`` over several warps (`Graph.split_rows`, `softmax_agg`)."""
     return _fused((softmax_agg, softmax_bwd_csc), x, senders, row_ptr, row_order,
-                  csc_receivers, csc_col_ptr, csc_order, t, ee, ee_csc, eps, grad_weights)
+                  csc_receivers, csc_col_ptr, csc_order, t, ee, ee_csc, eps, grad_weights,
+                  split_rows)
 
 
 def fused_softmax_gather_agg_plain(x, senders, row_ptr, row_order, csc_receivers, csc_col_ptr,
                                    csc_order, t, ee=None, ee_csc=None, eps: float = 1e-7,
-                                   grad_weights: bool = False):
+                                   grad_weights: bool = False, split_rows: int = 0):
     """The same Function on the plain versions of K2 and K4, on any device:
     the oracle that the kernels' forward and backward are held against."""
     return _fused((softmax_agg_plain, softmax_bwd_csc_plain), x, senders, row_ptr, row_order,
-                  csc_receivers, csc_col_ptr, csc_order, t, ee, ee_csc, eps, grad_weights)
+                  csc_receivers, csc_col_ptr, csc_order, t, ee, ee_csc, eps, grad_weights,
+                  split_rows)
 
 
 # the call site's name in the JAX package; on the GPU there are no lanes to pad

@@ -54,9 +54,11 @@ def test_kernel_times_mode_prints_one_time_per_kernel_form():
     K6 at P=392 (float32 and bfloat16), 776 and 48 (bfloat16), and K1 at
     every shape of `K1_PATHS` (gathered at C=128 in float32 and bfloat16,
     plain at C=128, the dense RevGAT leftover's 392, 776, 48 and 8, the
-    band leftover's gathered 128 and 256), K1's also as device times; with
-    `--output-hashes` a digest of each K1, K5, K6 (dmsg and d_el apart),
-    K7, K8 and K9 output; and prints no device result."""
+    band leftover's gathered 128 and 256), K1's also as device times, and
+    K2 in float32 on the benchmark cell's graph (as it is, unsplit, its rows
+    cut to 128 edges, its hubs alone); with `--output-hashes` a digest of
+    each K1, K5, K6 (dmsg and d_el apart), K7, K8 and K9 output and of K2's
+    on the cell's graph; and prints no device result."""
     import json
     import subprocess
     import sys
@@ -75,14 +77,15 @@ def test_kernel_times_mode_prints_one_time_per_kernel_form():
     k1 = {f"K1 {s}" for s in ("gather C=128 bf16", "gather C=128 f32", "plain C=128 bf16",
                               "lo C=392 bf16", "lo C=776 bf16", "lo C=48 bf16", "lo C=8 f32",
                               "band-lo C=128 bf16", "band-lo C=256 bf16")}
-    assert set(last["kernel_ms"]) == want | k5 | {f"K6 {s}" for s in csc} | k1
+    k2_cell = {f"K2 cell{v} f32" for v in ("", " unsplit", " rest", " hubs")}
+    assert set(last["kernel_ms"]) == want | k5 | {f"K6 {s}" for s in csc} | k1 | k2_cell
     assert all(v > 0 for v in last["kernel_ms"].values())
     assert set(last["kernel_device_ms"]) == k1
     assert all(v > 0 for v in last["kernel_device_ms"].values())
     assert set(last["outputs_sha256"]) == k5 | {f"K7 {s}" for s in dense} | {
         f"K9 {o} {s}" for o in ("d_el", "d_feat") for s in dense} | {
         f"K8 d_er {s}" for s in dense} | {
-        f"K6 {o} {s}" for o in ("dmsg", "d_el") for s in csc} | k1
+        f"K6 {o} {s}" for o in ("dmsg", "d_el") for s in csc} | k1 | {"K2 cell f32"}
     assert '"ok"' not in run.stdout
 
 

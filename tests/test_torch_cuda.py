@@ -756,6 +756,58 @@ def test_softmax_agg_lane_groups(cuda_device, dtype, c, with_ee):
     assert (after[0] - before[0], after[1] - before[1]) == ((0, 2) if with_ee else (2, 0))
 
 
+def _k2_split_graph(dev, seed=19, n=3000, e=30000, hub=5000):
+    """Random edges with 8-dim edge features, a hub row of ``hub`` in-edges
+    (row 11), rows of exactly D − 1, D and D + 1 in-edges (rows 20, 21 and
+    22; D = `K2_SPLIT_EDGES`), short random rows and rows with no edge (the
+    last 100 nodes receive none)."""
+    rng = np.random.default_rng(seed)
+    d = tsp.K2_SPLIT_EDGES
+    s = rng.integers(0, n, e)
+    r = np.concatenate([np.full(hub, 11), np.repeat([20, 21, 22], [d - 1, d, d + 1]),
+                        rng.integers(30, n - 100, e - hub - 3 * d)])
+    ea = rng.random((e, 8)).astype(np.float32)
+    return build_graph(None, s, r, edge_attr=ea, num_nodes=n).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [128, 64, 40, 41])
+@pytest.mark.parametrize("with_ee", [False, True])
+def test_softmax_agg_long_row_split(cuda_device, dtype, c, with_ee):
+    """K2's long-row split: the graph's own count (the 5,000-edge hub and
+    the D + 1 row; D − 1 and D stay whole) and every row split (short and
+    empty rows too) give out and lse bit for bit the launch that splits
+    none, within TOL of the plain version, exact 0 on empty rows; the
+    grouped bf16 layouts (C = 64, 40) split nothing, and `split_rows` counts
+    the rows each launch split. C = 41 is the scalar form, its last slice
+    part-filled."""
+    g = _k2_split_graph(cuda_device)
+    n_rows = g.num_nodes_padded
+    assert g.split_rows == 2 and sorted(g.row_order[:2].tolist()) == [11, 22]
+    x, ee, _ = _edge_inputs(g, c, dtype, seed=8)
+    ee = ee if with_ee else None
+    t = torch.tensor([0.7], device=cuda_device)
+    args = (x, g.senders, g.row_ptr, g.row_order, t, 1e-7, ee)
+    out0, lse0 = tsp.softmax_agg(*args)
+    out_p, lse_p = tsp.softmax_agg_plain(*args)
+    _assert_close(out0, out_p, **TOL[dtype])
+    _assert_close(lse0, lse_p, **TOL_LSE)
+    empty = (g.row_ptr[1:] == g.row_ptr[:-1]).nonzero()[:, 0]
+    assert empty.numel() >= 100
+    one_group = tsp.k2_lane_groups(c, 4 if c % 4 == 0 else 1, dtype)[1] == 1
+    assert one_group == (dtype == torch.float32 or c in (128, 41))
+    for k in (g.split_rows, n_rows):
+        before = tsp.softmax_agg.split_rows
+        out, lse = tsp.softmax_agg(*args, split_rows=k)
+        torch.cuda.synchronize()
+        assert tsp.softmax_agg.split_rows - before == (k if one_group else 0)
+        assert torch.equal(out, out0) and torch.equal(lse, lse0), k
+        assert not out[empty].any() and not lse[empty].any()
+    with pytest.raises(ValueError, match="split_rows"):
+        tsp.softmax_agg(*args, split_rows=n_rows + 1)
+
+
 def _k4_corner_graph(dev, seed=17, n=3000, e=30000, hub=4000):
     """Random edges with 8-dim edge features, a hub SENDER of ``hub``
     out-edges (node 17, one row of K4's CSC walk) and senders with no edge

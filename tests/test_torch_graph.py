@@ -110,3 +110,57 @@ def test_rows_longest_first_beside_each_pointer_array(with_csc):
         assert g.csc_col_ptr is None and g.csc_order is None
     else:
         assert int(g.csc_order[0]) == 7
+
+
+def _long_row_graph(lengths, n=400, e=1500, seed=6, **kw):
+    """Short random rows over nodes 50.., plus node i receiving exactly
+    ``lengths[i]`` edges."""
+    rng = np.random.default_rng(seed)
+    r = np.concatenate([np.repeat(np.arange(len(lengths)), lengths), rng.integers(50, n, e)])
+    s = rng.integers(0, n, r.shape[0])
+    return tg.build_graph(None, s, r, num_nodes=n, **kw)
+
+
+@pytest.mark.parametrize("lengths", [[], [128], [129], [127, 128, 129, 5000],
+                                     [300, 0, 129, 1000, 2]])
+def test_split_rows_are_the_long_prefix_of_row_order(lengths):
+    """`split_rows` counts the rows of more than K2_SPLIT_EDGES edges, and
+    `row_order` puts exactly those first: K2 splits its first split_rows."""
+    from deep_gcns_torch_tpu_torch.ops.spmm_cuda import K2_SPLIT_EDGES
+
+    g = _long_row_graph(lengths)
+    counts = np.diff(g.row_ptr.numpy())
+    k = int((counts > K2_SPLIT_EDGES).sum())
+    assert g.split_rows == k == sum(v > K2_SPLIT_EDGES for v in lengths)
+    order = g.row_order.numpy()
+    assert (counts[order[:k]] > K2_SPLIT_EDGES).all()
+    assert (counts[order[k:]] <= K2_SPLIT_EDGES).all()
+
+
+@pytest.mark.parametrize("case", ["short_rows", "no_edges", "no_row_ptr"])
+def test_split_rows_zero_without_a_long_row(case):
+    if case == "short_rows":
+        g = _long_row_graph([128, 100])
+    elif case == "no_edges":
+        g = tg.build_graph(None, np.zeros(0, int), np.zeros(0, int), num_nodes=10)
+        assert g.n_edge == 0 and g.row_ptr is not None
+    else:
+        g = _long_row_graph([500], with_row_ptr=False)
+        assert g.row_ptr is None
+    assert g.split_rows == 0
+
+
+def test_split_rows_survive_to_and_batching():
+    """The count travels with the graph to a device and is the batch's own
+    when graphs are batched (rows of 200 and 129 edges, one of 60)."""
+    g = _long_row_graph([200, 60])
+    assert g.split_rows == 1 and g.to("cpu").split_rows == 1
+    rng = np.random.default_rng(7)
+    parts = [{"num_nodes": 300, "receivers": np.repeat([3, 4], [200, 129]),
+              "senders": rng.integers(0, 300, 329)},
+             {"num_nodes": 40, "receivers": np.full(60, 2), "senders": rng.integers(0, 40, 60)},
+             {"num_nodes": 500, "receivers": np.full(140, 499),
+              "senders": rng.integers(0, 500, 140)}]
+    b = tg.batch_graphs(parts)
+    assert b.split_rows == 3 and b.to("cpu").split_rows == 3
+    assert sorted(b.row_order[:3].tolist()) == [3, 4, 340 + 499]
